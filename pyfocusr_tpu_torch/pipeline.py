@@ -1,0 +1,689 @@
+"""The FOCUSR registration of one mesh pair, end to end on one device.
+
+Counterpart of ``pyfocusr_tpu/pipeline.py``: ``PipelineConfig`` (:74),
+``GraphArrays`` (:292), ``mesh_to_graph_arrays`` (:349, unpadded, no
+patch plan), ``_masked_minmax_norm`` (:483), ``_spectrum`` (:495, the wide
+Chebyshev path with the plain ELL filter operator of :590-605),
+``_normed`` (:702), ``_warm_supported`` (:790), ``_warm_x0`` (:801),
+``register_pair`` (:842) and the default branches of ``_register_pair_jit``
+(:1381-1764):
+
+    ICP -> spectra (target cold, source warm-started from the target's
+    block) -> eigsort -> spectral coords -> low-rank CPD (dense E-step)
+    -> nearest-neighbour correspondences -> Chebyshev graph smoothing
+    -> k=3 IDW final locations.
+
+PyTorch runs eagerly, so the JAX package's single jitted program is a
+sequence of tensor operations on the device the inputs lie on; every
+nearest-neighbour query goes through the CUDA k-NN kernel on a CUDA device.
+
+Randomness is an input.  ``jax.random`` cannot be reproduced in torch, so
+every random draw the JAX program makes internally is an entry of
+``draws`` (see :func:`make_draws`): the ICP landmark subsample, the eigsort
+and CPD subsamples, the target eigensolve's initial block and the CPD
+Gram's ``omega``.  Feeding the same draws to both packages makes their runs
+comparable.
+
+Configurations that are not ported yet raise ``NotImplementedError`` naming
+their ROADMAP item: 'hungarian' correspondences, ``landmark_pairs``,
+``warm_block``, the feature flags, ``include_points_as_features``,
+``rigid_before_non_rigid_reg``, ``eig_method`` other than 'chebyshev',
+meshes under 2048 vertices, padded graphs, and CPD subsamples above 3000
+points on CUDA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .mesh import TriMesh, build_topology
+from .ops import cpd as cpd_ops
+from .ops import graph_ops
+from .ops.eigen import chebyshev_eigpairs_wide
+from .ops.icp import apply_rigid
+from .ops.icp import icp as icp_fit
+from .ops.knn import SENTINEL, idw_from_knn, knn3_masked, nn_query
+from .spectral.eigsort_device import sort_eigenmaps
+from .utils.precision import f32_matmuls
+
+__all__ = [
+    "PipelineConfig",
+    "GraphArrays",
+    "mesh_to_graph_arrays",
+    "graph_arrays_from_numpy",
+    "config_from_dict",
+    "make_draws",
+    "register_pair",
+]
+
+
+@dataclasses.dataclass(frozen=True, eq=True)
+class PipelineConfig:
+    """Registration configuration: the same fields, defaults and validation
+    as ``pyfocusr_tpu/pipeline.py:74-283`` (see there for each knob's
+    meaning and measurements)."""
+
+    icp_register_first: bool = True
+    icp_registration_mode: str = "rigid"
+    icp_iterations: int = 100
+    icp_n_landmarks: int = 2000
+    initial_correspondence_type: str = "kd"
+    final_correspondence_type: str = "kd"
+    use_features_as_coords: bool = False
+    feature_smoothing_iterations: int = 40
+    include_points_as_features: bool = False
+    norm_physical_and_spectral: bool = True
+    use_features_in_graph: bool = False
+    include_features_in_adj_matrix: bool = False
+    G_matrix_p_function: str = "exp"
+    feature_weights_diag: tuple = ()
+    icp_reg_target_to_source: bool = False
+    target_eigenmap_as_reference: bool = True
+    landmark_weight: float = 100.0
+    n_spectral_features: int = 3
+    n_extra_spectral: int = 3
+    n_coords_spectral_ordering: int = 5000
+    n_coords_spectral_registration: int = 1000
+    get_weighted_spectral_coords: bool = False
+    rigid_before_non_rigid_reg: bool = False
+    rigid_reg_max_iterations: int = 100
+    rigid_tolerance: float = 1e-8
+    non_rigid_max_iterations: int = 300
+    non_rigid_tolerance: float = 1e-8
+    non_rigid_alpha: float = 0.01
+    non_rigid_beta: float = 50.0
+    non_rigid_n_eigens: int = 100
+    non_rigid_outlier_w: float = 0.0
+    smooth_correspondences: bool = True
+    graph_smoothing_iterations: int = 300
+    projection_smooth_iterations: int = 40
+    smoothing_method: str = "chebyshev"
+    compute_mutual_consistency: bool = False
+    eig_method: str = "chebyshev"
+    eig_cg_iters: int = 300
+    eig_lanczos_iters: int = 0
+    eig_cheb_degree: int = 75
+    eig_cheb_sweeps: int = 6
+    eig_cheb_refine_cg: int = 40
+    eig_wide_block: int = 128
+    eig_wide_degree: int = 33
+    eig_wide_chunks: int = 5
+    eig_warm_start: bool = True
+    eig_wide_chunks_warm: int = 2
+    eig_wide_degree_warm: int = 33
+    eig_warm_resid_tol: float = 3e-4
+
+    def __post_init__(self):
+        if self.n_spectral_features < 1:
+            raise ValueError("n_spectral_features must be >= 1")
+        if self.n_extra_spectral < 0:
+            raise ValueError("n_extra_spectral must be >= 0")
+        if self.icp_register_first:
+            if self.icp_n_landmarks < 3:
+                raise ValueError(
+                    "icp_n_landmarks must be >= 3 (a rigid fit needs at "
+                    "least 3 points; 0 would produce a silent NaN transform)"
+                )
+            if self.icp_iterations < 1:
+                raise ValueError("icp_iterations must be >= 1")
+        if self.projection_smooth_iterations < 0:
+            raise ValueError("projection_smooth_iterations must be >= 0")
+        if self.icp_registration_mode not in ("rigid", "similarity"):
+            raise ValueError("Error invalid transform mode")
+        if self.eig_method not in ("chebyshev", "chebyshev-narrow", "lanczos"):
+            raise ValueError(
+                "eig_method must be 'chebyshev', 'chebyshev-narrow' or 'lanczos'"
+            )
+        if self.smoothing_method not in ("chebyshev", "exact"):
+            raise ValueError("smoothing_method must be 'chebyshev' or 'exact'")
+        if self.G_matrix_p_function not in ("exp", "log", "square", "shift"):
+            raise ValueError(
+                "G_matrix_p_function must be 'exp', 'log', 'square' or 'shift'"
+            )
+        for name in ("initial_correspondence_type", "final_correspondence_type"):
+            if getattr(self, name) not in ("kd", "hungarian"):
+                raise ValueError(f"{name} must be 'kd' or 'hungarian'")
+        if self.non_rigid_alpha <= 0 or self.non_rigid_beta <= 0:
+            raise ValueError("non_rigid_alpha/beta must be positive")
+        if not 0.0 <= self.non_rigid_outlier_w < 1.0:
+            raise ValueError("non_rigid_outlier_w must be in [0, 1)")
+        if self.landmark_weight <= 0:
+            raise ValueError("landmark_weight must be positive")
+        for name in (
+            "n_coords_spectral_ordering",
+            "n_coords_spectral_registration",
+            "non_rigid_max_iterations",
+            "graph_smoothing_iterations",
+            "feature_smoothing_iterations",
+            "eig_wide_block",
+            "eig_wide_degree",
+            "eig_wide_chunks",
+            "eig_wide_chunks_warm",
+            "eig_wide_degree_warm",
+        ):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+
+    @property
+    def n_total(self) -> int:
+        return self.n_spectral_features + self.n_extra_spectral
+
+
+def config_from_dict(d) -> PipelineConfig:
+    """``PipelineConfig`` from ``dataclasses.asdict`` of the JAX package's
+    config (plain values); unknown keys raise."""
+    names = {f.name for f in dataclasses.fields(PipelineConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown PipelineConfig fields: {sorted(unknown)}")
+    kw = dict(d)
+    if "feature_weights_diag" in kw:
+        kw["feature_weights_diag"] = tuple(kw["feature_weights_diag"])
+    return PipelineConfig(**kw)
+
+
+_INT_FIELDS = ("neighbors", "overflow")
+_FLOAT_FIELDS = (
+    "points", "nbr_mask", "valid_mask", "null_indicators", "node_features",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphArrays:
+    """Device-resident graph of one mesh (tensors on one device)."""
+
+    points: torch.Tensor  # f32 [N, 3]
+    neighbors: torch.Tensor  # int64 [N, D]
+    nbr_mask: torch.Tensor  # f32 [N, D]
+    valid_mask: torch.Tensor  # f32 [N]  1 = real vertex, 0 = padding
+    null_indicators: torch.Tensor  # f32 [N, C] per-component indicators
+    overflow: torch.Tensor = None  # int64 [E_o, 2] hub-vertex spill edges
+    node_features: torch.Tensor = None  # f32 [N, K]
+
+    def __post_init__(self):
+        dev = self.points.device
+        if self.node_features is None:
+            object.__setattr__(
+                self, "node_features",
+                torch.zeros((self.points.shape[0], 0), dtype=torch.float32, device=dev),
+            )
+        if self.overflow is None:
+            object.__setattr__(
+                self, "overflow", torch.zeros((0, 2), dtype=torch.int64, device=dev)
+            )
+
+    @property
+    def n_points(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+    def to(self, device) -> "GraphArrays":
+        return GraphArrays(
+            **{f.name: getattr(self, f.name).to(device)
+               for f in dataclasses.fields(self)}
+        )
+
+
+def graph_arrays_from_numpy(d, device="cpu") -> GraphArrays:
+    """``GraphArrays`` from the JAX package's ``GraphArrays`` fields given as
+    numpy arrays (a mapping name -> array; ``patch_plan`` is ignored)."""
+    kw = {}
+    for name in _FLOAT_FIELDS + _INT_FIELDS:
+        if d.get(name) is None:
+            continue
+        dtype = torch.int64 if name in _INT_FIELDS else torch.float32
+        kw[name] = torch.tensor(np.asarray(d[name])).to(dtype=dtype, device=device)
+    return GraphArrays(**kw)
+
+
+def mesh_to_graph_arrays(mesh: TriMesh, device="cpu") -> GraphArrays:
+    """Build the pipeline tensors of one mesh on ``device`` (unpadded, ELL
+    degree capped at 24 with hub overflow edges).  ``null_indicators``
+    holds one indicator column per connected component (the Laplacian
+    kernel the eigensolver deflates)."""
+    n = mesh.n_points
+    topo = build_topology(np.asarray(mesh.triangles), n)
+    indicators = np.zeros((n, max(topo.n_components, 1)), np.float32)
+    indicators[np.arange(n), topo.component_labels] = 1.0
+    return graph_arrays_from_numpy(
+        {
+            "points": np.asarray(mesh.points, np.float32),
+            "neighbors": topo.neighbors,
+            "nbr_mask": topo.nbr_mask,
+            "valid_mask": np.ones((n,), np.float32),
+            "null_indicators": indicators,
+            "overflow": topo.overflow_edges,
+        },
+        device=device,
+    )
+
+
+def _masked_minmax_norm(vecs, mask):
+    """Column min-max over real vertices only -> [-0.5, 0.5]."""
+    inf = torch.tensor(float("inf"), device=vecs.device)
+    mn = torch.where(mask[:, None] > 0, vecs, inf).min(dim=0).values
+    mx = torch.where(mask[:, None] > 0, vecs, -inf).max(dim=0).values
+    out = (vecs - mn) / torch.clamp(mx - mn, min=1e-30) - 0.5
+    return out * mask[:, None]
+
+
+def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
+              x0=None, return_block: bool = False, chunks: int = None,
+              extra_chunks: int = 0, degree: int = None, generator=None):
+    """k smallest nonzero Laplacian eigenpairs of one mesh, eigvecs min-max
+    normalized to [-0.5, 0.5], by the wide Chebyshev solver with the fused
+    ELL filter step.  Returns (lams, vecs, (w, overflow, ov_w)) and, with
+    ``return_block``, the final filtered block."""
+    mask = graph.valid_mask
+    nbrs = graph.neighbors
+    w = graph_ops.edge_weights(graph.points, nbrs, graph.nbr_mask)
+    ov = graph.overflow
+    ov_w = graph_ops.overflow_weights(graph.points, ov)
+    d = graph_ops.degree_vector(w, ov, ov_w)
+    g = torch.where(mask > 0, (d + graph_ops.DEGREE_EPS) ** -1, torch.ones_like(d))
+    s = torch.sqrt(g)
+
+    def matvec(X):
+        ax = graph_ops.sym_laplacian_matvec(
+            nbrs, w, g, X * mask[:, None], ov, ov_w, degrees=d
+        )
+        return ax * mask[:, None]
+
+    def quad_form(V):
+        return graph_ops.sym_laplacian_quad_form(
+            nbrs, w, s, V * mask[:, None], ov, ov_w
+        )
+
+    null_basis = graph.null_indicators * (1.0 / s)[:, None] * mask[:, None]
+    # Gershgorin bound of A = S(D-W)S: max_i s_i (s_i d_i + (W s)_i).
+    ws = graph_ops.spmv(nbrs, w, s, ov, ov_w)
+    lam_bound = (mask * s * (s * d + ws)).max()
+    # Fused filter operator: sw_ij = s_i w_ij s_j and s_i^2 d_i precomputed,
+    # so a step is one gather-einsum, one elementwise op and the overflow add.
+    sw = s[:, None] * w * s[nbrs]
+    sd = s * s * d * mask
+    has_ov = ov.shape[0] > 0
+    ov_sw = ov_w * s[ov[:, 0]] * s[ov[:, 1]] if has_ov else None
+
+    def factory(c, e):
+        alpha = 2.0 / e
+        w_hat = alpha * sw
+        a_diag = alpha * (sd - c * mask)
+        ov_coef = -(alpha * ov_sw)[:, None] if has_ov else None
+
+        def op(T):
+            y = a_diag[:, None] * T - torch.einsum("nd,ndc->nc", w_hat, T[nbrs])
+            if has_ov:
+                y.index_add_(0, ov[:, 0], ov_coef * T[ov[:, 1]])
+            return y
+
+        return op
+
+    out = chebyshev_eigpairs_wide(
+        matvec, null_basis, k, lam_bound, factory, quad_form,
+        init_block=init_block,
+        block_width=cfg.eig_wide_block,
+        chunk_degree=cfg.eig_wide_degree if degree is None else degree,
+        chunks=cfg.eig_wide_chunks if chunks is None else chunks,
+        subspace_mask=mask,
+        x0=x0, return_block=return_block,
+        extra_chunks=extra_chunks,
+        extra_resid_tol=cfg.eig_warm_resid_tol,
+        generator=generator,
+    )
+    lams, vecs_a = out[0], out[1]
+    vecs = vecs_a * s[:, None]
+    vecs = vecs / vecs.norm(dim=0, keepdim=True)
+    vecs = _masked_minmax_norm(vecs, mask)
+    if return_block:
+        return lams, vecs, (w, ov, ov_w), out[3]
+    return lams, vecs, (w, ov, ov_w)
+
+
+def _normed(pts):
+    mn = pts.min(dim=0).values
+    return (pts - mn) / torch.clamp(pts.max(dim=0).values - mn, min=1e-30)
+
+
+def _warm_supported(cfg: PipelineConfig, n_a: int, n_b: int) -> bool:
+    """Whether the cross-mesh spectral warm start applies (wide-chebyshev
+    path on both sides)."""
+    return (
+        cfg.eig_warm_start
+        and cfg.eig_method == "chebyshev"
+        and n_a >= 2048
+        and n_b >= 2048
+    )
+
+
+def _warm_x0(block, from_points, from_mask, to_points):
+    """Map a filtered eigensolver block between meshes: each ``to`` vertex
+    takes the block row of its spatially nearest ``from`` vertex."""
+    ref = torch.where(
+        from_mask[:, None] > 0, from_points, torch.full_like(from_points, SENTINEL)
+    )
+    _, idx = nn_query(ref, to_points)
+    return block[idx]
+
+
+def _choice(rng, n: int, m: int) -> np.ndarray:
+    """m of n indices uniformly without replacement; all of them, in
+    order, when m >= n (the JAX package's ``_rand_idxs`` rule)."""
+    if m >= n:
+        return np.arange(n, dtype=np.int64)
+    return rng.choice(n, size=m, replace=False).astype(np.int64)
+
+
+def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int):
+    """Every random input of ``register_pair``, drawn with numpy on the host
+    from ``seed`` (so CPU and CUDA runs can see identical inputs):
+
+    icp_landmarks    int64 [min(icp_n_landmarks, N_moving)]
+    eigsort_target   int64 [min(n_coords_spectral_ordering, N_t)]
+    eigsort_source   int64 [min(n_coords_spectral_ordering, N_s)]
+    cpd_source       int64 [n_reg]   rows of the source spectral cloud (X)
+    cpd_target       int64 [n_reg]   rows of the target spectral cloud (Y)
+    eig_block_target f32 [N_t, eig_wide_block]  initial eigensolver block
+    eig_block_source f32 [N_s, eig_wide_block]  only when the source solve
+                                                 is not warm-started
+    cpd_omega        f32 [n_reg, p]  Gram subspace-iteration start
+    """
+    rng = np.random.default_rng(seed)
+    draws = {}
+    if cfg.icp_register_first:
+        n_moving = n_target if cfg.icp_reg_target_to_source else n_source
+        draws["icp_landmarks"] = _choice(rng, n_moving, cfg.icp_n_landmarks)
+    draws["eigsort_target"] = _choice(rng, n_target, cfg.n_coords_spectral_ordering)
+    draws["eigsort_source"] = _choice(rng, n_source, cfg.n_coords_spectral_ordering)
+    n_reg = min(cfg.n_coords_spectral_registration, n_target, n_source)
+    draws["cpd_source"] = _choice(rng, n_source, n_reg)
+    draws["cpd_target"] = _choice(rng, n_target, n_reg)
+    draws["eig_block_target"] = rng.standard_normal(
+        (n_target, cfg.eig_wide_block)
+    ).astype(np.float32)
+    if not _warm_supported(cfg, n_target, n_source):
+        draws["eig_block_source"] = rng.standard_normal(
+            (n_source, cfg.eig_wide_block)
+        ).astype(np.float32)
+    p = min(min(cfg.non_rigid_n_eigens, n_reg) + 16, n_reg)
+    draws["cpd_omega"] = rng.standard_normal((n_reg, p)).astype(np.float32)
+    return draws
+
+
+def _draws_to(draws, device):
+    out = {}
+    for name, v in draws.items():
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+        dtype = torch.float32 if t.is_floating_point() else torch.int64
+        out[name] = t.to(dtype=dtype, device=device)
+    return out
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to pyfocusr_tpu_torch yet (ROADMAP Queue 1 "
+        f"item {item})"
+    )
+
+
+def _check_supported(target: GraphArrays, source: GraphArrays,
+                     cfg: PipelineConfig, landmark_pairs, warm_block):
+    if landmark_pairs is not None:
+        raise _not_ported("landmark_pairs (MAP CPD)", "8")
+    if warm_block is not None:
+        raise _not_ported("warm_block (class-template warm start)", "8")
+    if "hungarian" in (cfg.initial_correspondence_type,
+                       cfg.final_correspondence_type):
+        raise _not_ported("'hungarian' correspondences", "9")
+    for flag in ("use_features_as_coords", "use_features_in_graph",
+                 "include_features_in_adj_matrix"):
+        if getattr(cfg, flag):
+            raise _not_ported(flag, "8")
+    if cfg.include_points_as_features:
+        raise _not_ported("include_points_as_features", "8")
+    if cfg.rigid_before_non_rigid_reg:
+        raise _not_ported("rigid_before_non_rigid_reg (affine CPD)", "6")
+    if cfg.eig_method != "chebyshev":
+        raise _not_ported(f"eig_method={cfg.eig_method!r}", "3 and 15")
+    for graph, name in ((target, "target"), (source, "source")):
+        if graph.n_points < 2048:
+            raise _not_ported(
+                f"a {name} mesh under 2048 vertices (narrow Chebyshev solver)",
+                "3",
+            )
+        if not bool((graph.valid_mask > 0).all()):
+            raise _not_ported(f"a padded {name} graph", "13")
+    n_reg = min(cfg.n_coords_spectral_registration, target.n_points,
+                source.n_points)
+    if n_reg * n_reg > 3000 * 3000 and target.device.type == "cuda":
+        raise _not_ported(
+            f"a CPD subsample of {n_reg} points on CUDA (streamed E-step)", "10"
+        )
+
+
+@f32_matmuls
+def register_pair(target: GraphArrays, source: GraphArrays,
+                  cfg: PipelineConfig, generator: torch.Generator = None,
+                  draws=None, landmark_pairs=None, warm_block=None):
+    """Full registration of one mesh pair on the device the graphs lie on.
+
+    ``draws``: the random inputs (see :func:`make_draws`); when None they
+    are drawn from ``generator`` (a fresh generator seeded 0 when that is
+    None too).  ``generator`` also feeds the eigensolver's SVQB refill
+    noise, drawn only for a rank-deficient block.
+
+    Returns a dict with the JAX package's keys:
+    correspondences / initial_correspondences int64 [Ns],
+    nearest_points / weighted_points / average_points f32 [Ns, 3],
+    eig_vals_{target,source} [k], eig_vecs_target, eig_vecs_source_sorted,
+    spectral_coords_{target,source}, smoothed_target_coords,
+    source_projected_on_target, Q, and mutual_consistency when asked.
+    """
+    if target.device != source.device:
+        raise ValueError(
+            f"target on {target.device} but source on {source.device}"
+        )
+    _check_supported(target, source, cfg, landmark_pairs, warm_block)
+    device = target.device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    if draws is None:
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                 device=generator.device))
+        draws = make_draws(seed, cfg, target.n_points, source.n_points)
+    draws = _draws_to(draws, device)
+    stage = _StageRanges()
+    try:
+        return _register_pair(target, source, cfg, generator, draws, stage)
+    finally:
+        stage.close()
+
+
+class _StageRanges:
+    """Consecutive profiler ranges ``register_pair/<stage>``, one per stage,
+    so a ``torch.profiler`` trace attributes host and device time to the
+    stages; a few microseconds each when no profiler runs."""
+
+    def __init__(self):
+        self._open = None
+
+    def __call__(self, name: str):
+        self.close()
+        self._open = record_function(f"register_pair/{name}")
+        self._open.__enter__()
+
+    def close(self):
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+
+
+def _register_pair(target, source, cfg, generator, draws, stage):
+    device = target.device
+    k_total = cfg.n_total
+
+    # --- ICP pre-alignment: moves the source onto the target (or the
+    # target onto the source with icp_reg_target_to_source). ---
+    stage("icp")
+    if cfg.icp_register_first:
+        moving, fixed = (
+            (target, source) if cfg.icp_reg_target_to_source else (source, target)
+        )
+        fixed_q = torch.where(
+            fixed.valid_mask[:, None] > 0, fixed.points,
+            torch.full_like(fixed.points, SENTINEL),
+        )
+        (s_, R_, t_), _ = icp_fit(
+            moving.points[draws["icp_landmarks"]], fixed_q,
+            mode=cfg.icp_registration_mode, max_iterations=cfg.icp_iterations,
+        )
+        moved = apply_rigid(moving.points, s_, R_, t_)
+        moving = dataclasses.replace(
+            moving, points=moved * moving.valid_mask[:, None]
+        )
+        if cfg.icp_reg_target_to_source:
+            target = moving
+        else:
+            source = moving
+
+    stage("spectra")
+    # --- Spectra: target cold from its drawn block; the source solve is
+    # warm-started from the target's final block mapped through a spatial
+    # NN, with the residual-gated top-up. ---
+    if _warm_supported(cfg, target.n_points, source.n_points):
+        lams_t, vecs_t, w_t, blk_t = _spectrum(
+            target, k_total, cfg, draws["eig_block_target"],
+            return_block=True, generator=generator,
+        )
+        x0_s = _warm_x0(blk_t, target.points, target.valid_mask, source.points)
+        lams_s, vecs_s, w_s = _spectrum(
+            source, k_total, cfg, draws.get("eig_block_source"),
+            x0=x0_s, chunks=cfg.eig_wide_chunks_warm,
+            extra_chunks=max(cfg.eig_wide_chunks - cfg.eig_wide_chunks_warm, 0),
+            degree=cfg.eig_wide_degree_warm, generator=generator,
+        )
+    else:
+        lams_t, vecs_t, w_t = _spectrum(
+            target, k_total, cfg, draws["eig_block_target"], generator=generator
+        )
+        lams_s, vecs_s, w_s = _spectrum(
+            source, k_total, cfg, draws["eig_block_source"], generator=generator
+        )
+
+    # --- eigsort ---
+    stage("eigsort")
+    idx_t, idx_s = draws["eigsort_target"], draws["eigsort_source"]
+    sorted_vecs, Q = sort_eigenmaps(
+        lams_t, lams_s, vecs_t[idx_t], vecs_s[idx_s],
+        _normed(target.points[idx_t]), _normed(source.points[idx_s]),
+        vecs_s if cfg.target_eigenmap_as_reference else vecs_t,
+        target_as_reference=cfg.target_eigenmap_as_reference,
+    )
+    if cfg.target_eigenmap_as_reference:
+        vecs_s_sorted, vecs_t_used = sorted_vecs, vecs_t
+    else:
+        vecs_s_sorted, vecs_t_used = vecs_s, sorted_vecs
+
+    # --- Spectral coords ---
+    k_use = cfg.n_spectral_features
+    src_coords = vecs_s_sorted[:, :k_use]
+    tgt_coords = vecs_t_used[:, :k_use]
+    if cfg.get_weighted_spectral_coords:
+        lam_max = torch.maximum(lams_s[:k_use], lams_t[:k_use])
+        wspec = Q[:k_use] * lam_max
+        sigma = wspec.mean()
+        wspec = torch.exp(-(wspec**2) / (2.0 * sigma**2))
+        src_coords = src_coords * wspec[None, :]
+        tgt_coords = tgt_coords * wspec[None, :]
+    smooth_fn = (
+        graph_ops.mean_filter_chebyshev
+        if cfg.smoothing_method == "chebyshev"
+        else graph_ops.mean_filter
+    )
+
+    # --- CPD: move the target spectral cloud onto the source's ---
+    stage("cpd")
+    X = src_coords[draws["cpd_source"]]
+    Y = tgt_coords[draws["cpd_target"]]
+    num_eig = min(cfg.non_rigid_n_eigens, Y.shape[0])
+    Qg, lam_g = cpd_ops.low_rank_gaussian(
+        Y, cfg.non_rigid_beta, num_eig, draws["cpd_omega"]
+    )
+    _, z_cpd, _, _ = cpd_ops._deformable_cpd_run(
+        X, Y, Qg, lam_g, cfg.non_rigid_alpha, cfg.non_rigid_max_iterations,
+        cfg.non_rigid_tolerance, w=cfg.non_rigid_outlier_w,
+    )
+    tgt_coords_moved = cpd_ops.lowrank_transform(
+        tgt_coords, Y, Qg, lam_g, z_cpd, cfg.non_rigid_beta
+    )
+
+    # --- Initial correspondences (padding target rows never selected) ---
+    stage("correspondences")
+    tmask = target.valid_mask[:, None]
+    tgt_coords_q = torch.where(
+        tmask > 0, tgt_coords_moved, torch.full_like(tgt_coords_moved, SENTINEL)
+    )
+    _, init_corr = nn_query(tgt_coords_q, src_coords)
+    mutual = None
+    if cfg.compute_mutual_consistency:
+        src_q = torch.where(
+            source.valid_mask[:, None] > 0, src_coords,
+            torch.full_like(src_coords, SENTINEL),
+        )
+        _, rev_corr = nn_query(src_q, tgt_coords_moved)
+        arange = torch.arange(init_corr.shape[0], device=device)
+        mutual = (rev_corr[init_corr] == arange).to(torch.float32) * source.valid_mask
+
+    # --- Smoothing ---
+    stage("smoothing")
+    corr = init_corr
+    smoothed_tgt = target.points
+    projected = source.points
+    if cfg.smooth_correspondences:
+        smoothed_tgt = smooth_fn(
+            target.neighbors, w_t[0], target.points,
+            cfg.graph_smoothing_iterations, w_t[1], w_t[2],
+        )
+        projected = smooth_fn(
+            source.neighbors, w_s[0], smoothed_tgt[init_corr],
+            cfg.projection_smooth_iterations, w_s[1], w_s[2],
+        )
+
+    # --- Final locations: one k=3 query gives the final correspondence
+    # (column 0) and the IDW weights. ---
+    stage("final_knn")
+    d3, i3 = knn3_masked(smoothed_tgt, target.valid_mask, projected)
+    if cfg.smooth_correspondences:
+        corr = i3[:, 0]
+    weighted = idw_from_knn(d3, i3, target.points)
+    nearest = target.points[corr]
+    average = (source.points + weighted) / 2.0
+
+    smask = source.valid_mask[:, None]
+    svalid = source.valid_mask.to(torch.int64)
+    out = {
+        "correspondences": corr * svalid,
+        "initial_correspondences": init_corr * svalid,
+        "nearest_points": nearest * smask,
+        "weighted_points": weighted * smask,
+        "average_points": average * smask,
+        "eig_vals_target": lams_t,
+        "eig_vals_source": lams_s,
+        "eig_vecs_target": vecs_t_used * tmask,
+        "eig_vecs_source_sorted": vecs_s_sorted * smask,
+        "spectral_coords_target": tgt_coords_moved * tmask,
+        "spectral_coords_source": src_coords * smask,
+        "smoothed_target_coords": smoothed_tgt * tmask,
+        "source_projected_on_target": projected * smask,
+        "Q": Q,
+    }
+    if mutual is not None:
+        out["mutual_consistency"] = mutual
+    return out

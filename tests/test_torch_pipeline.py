@@ -1,0 +1,340 @@
+"""Port parity for the whole slice: ``pyfocusr_tpu_torch.register_pair``
+against ``pyfocusr_tpu.pipeline.register_pair`` on the 2562-vertex synthetic
+bone pair (``mesh_5k_target`` / ``mesh_5k_source``), plus the port's entry
+points and its import isolation.
+
+JAX runs its own ``register_pair`` with ``PRNGKey(0)``; the port is fed the
+draws JAX made internally, rebuilt here with ``jax.random`` from the same
+key splits (``_jax_draws``).  Both packages get the same graph through
+``graph_arrays_from_numpy`` (the JAX graph is built without a patch plan,
+so both run the same ELL filter operator).
+
+Gates, and why they are not tighter:
+* eigenvalues rtol 1e-4 and eigenvectors |cos| >= 0.9999 (mean-centred
+  columns): the spectra are solved from the same blocks;
+* final correspondences agree on >= 95% of source vertices, unique fraction
+  within 0.02: the nearest-neighbour searches differ on near-ties (JAX on
+  the CPU uses the matmul identity, the port direct differences), and the
+  eigenvector signs each framework's eigh returns may differ, which moves
+  the eigsort cost Q without changing the matching;
+* |delta weighted_points|: median <= 1e-3 mm, mean <= 0.1 mm (bone scale
+  ~80 mm, edges ~2 mm): where the correspondences agree the final
+  locations agree to f32 noise; the few percent of vertices whose
+  neighbour changed move by up to an edge length (measured means
+  0.006-0.054 mm).
+
+The runs stop CPD at |delta sigma2| <= 1e-6 instead of the default 1e-8:
+at 1e-8 the stop test sits in the f32 noise of sigma2, so the two
+frameworks (or one framework with another thread count) can stop at
+different iterations (measured under similarity ICP: 69% agreement at
+1e-8, 99.5% at 1e-6; rigid: 94-99% at 1e-8 depending on torch's thread
+count).  ``get_weighted_spectral_coords`` is held to the
+JAX run at the level of registration quality only: its weights
+exp(-(Q lam)^2 / 2 sigma^2) amplify the eigsort cost Q, and Q depends on the
+eigenvector signs each framework's eigh picks (measured: the weights differ
+by up to 6%, correspondences agree on 42%, unique fraction within 0.012).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyfocusr_tpu import metrics as JMET
+from pyfocusr_tpu import pipeline as JP
+import pyfocusr_tpu_torch as TP
+
+# One intra-op thread: torch's default of one per core oversubscribes the
+# CPU beside JAX's thread pool and the other pytest workers.
+torch.set_num_threads(1)
+
+FAST = dict(
+    icp_iterations=30,
+    non_rigid_max_iterations=40,
+    graph_smoothing_iterations=50,
+    projection_smooth_iterations=1,
+    n_coords_spectral_registration=500,
+    non_rigid_tolerance=1e-6,
+)
+BRANCHES = dict(
+    FAST,
+    icp_registration_mode="similarity",
+    icp_reg_target_to_source=True,
+    target_eigenmap_as_reference=False,
+    compute_mutual_consistency=True,
+    smoothing_method="exact",
+)
+WEIGHTED = dict(FAST, get_weighted_spectral_coords=True)
+
+
+def _jax_draws(key, cfg, tg, sg):
+    """The random inputs JAX's register_pair draws from ``key``
+    (pipeline.py:1407,1423,1520-1521,1619,1642; eigen.py:404-405;
+    cpd.py:237)."""
+    keys = jax.random.split(key, 8)
+
+    def ri(k, g, m):
+        return np.asarray(JP._rand_idxs(k, g.valid_mask, min(m, g.n_points)))
+
+    moving = tg if cfg.icp_reg_target_to_source else sg
+    n_reg = min(cfg.n_coords_spectral_registration, tg.n_points, sg.n_points)
+    p = min(min(cfg.non_rigid_n_eigens, n_reg) + 16, n_reg)
+    assert JP._warm_supported(cfg, tg, sg)  # the source solve starts from x0
+    return {
+        "icp_landmarks": ri(keys[7], moving, cfg.icp_n_landmarks),
+        "eigsort_target": ri(keys[2], tg, cfg.n_coords_spectral_ordering),
+        "eigsort_source": ri(keys[3], sg, cfg.n_coords_spectral_ordering),
+        "cpd_source": ri(keys[4], sg, n_reg),
+        "cpd_target": ri(keys[5], tg, n_reg),
+        "eig_block_target": np.asarray(jax.random.normal(
+            jax.random.split(keys[0])[1], (tg.n_points, cfg.eig_wide_block),
+            jnp.float32)),
+        "cpd_omega": np.asarray(jax.random.normal(keys[6], (n_reg, p), jnp.float32)),
+    }
+
+
+def _fields(ga):
+    return {k: np.asarray(v) for k, v in dataclasses.asdict(ga).items()
+            if k != "patch_plan"}
+
+
+@pytest.fixture(scope="module")
+def jax_pair(mesh_5k_target, mesh_5k_source):
+    return (JP.mesh_to_graph_arrays(mesh_5k_target, patch_blocks=False),
+            JP.mesh_to_graph_arrays(mesh_5k_source, patch_blocks=False))
+
+
+def _run_both(jax_pair, kw):
+    tg, sg = jax_pair
+    cfg = JP.PipelineConfig(**kw)
+    key = jax.random.PRNGKey(0)
+    want = jax.tree.map(np.asarray, JP.register_pair(tg, sg, cfg, key))
+    got = TP.register_pair(
+        TP.graph_arrays_from_numpy(_fields(tg)),
+        TP.graph_arrays_from_numpy(_fields(sg)),
+        TP.config_from_dict(dataclasses.asdict(cfg)),
+        draws=_jax_draws(key, cfg, tg, sg),
+    )
+    return want, got
+
+
+@pytest.fixture(scope="module")
+def default_runs(jax_pair):
+    return _run_both(jax_pair, FAST)
+
+
+@pytest.fixture(scope="module")
+def branch_runs(jax_pair):
+    return _run_both(jax_pair, BRANCHES)
+
+
+@pytest.fixture(scope="module")
+def weighted_runs(jax_pair):
+    return _run_both(jax_pair, WEIGHTED)
+
+
+def _check_slice(want, got):
+    assert set(got) == set(want)
+    assert got["correspondences"].dtype == torch.int64
+    g = {k: v.numpy() for k, v in got.items()}
+    for side in ("target", "source"):
+        np.testing.assert_allclose(g[f"eig_vals_{side}"], want[f"eig_vals_{side}"],
+                                   rtol=1e-4)
+    for key_ in ("eig_vecs_target", "eig_vecs_source_sorted"):
+        for c in range(want[key_].shape[1]):
+            a = want[key_][:, c] - want[key_][:, c].mean()
+            b = g[key_][:, c] - g[key_][:, c].mean()
+            cos = abs(a @ b) / (np.linalg.norm(a) * np.linalg.norm(b))
+            assert cos >= 0.9999, (key_, c, cos)
+    agree = (g["correspondences"] == want["correspondences"]).mean()
+    assert agree >= 0.95, agree
+    n = len(want["correspondences"])
+    uj = len(np.unique(want["correspondences"])) / n
+    ut = len(np.unique(g["correspondences"])) / n
+    assert abs(uj - ut) <= 0.02, (uj, ut)
+    dw = np.linalg.norm(g["weighted_points"] - want["weighted_points"], axis=1)
+    assert np.median(dw) <= 1e-3 and dw.mean() <= 0.1, (np.median(dw), dw.mean())
+    assert np.all(np.isfinite(g["weighted_points"]))
+    return g
+
+
+def test_register_pair_matches_jax(default_runs, mesh_5k_target):
+    want, got = default_runs
+    g = _check_slice(want, got)
+    tgt = np.asarray(mesh_5k_target.points, np.float32)
+    np.testing.assert_array_equal(g["nearest_points"], tgt[g["correspondences"]])
+
+
+def test_register_pair_small_branches_match_jax(branch_runs):
+    """similarity ICP moving the target, eigsort on the target's maps,
+    mutual consistency and exact smoothing."""
+    want, got = branch_runs
+    _check_slice(want, got)
+    mj, mt = want["mutual_consistency"], got["mutual_consistency"].numpy()
+    assert abs(mj.mean() - mt.mean()) <= 0.02
+
+
+def test_weighted_spectral_coords_quality_matches_jax(
+        weighted_runs, mesh_5k_target, mesh_5k_source):
+    want, got = weighted_runs
+    qj = JMET.registration_quality(mesh_5k_target, mesh_5k_source, want)
+    qt = TP.registration_quality(mesh_5k_target, mesh_5k_source, got)
+    assert abs(qj["unique_fraction"] - qt["unique_fraction"]) <= 0.02
+    assert abs(qj["symmetric_surface_dist_mm"]
+               - qt["symmetric_surface_dist_mm"]) <= 0.05
+    # The weighting the port applied is the JAX formula on the port's own
+    # Q and eigenvalues (pipeline.py:1543-1549).
+    q, lt, ls = got["Q"][:3], got["eig_vals_target"][:3], got["eig_vals_source"][:3]
+    w = q * torch.maximum(lt, ls)
+    wspec = torch.exp(-(w**2) / (2.0 * w.mean() ** 2))
+    plain = got["eig_vecs_source_sorted"][:, :3]
+    torch.testing.assert_close(got["spectral_coords_source"], plain * wspec,
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_registration_quality_matches_jax(default_runs, mesh_5k_target, mesh_5k_source):
+    # Same result through both readouts; the JAX one's XLA nearest-neighbour
+    # distances carry the matmul identity's ~1e-5 mm error before rounding
+    # to 4 decimals, hence abs 2e-4.
+    _, got = default_runs
+    res_np = {k: v.numpy() for k, v in got.items()}
+    want = JMET.registration_quality(mesh_5k_target, mesh_5k_source, res_np)
+    have = TP.registration_quality(mesh_5k_target, mesh_5k_source, got)
+    assert have.keys() == want.keys()
+    for k in want:
+        assert have[k] == pytest.approx(want[k], abs=2e-4), k
+
+
+def test_graph_arrays_and_config_round_trip(jax_pair, mesh_5k_target):
+    tg, _ = jax_pair
+    t = TP.graph_arrays_from_numpy(_fields(tg))
+    for name, arr in _fields(tg).items():
+        got = getattr(t, name).numpy()
+        np.testing.assert_array_equal(got, arr)
+        assert got.dtype == (np.int64 if name in ("neighbors", "overflow")
+                             else np.float32)
+    built = TP.mesh_to_graph_arrays(
+        TP.TriMesh(np.asarray(mesh_5k_target.points),
+                   np.asarray(mesh_5k_target.triangles)))
+    for name, arr in _fields(tg).items():
+        np.testing.assert_array_equal(getattr(built, name).numpy(), arr)
+    jcfg = JP.PipelineConfig(**BRANCHES, feature_weights_diag=(1.0, 2.0))
+    tcfg = TP.config_from_dict(dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert TP.PipelineConfig() == TP.config_from_dict(
+        dataclasses.asdict(JP.PipelineConfig()))
+    with pytest.raises(ValueError, match="unknown"):
+        TP.config_from_dict({"not_a_field": 1})
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_spectral_features=0), dict(non_rigid_outlier_w=1.0),
+    dict(icp_registration_mode="affine"), dict(smoothing_method="fast"),
+    dict(initial_correspondence_type="x"), dict(eig_wide_chunks=0),
+])
+def test_config_validation_matches_jax(kw):
+    with pytest.raises(ValueError):
+        JP.PipelineConfig(**kw)
+    with pytest.raises(ValueError):
+        TP.PipelineConfig(**kw)
+
+
+@pytest.fixture(scope="module")
+def torch_pair(jax_pair):
+    tg, sg = jax_pair
+    return (TP.graph_arrays_from_numpy(_fields(tg)),
+            TP.graph_arrays_from_numpy(_fields(sg)))
+
+
+@pytest.mark.parametrize("cfg_kw,call_kw,item", [
+    (dict(initial_correspondence_type="hungarian"), {}, "9"),
+    (dict(final_correspondence_type="hungarian"), {}, "9"),
+    ({}, dict(landmark_pairs=np.zeros((2, 2), np.int64)), "8"),
+    ({}, dict(warm_block={}), "8"),
+    (dict(use_features_as_coords=True), {}, "8"),
+    (dict(use_features_in_graph=True), {}, "8"),
+    (dict(include_features_in_adj_matrix=True), {}, "8"),
+    (dict(include_points_as_features=True), {}, "8"),
+    (dict(rigid_before_non_rigid_reg=True), {}, "6"),
+    (dict(eig_method="lanczos"), {}, "3"),
+    (dict(eig_method="chebyshev-narrow"), {}, "3"),
+])
+def test_unported_configurations_raise(torch_pair, cfg_kw, call_kw, item):
+    tg, sg = torch_pair
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        TP.register_pair(tg, sg, TP.PipelineConfig(**cfg_kw), **call_kw)
+
+
+def test_small_and_padded_meshes_raise(torch_pair):
+    tg, sg = torch_pair
+    small = dataclasses.replace(
+        sg, points=sg.points[:2000], neighbors=sg.neighbors[:2000] % 2000,
+        nbr_mask=sg.nbr_mask[:2000], valid_mask=sg.valid_mask[:2000],
+        null_indicators=sg.null_indicators[:2000],
+        node_features=sg.node_features[:2000])
+    with pytest.raises(NotImplementedError, match="2048"):
+        TP.register_pair(tg, small, TP.PipelineConfig())
+    padded = dataclasses.replace(sg, valid_mask=torch.cat(
+        [sg.valid_mask[:-5], torch.zeros(5)]))
+    with pytest.raises(NotImplementedError, match="padded"):
+        TP.register_pair(tg, padded, TP.PipelineConfig())
+
+
+def test_make_draws_shapes_and_determinism():
+    cfg = TP.PipelineConfig(n_coords_spectral_ordering=3000)
+    a = TP.make_draws(0, cfg, 2562, 2700)
+    b = TP.make_draws(0, cfg, 2562, 2700)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    assert a["icp_landmarks"].shape == (2000,)
+    np.testing.assert_array_equal(a["eigsort_target"], np.arange(2562))
+    np.testing.assert_array_equal(a["eigsort_source"], np.arange(2700))
+    assert len(np.unique(a["cpd_source"])) == 1000 and a["cpd_source"].max() < 2700
+    assert a["eig_block_target"].shape == (2562, 128)
+    assert "eig_block_source" not in a  # warm-started from the target block
+    assert a["cpd_omega"].shape == (1000, 116)
+    cold = TP.make_draws(0, TP.PipelineConfig(eig_warm_start=False), 2562, 2700)
+    assert cold["eig_block_source"].shape == (2700, 128)
+
+
+def test_draws_from_generator_are_reproducible(torch_pair):
+    """draws=None takes every draw from the generator: the same seed gives
+    the same registration."""
+    tg, sg = torch_pair
+    cfg = TP.PipelineConfig(**dict(FAST, icp_iterations=3,
+                                   non_rigid_max_iterations=5,
+                                   eig_wide_chunks=2, eig_wide_chunks_warm=1))
+    r1 = TP.register_pair(tg, sg, cfg, generator=torch.Generator().manual_seed(5))
+    r2 = TP.register_pair(tg, sg, cfg, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(r1["correspondences"], r2["correspondences"])
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """In a fresh interpreter with jax and pyfocusr_tpu made unimportable,
+    every module of the port imports, and neither appears in sys.modules."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "pyfocusr_tpu"):
+            sys.modules[name] = None  # any import of them now raises
+        import pyfocusr_tpu_torch
+        for m in pkgutil.walk_packages(pyfocusr_tpu_torch.__path__, "pyfocusr_tpu_torch."):
+            importlib.import_module(m.name)
+        bad = [n for n, mod in sys.modules.items() if mod is not None and (
+            n.split(".")[0] in ("jax", "jaxlib") or n.startswith("pyfocusr_tpu.")
+            or n == "pyfocusr_tpu")]
+        assert not bad, bad
+        print("ok")
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
