@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .ops.knn import nn_query
+from .utils.device import resolve_device
 
 __all__ = ["registration_quality", "surface_distance"]
 
@@ -32,11 +33,12 @@ def _points_of(obj, device):
 
 def surface_distance(points_a, points_b, device=None):
     """Symmetric nearest-neighbour surface distance between two point sets
-    (or meshes): ``(mean_mm, hausdorff_mm)``.  Runs on ``device``, default
-    the device of ``points_a`` when it is a tensor, else the CPU."""
+    (or meshes): ``(mean_mm, hausdorff_mm)``.  Runs on ``device``; when that
+    is None, where ``points_a`` lies if it is a tensor, else on the CUDA
+    card (raising when there is none: the CPU is taken only when named)."""
     if device is None:
         pa = getattr(points_a, "points", points_a)
-        device = pa.device if torch.is_tensor(pa) else torch.device("cpu")
+        device = pa.device if torch.is_tensor(pa) else resolve_device(None)
     a = _points_of(points_a, device)
     b = _points_of(points_b, device)
     d_ab, _ = nn_query(b, a)  # for each a-point: nearest b-point

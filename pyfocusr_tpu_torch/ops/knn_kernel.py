@@ -3,10 +3,10 @@ PyTorch version.
 
 Counterpart of ``pyfocusr_tpu/ops/pallas_kernels.py:647-796``
 (``_knn_kernel`` / ``knn_pallas``).  The CUDA C++ source is
-``csrc/knn.cu``; it is compiled for ``sm_90a`` with ``nvcc`` into a shared
-library with a plain C interface at first use, cached under
-``build/pyfocusr_tpu_torch/`` keyed on a hash of the source and the flags,
-and loaded with ``ctypes``.
+``csrc/knn.cu``; ``ops/_cuda_build.py`` compiles it for ``sm_90a`` with
+``nvcc`` into a shared library with a plain C interface at first use, cached
+under ``build/pyfocusr_tpu_torch/`` keyed on a hash of the source and the
+flags, and loads it with ``ctypes``.
 
 What bounds the kernel on the H100, and what its design does about it, is
 written at the top of ``csrc/knn.cu``: the search is issue-bound (the data
@@ -32,14 +32,10 @@ fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
+
+from ._cuda_build import CudaLibrary, require_sm90
 
 __all__ = [
     "LAUNCHES",
@@ -58,73 +54,25 @@ LAUNCHES = 0
 SUPPORTED_K = (1, 2, 3)
 MAX_D = 16
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "knn.cu"
-_BUILD_DIR = Path(
-    os.environ.get(
-        "PYFOCUSR_TPU_TORCH_BUILD_DIR",
-        Path(__file__).resolve().parents[2] / "build" / "pyfocusr_tpu_torch",
-    )
-)
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-]
-
-_lib = None
+_LIBRARY = CudaLibrary("knn.cu", "knn", "k-NN", {
+    "pyfocusr_knn_f32": [
+        ctypes.c_void_p, ctypes.c_void_p,  # ref, query
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nr nq d k
+        ctypes.c_void_p, ctypes.c_void_p,  # out_d, out_i
+        ctypes.c_int, ctypes.c_void_p,  # device, stream
+    ],
+})
 # Filled by load_library(): seconds spent in nvcc (0.0 on a cache hit) and
 # the compiler's register/shared-memory report.
 BUILD_SECONDS = None
 BUILD_LOG = ""
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the k-NN "
-        "CUDA kernel cannot be built"
-    )
-
-
 def load_library():
     """Build ``csrc/knn.cu`` if its hashed library is missing, then load it."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(
-        _SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = _BUILD_DIR / f"libpyfocusr_knn_{digest}.so"
-    BUILD_SECONDS = 0.0
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SRC}:\n{BUILD_LOG}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    lib = ctypes.CDLL(str(out))
-    fn = lib.pyfocusr_knn_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,  # ref, query
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nr nq d k
-        ctypes.c_void_p, ctypes.c_void_p,  # out_d, out_i
-        ctypes.c_int, ctypes.c_void_p,  # device, stream
-    ]
-    fn.restype = ctypes.c_int
-    _lib = lib
+    global BUILD_SECONDS, BUILD_LOG
+    lib = _LIBRARY.load()
+    BUILD_SECONDS, BUILD_LOG = _LIBRARY.build_seconds, _LIBRARY.build_log
     return lib
 
 
@@ -164,12 +112,7 @@ def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int):
     nr, nq = ref.shape[0], query.shape[0]
     if max(nr, nq) * max(d, k) >= 2**31:
         raise ValueError("knn_cuda indexes with int32: input too large")
-    cap = torch.cuda.get_device_capability(ref.device)
-    if cap != (9, 0):
-        raise RuntimeError(
-            f"knn_cuda is built for sm_90a; device {ref.device} has compute "
-            f"capability {cap}"
-        )
+    require_sm90(ref.device, "knn_cuda")
     lib = load_library()
     out_d = torch.empty((nq, k), dtype=torch.float32, device=ref.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=ref.device)

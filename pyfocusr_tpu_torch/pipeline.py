@@ -10,12 +10,15 @@ Chebyshev path with the plain ELL filter operator of :590-605),
 
     ICP -> spectra (target cold, source warm-started from the target's
     block) -> eigsort -> spectral coords -> low-rank CPD (dense E-step)
-    -> nearest-neighbour correspondences -> Chebyshev graph smoothing
-    -> k=3 IDW final locations.
+    -> correspondences ('kd': nearest neighbour; 'hungarian': one-to-one
+    assignment, :1677-1733) -> Chebyshev graph smoothing -> k=3 IDW final
+    locations.
 
 PyTorch runs eagerly, so the JAX package's single jitted program is a
-sequence of tensor operations on the device the inputs lie on; every
-nearest-neighbour query goes through the CUDA k-NN kernel on a CUDA device.
+sequence of tensor operations on the device the inputs lie on.  On a CUDA
+device every nearest-neighbour query goes through the CUDA k-NN kernel, and
+'hungarian' correspondences through the Sinkhorn and Jonker-Volgenant CUDA
+kernels (``ops/assignment.sinkhorn_jv_lap``).
 
 Randomness is an input.  ``jax.random`` cannot be reproduced in torch, so
 every random draw the JAX program makes internally is an entry of
@@ -25,9 +28,8 @@ Gram's ``omega``.  Feeding the same draws to both packages makes their runs
 comparable.
 
 Configurations that are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item: 'hungarian' correspondences, ``landmark_pairs``,
-``warm_block``, the feature flags, ``include_points_as_features``,
-``rigid_before_non_rigid_reg``, ``eig_method`` other than 'chebyshev',
+their ROADMAP item: ``landmark_pairs``, ``warm_block``, the feature flags,
+``include_points_as_features``, ``rigid_before_non_rigid_reg``, ``eig_method`` other than 'chebyshev',
 meshes under 2048 vertices, padded graphs, and CPD subsamples above 3000
 points on CUDA.
 """
@@ -43,11 +45,19 @@ from torch.profiler import record_function
 from .mesh import TriMesh, build_topology
 from .ops import cpd as cpd_ops
 from .ops import graph_ops
+from .ops.assignment import sinkhorn_jv_lap
 from .ops.eigen import chebyshev_eigpairs_wide
 from .ops.icp import apply_rigid
 from .ops.icp import icp as icp_fit
-from .ops.knn import SENTINEL, idw_from_knn, knn3_masked, nn_query
+from .ops.knn import (
+    SENTINEL,
+    idw_from_knn,
+    knn3_masked,
+    nn_query,
+    pairwise_sq_dists,
+)
 from .spectral.eigsort_device import sort_eigenmaps
+from .utils.device import resolve_device
 from .utils.precision import f32_matmuls
 
 __all__ = [
@@ -231,9 +241,11 @@ class GraphArrays:
         )
 
 
-def graph_arrays_from_numpy(d, device="cpu") -> GraphArrays:
+def graph_arrays_from_numpy(d, device=None) -> GraphArrays:
     """``GraphArrays`` from the JAX package's ``GraphArrays`` fields given as
-    numpy arrays (a mapping name -> array; ``patch_plan`` is ignored)."""
+    numpy arrays (a mapping name -> array; ``patch_plan`` is ignored), on
+    ``device``: the CUDA card by default (see ``utils.device.resolve_device``)."""
+    device = resolve_device(device)
     kw = {}
     for name in _FLOAT_FIELDS + _INT_FIELDS:
         if d.get(name) is None:
@@ -243,9 +255,10 @@ def graph_arrays_from_numpy(d, device="cpu") -> GraphArrays:
     return GraphArrays(**kw)
 
 
-def mesh_to_graph_arrays(mesh: TriMesh, device="cpu") -> GraphArrays:
-    """Build the pipeline tensors of one mesh on ``device`` (unpadded, ELL
-    degree capped at 24 with hub overflow edges).  ``null_indicators``
+def mesh_to_graph_arrays(mesh: TriMesh, device=None) -> GraphArrays:
+    """Build the pipeline tensors of one mesh on ``device``, the CUDA card
+    by default (see ``utils.device.resolve_device``); unpadded, ELL degree capped at
+    24 with hub overflow edges.  ``null_indicators``
     holds one indicator column per connected component (the Laplacian
     kernel the eigensolver deflates)."""
     n = mesh.n_points
@@ -426,6 +439,19 @@ def _draws_to(draws, device):
     return out
 
 
+def _use_hungarian(cfg: PipelineConfig) -> bool:
+    return "hungarian" in (cfg.initial_correspondence_type,
+                           cfg.final_correspondence_type)
+
+
+def _hungarian(ref_pts, query_pts):
+    """One-to-one correspondences: the reference row assigned to each query
+    row by the exact LAP on Euclidean (not squared) distances, the
+    objective of the reference's cdist + linear_sum_assignment."""
+    cost = torch.sqrt(torch.clamp(pairwise_sq_dists(query_pts, ref_pts), min=0.0))
+    return sinkhorn_jv_lap(cost)
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to pyfocusr_tpu_torch yet (ROADMAP Queue 1 "
@@ -439,9 +465,12 @@ def _check_supported(target: GraphArrays, source: GraphArrays,
         raise _not_ported("landmark_pairs (MAP CPD)", "8")
     if warm_block is not None:
         raise _not_ported("warm_block (class-template warm start)", "8")
-    if "hungarian" in (cfg.initial_correspondence_type,
-                       cfg.final_correspondence_type):
-        raise _not_ported("'hungarian' correspondences", "9")
+    if _use_hungarian(cfg) and target.n_points != source.n_points:
+        # The reference's guard: assignment is one-to-one over all rows.
+        raise ValueError(
+            "If number vertices between source & target don't match, "
+            "correspondence type must be 'kd' and not 'hungarian'."
+        )
     for flag in ("use_features_as_coords", "use_features_in_graph",
                  "include_features_in_adj_matrix"):
         if getattr(cfg, flag):
@@ -630,7 +659,10 @@ def _register_pair(target, source, cfg, generator, draws, stage):
     tgt_coords_q = torch.where(
         tmask > 0, tgt_coords_moved, torch.full_like(tgt_coords_moved, SENTINEL)
     )
-    _, init_corr = nn_query(tgt_coords_q, src_coords)
+    if cfg.initial_correspondence_type == "hungarian":
+        init_corr = _hungarian(tgt_coords_moved, src_coords)
+    else:
+        _, init_corr = nn_query(tgt_coords_q, src_coords)
     mutual = None
     if cfg.compute_mutual_consistency:
         src_q = torch.where(
@@ -655,12 +687,15 @@ def _register_pair(target, source, cfg, generator, draws, stage):
             source.neighbors, w_s[0], smoothed_tgt[init_corr],
             cfg.projection_smooth_iterations, w_s[1], w_s[2],
         )
+        if cfg.final_correspondence_type == "hungarian":
+            stage("final_hungarian")
+            corr = _hungarian(smoothed_tgt, projected)
 
-    # --- Final locations: one k=3 query gives the final correspondence
-    # (column 0) and the IDW weights. ---
+    # --- Final locations: one k=3 query gives the IDW weights and, for
+    # 'kd', the final correspondence (column 0). ---
     stage("final_knn")
     d3, i3 = knn3_masked(smoothed_tgt, target.valid_mask, projected)
-    if cfg.smooth_correspondences:
+    if cfg.smooth_correspondences and cfg.final_correspondence_type == "kd":
         corr = i3[:, 0]
     weighted = idw_from_knn(d3, i3, target.points)
     nearest = target.points[corr]

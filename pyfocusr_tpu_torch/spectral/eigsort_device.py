@@ -4,8 +4,11 @@ the two meshes' eigenvectors into corresponding order.
 Counterpart of ``pyfocusr_tpu/spectral/eigsort_jax.py:30``
 (``sort_eigenmaps_jit``).  The cost of matching target mode i with source
 mode j is c_spatial * c_lambda * c_hist, for the straight and the flipped
-source vector; the k x k assignment is solved exactly by enumeration
-(``ops.assignment.exact_lap_small``, k <= 8).  Kept from the JAX version:
+source vector; the k x k assignment is solved exactly: by enumeration for
+k <= 8 (``ops.assignment.exact_lap_small``), by the Jonker-Volgenant solver
+from zero duals beyond (``ops.assignment._jv_device``, step budget 64 k;
+the identity permutation if a row were left unassigned).  Kept from the JAX
+version:
 
 * the f32-eps clamp inside the histogram logs (``eigsort_jax.py:64``);
 * the direct-difference spatial cost (``eigsort_jax.py:105-119``), not the
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.assignment import exact_lap_small
+from ..ops.assignment import _jv_device, exact_lap_small
 from ..ops.knn import nn_query
 from ..ops.wasserstein import wasserstein_1d
 
@@ -57,11 +60,6 @@ def sort_eigenmaps(
     mesh — the source's when ``target_as_reference`` (flipped/permuted into
     the target's mode order), the target's otherwise (assignment on Q.T)."""
     k = eig_vals_target.shape[0]
-    if k > 8:
-        raise NotImplementedError(
-            "eigsort with more than 8 modes needs the device JV solver, not "
-            "ported yet (ROADMAP Queue 1 item 9)"
-        )
     eps = torch.finfo(torch.float32).eps
 
     # c_lambda, with the JAX version's guards (gap 0 -> 1, exponent <= 80).
@@ -105,8 +103,16 @@ def sort_eigenmaps(
         Q = Q.T
         S = S.T
 
-    src_of_tgt = exact_lap_small(Q)
     rows = torch.arange(k, device=Q.device)
+    if k <= 8:
+        src_of_tgt = exact_lap_small(Q)
+    else:
+        src_of_tgt, _, _, _ = _jv_device(
+            Q.contiguous(), torch.zeros_like(Q[0]), 64 * k
+        )
+        src_of_tgt = src_of_tgt.long()
+        # Safety net for the (never observed) step-budget bail.
+        src_of_tgt = torch.where((src_of_tgt < 0).any(), rows, src_of_tgt)
     Q_vec = Q[rows, src_of_tgt]
     flipped = S[rows, src_of_tgt]
     # sign[col] = -1 where that permuted-side column is a flipped match.

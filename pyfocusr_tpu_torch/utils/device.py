@@ -1,0 +1,26 @@
+"""Where the port's entry points build their tensors.
+
+No counterpart in ``pyfocusr_tpu`` (JAX places arrays on its default
+backend).  The port runs on the CUDA card unless the caller asks for the
+CPU; nothing chooses between the two silently.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on: the CUDA card when ``device`` is
+    None (raising when there is none), else exactly the device asked for.
+    The CPU is taken only when the caller names it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present: pyfocusr_tpu_torch builds on the card "
+            "by default; pass device='cpu' to build on the CPU"
+        )
+    return torch.device("cuda")
