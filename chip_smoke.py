@@ -6,11 +6,11 @@ nvcc and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from ``pyfocusr_tpu_torch/csrc/`` (k-NN,
-Sinkhorn row-logsumexp, Jonker-Volgenant; one nvcc each, started together)
-and drives two paths of ``register_pair`` on a synthetic 10242-vertex bone
-pair, on CUDA tensors, each with the kernels' launch counts set to 0 just
-before and read just after:
+It builds the four CUDA kernels from ``pyfocusr_tpu_torch/csrc/`` (k-NN,
+Sinkhorn row-logsumexp, Jonker-Volgenant, streamed CPD E-step; one nvcc
+each, started together) and drives four paths of ``register_pair`` on a
+synthetic 10242-vertex bone pair, on CUDA tensors, each with the kernels'
+launch counts set to 0 just before and read just after:
 
 * the default 'kd' path at the bench configuration (``bench.py:122-134``),
   once more under ``torch.profiler`` (per-stage host and device time, device
@@ -19,7 +19,14 @@ before and read just after:
 * the 'hungarian' path (``bench.py:558-571``: the bench configuration with
   one-to-one initial correspondences), profiled the same way, and compared
   with the same call on CPU tensors on the 2562-vertex pair (the CPU's
-  plain Sinkhorn loop would take minutes at 10242).
+  plain Sinkhorn loop would take minutes at 10242);
+* full-resolution CPD (the bench configuration with all 10242 points in
+  CPD and ``non_rigid_alpha`` scaled by N/1000, ``docs/tuning.md:8-15``):
+  the streamed E-step kernel and the tiled Gram; profiled, and compared with
+  the same call on CPU tensors with CPD capped at the same iteration count;
+* the reference's raw ``Focusr`` defaults (``pyfocusr_tpu/pipeline.py:
+  78-89``): a 5000-point CPD subsample (streamed), the affine pre-pass,
+  weighted spectral coordinates, alpha 0.5, beta 3, 1000 iterations.
 
 Each kernel is held against its plain PyTorch version on the card at the
 shapes those paths give it.  Each phase prints one JSON line; any failed
@@ -81,11 +88,38 @@ BENCH_CFG = dict(
 # The reference's 'hungarian' configuration (bench.py:558-571).
 HUNGARIAN_CFG = dict(BENCH_CFG, initial_correspondence_type="hungarian")
 
+# Full-resolution CPD: every vertex in CPD, alpha scaled by N/1000 from the
+# bench's 0.01 at 1000 points (docs/tuning.md:8-15).
+FULLRES_CFG = dict(BENCH_CFG, n_coords_spectral_registration=10242,
+                   non_rigid_alpha=0.1)
+
+# The six fields where the reference's raw Focusr.__init__ defaults differ
+# from PipelineConfig's (pyfocusr_tpu/pipeline.py:78-89), over the bench
+# configuration.
+REFERENCE_DEFAULTS_CFG = dict(
+    BENCH_CFG,
+    n_coords_spectral_registration=5000,
+    get_weighted_spectral_coords=True,
+    rigid_before_non_rigid_reg=True,
+    non_rigid_max_iterations=1000,
+    non_rigid_alpha=0.5,
+    non_rigid_beta=3.0,
+)
+
+# CPD iterations of both sides of the full-resolution CUDA-vs-CPU run: the
+# CPU's plain E-step makes two passes over 10242^2 pairs per iteration.
+FULLRES_CPU_EM_CAP = 10
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device-memory
 # bandwidth and float32 rate outside the tensor cores.  A kernel's bound is
 # the larger of its bytes over the one and its operations over the other.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# Exponentials on the special-function units: 16 per SM per clock (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) on 132 SMs at the 1.98 GHz boost clock that the f32 figure implies
+# (67e12 = 132 x 128 lanes x 2 x 1.98e9).
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 # lse kernel against its plain version: max |difference| as a fraction of
 # the cost's spread.  The JAX package holds its Pallas kernel to XLA at 2e-4
@@ -111,6 +145,18 @@ CORR_AGREE_MIN = 0.95
 UNIQUE_DIFF_MAX = 0.02
 # Eigenvalues closer than this (relative) are compared as one subspace.
 DEGENERATE_GAP = 1e-2
+# CPD E-step kernel against its plain version: each output's max |difference|
+# over the larger of 1 and the output's max |value|. The two sum in
+# different orders and the kernel contracts with FMA; a first check on the
+# card measured <= 1e-7 of that scale.
+ESTEP_TOL_OF_SCALE = 1e-5
+# Streamed EM against dense EM on the card, 8 iterations
+# (tests/test_pallas_kernels.py:71-93): moved cloud and sigma2.
+EM_TY_ATOL = 1e-3
+EM_SIGMA2_ATOL = 1e-5
+# Final CPD sigma2 of the full-resolution CUDA and CPU runs, relative: the
+# same EM iterations with sums in another order on each device.
+FULLRES_SIGMA2_RTOL = 1e-3
 
 
 def emit(obj):
@@ -387,7 +433,160 @@ def phase_jv(torch, SK, JV, TA, cost_small, cost_full):
     return results
 
 
-def quality_and_checks(tp, target_mesh, source_mesh, res, n_s):
+class CpdRecorder:
+    """Records what each ``_deformable_cpd_run`` of the pipeline returned
+    (EM iterations, final sigma2, the E-step taken) while installed; the
+    pipeline calls it through the module attribute."""
+
+    def __init__(self, cpd_ops):
+        self.mod = cpd_ops
+        self.real = cpd_ops._deformable_cpd_run
+        self.runs = []
+
+    def __enter__(self):
+        def recorded(*args, **kwargs):
+            out = self.real(*args, **kwargs)
+            self.runs.append({"iterations": int(out[3]), "sigma2": float(out[2]),
+                              "estep_impl": kwargs.get("estep_impl", "dense"),
+                              "n_control": int(args[1].shape[0])})
+            return out
+
+        self.mod._deformable_cpd_run = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._deformable_cpd_run = self.real
+
+
+def estep_bound(M: int, N: int, D: int):
+    """Least time of the two-pass E-step on the card, in ms, and what sets
+    it. Per (m, n) pair the den pass does D subtractions, D multiply-adds
+    (2 operations each), a scale, an exp and an add (3 D + 3); the row pass
+    the same distance and exp, a multiply by 1/den, an add to P1 and D
+    multiply-adds into PX (5 D + 4). The exps also bound through the
+    special-function units. Bytes: X and TY read once, den, P1 and PX
+    written once. A single pass would have to store P (8 M N bytes through
+    memory), which costs more than recomputing it."""
+    ops_ms = M * N * (8 * D + 7) / F32_OPS_PER_S * 1e3
+    exp_ms = 2 * M * N / SFU_EXP_PER_S * 1e3
+    bytes_ms = ((M + N) * D + N + M + M * D) * 4 / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, exp_ms, bytes_ms)
+    return {"bound_ms": bound, "bound_by": "bytes" if bound == bytes_ms else "operations",
+            "f32_ops_ms": ops_ms, "sfu_exp_ms": exp_ms, "bytes_ms": bytes_ms}
+
+
+def device_ms_by_kernel(torch, fn, per_call, reps: int = 20):
+    """Device milliseconds per call of ``fn`` spent in the kernels whose
+    names contain each tag of ``per_call`` (tag -> kernels of that tag one
+    call launches), from a ``torch.profiler`` trace of ``reps`` calls: the
+    card's own time, without the host's launch overhead that CUDA events
+    around a host-bound wrapper would include.  A tag's time is its mean
+    kernel duration times its kernels per call, so a trace that lost
+    events still reads right; the events seen are returned beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, seen = dict.fromkeys(per_call, 0.0), dict.fromkeys(per_call, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for tag in per_call:
+                if tag in e.name:
+                    total_us[tag] += e.time_range.elapsed_us()
+                    seen[tag] += 1
+    check(all(seen.values()), f"the profiler saw no kernel of some tag: {seen}")
+    ms = {tag: total_us[tag] / seen[tag] * per_call[tag] / 1e3 for tag in per_call}
+    return ms, {"seen": seen, "expected": {t: k * reps for t, k in per_call.items()}}
+
+
+def phase_cpd_estep(torch, EK, cpd_ops, cases):
+    """The streamed E-step kernel against ``cpd_estep_plain`` on the card at
+    the main paths' shapes (10242^2 full resolution, 5000^2 the raw
+    defaults) and widths (D = 3; D = 6 with xyz appended), at the initial
+    sigma2 of EM and at the small sigma2 a full-resolution run ends at;
+    kernel, plain and dense-E-step (P materialized) times and the bound.
+    ``kernel_ms`` is the device time of the kernel's launches by name (the
+    den pass: partial sums and their merge; the row pass: the same);
+    ``call_ms`` the whole wrapper by CUDA events, which the host's launch
+    overhead sets when it exceeds the device time."""
+    results = []
+    for name, X, TY, sigma2 in cases:
+        (N, D), M = X.shape, TY.shape[0]
+        s2 = torch.tensor(sigma2, dtype=torch.float32, device=X.device)
+        got = EK.cpd_estep_cuda(X, TY, s2)
+        want = EK.cpd_estep_plain(X, TY, s2)
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for out, g, w in zip(("Pt1", "P1", "PX", "Np", "L"), got, want):
+            check(bool(torch.isfinite(g).all()), f"E-step kernel {out} finite ({name})")
+            err = float((g - w).abs().max())
+            scale = max(1.0, float(w.abs().max()))
+            errs[out] = err
+            ok = ok and err <= ESTEP_TOL_OF_SCALE * scale
+        run_k = lambda: EK.cpd_estep_cuda(X, TY, s2)
+        run_p = lambda: EK.cpd_estep_plain(X, TY, s2)
+        p1 = cuda_ms(torch, run_p, reps=3)
+        k1 = cuda_ms(torch, run_k)
+        k2 = cuda_ms(torch, run_k)
+        p2 = cuda_ms(torch, run_p, reps=3)
+        dense = cuda_ms(torch, lambda: cpd_ops._estep(X, TY, s2, 0.0), reps=3)
+        dev, events = device_ms_by_kernel(torch, run_k, dict.fromkeys(
+            ("estep_den_partial", "estep_den_finish", "estep_row_partial",
+             "estep_sum_chunks"), 1))
+        res = {"case": name, "M": M, "N": N, "D": D, "sigma2": sigma2,
+               "max_abs_err": errs, "within_tolerance": ok,
+               "kernel_ms": sum(dev.values()),
+               "den_pass_ms": dev["estep_den_partial"] + dev["estep_den_finish"],
+               "row_pass_ms": dev["estep_row_partial"] + dev["estep_sum_chunks"],
+               "profiled_kernels": events,
+               "call_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "dense_estep_ms": dense, **estep_bound(M, N, D)}
+        check(ok, f"E-step kernel disagrees with its plain version: {res}")
+        results.append(res)
+    emit({"phase": "cpd_estep_kernel_vs_plain", "cases": results,
+          "tolerance": f"max |kernel - plain| <= {ESTEP_TOL_OF_SCALE} x max(1, max |plain|) "
+                       "per output",
+          "dense_estep_ms": "ops/cpd._estep, P [M, N] materialized: the E-step the "
+                            "pipeline takes at or under 3000^2 pairs",
+          "launches": "one E-step is two launches, the den pass and the row pass"})
+    return results
+
+
+def phase_cpd_run(torch, cpd_ops, X, Y, beta, alpha):
+    """Eight EM iterations at full resolution on the card, streamed E-step
+    (the kernel) against the dense one, from the same low-rank Gram."""
+    g = torch.Generator().manual_seed(3)
+    num_eig = 100
+    omega = torch.randn(Y.shape[0], num_eig + 16, generator=g).to(Y.device)
+    Q, lam = cpd_ops.low_rank_gaussian(Y, beta, num_eig, omega)
+    runs = {}
+    for impl in ("dense", "streamed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        TY, _, s2, it = cpd_ops._deformable_cpd_run(X, Y, Q, lam, alpha, 8, 0.0,
+                                                    estep_impl=impl)
+        torch.cuda.synchronize()
+        runs[impl] = (TY, float(s2), it, time.perf_counter() - t0)
+    ty_err = float((runs["streamed"][0] - runs["dense"][0]).abs().max())
+    s2_err = abs(runs["streamed"][1] - runs["dense"][1])
+    res = {"phase": "cpd_run_kernel_vs_dense", "M": Y.shape[0], "N": X.shape[0],
+           "iterations": [runs[k][2] for k in runs],
+           "TY_max_abs_err": ty_err, "sigma2_abs_err": s2_err,
+           "sigma2": {k: runs[k][1] for k in runs},
+           "seconds": {k: runs[k][3] for k in runs},
+           "tolerance": {"TY": EM_TY_ATOL, "sigma2": EM_SIGMA2_ATOL}}
+    emit(res)
+    check(ty_err <= EM_TY_ATOL and s2_err <= EM_SIGMA2_ATOL,
+          f"streamed EM disagrees with dense EM: {res}")
+    return res
+
+
+def quality_and_checks(tp, target_mesh, source_mesh, res, n_s, min_unique=0.6):
     import torch
 
     corr = res["correspondences"]
@@ -400,7 +599,8 @@ def quality_and_checks(tp, target_mesh, source_mesh, res, n_s):
     check(np.array_equal(res["nearest_points"].cpu().numpy(), tgt[corr.cpu().numpy()]),
           "nearest_points are the corresponding target vertices")
     q = tp.registration_quality(target_mesh, source_mesh, res)
-    check(q["unique_fraction"] > 0.6, f"unique fraction {q['unique_fraction']}")
+    if min_unique is not None:
+        check(q["unique_fraction"] > min_unique, f"unique fraction {q['unique_fraction']}")
     return q
 
 
@@ -484,7 +684,8 @@ def profile_run(torch, tp, tg, sg, cfg, draws, smi, phase, table_name):
     own_ms = {}
     for e in events:
         if e.device_type == DeviceType.CUDA:
-            for tag in ("knn_kernel", "lse_rows_kernel", "lse_cols", "jv_kernel"):
+            for tag in ("knn_kernel", "lse_rows_kernel", "lse_cols", "jv_kernel",
+                        "estep_"):
                 if tag in e.name:
                     own_ms[tag] = own_ms.get(tag, 0.0) + e.time_range.elapsed_us() / 1e3
     stages = [
@@ -524,6 +725,154 @@ def drive(torch, tp, kernels, tg, sg, cfg, draws):
     return res, first_s, warm_s, launches, torch.cuda.max_memory_allocated()
 
 
+def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
+    """The two CPD configurations on the 10242 pair (full resolution and the
+    reference's raw defaults), the E-step kernel against its plain version
+    at their inputs, streamed against dense EM, and full resolution CUDA
+    against CPU. Returns the two paths' launch counts and the kernel
+    comparison's results."""
+    from pyfocusr_tpu_torch.ops import cpd as cpd_ops
+
+    cpd_estep_kernel = kernels["cpd_estep"]
+    n_t, n_s = tg.n_points, sg.n_points
+    # --- Full-resolution CPD: all 10242 points, streamed E-step and tiled
+    # Gram ---
+    fr_cfg = tp.PipelineConfig(**FULLRES_CFG)
+    fr_draws = tp.make_draws(0, fr_cfg, n_t, n_s)
+    with CpdRecorder(cpd_ops) as rec:
+        full, fr_first_s, fr_warm_s, fr_launches, fr_peak = drive(
+            torch, tp, kernels, tg, sg, fr_cfg, fr_draws)
+    fr_cpd = rec.runs[-1]
+    q_fr = quality_and_checks(tp, target_mesh, source_mesh, full, n_s)
+    emit({
+        "phase": "register_pair_fullres_cuda",
+        "n_target": n_t, "n_source": n_s,
+        "config": "bench.py:122-134 with n_coords_spectral_registration=10242, "
+                  "non_rigid_alpha=0.1 (docs/tuning.md:8-15)",
+        "first_call_s": fr_first_s, "warm_s": fr_warm_s, "launches": fr_launches,
+        "cpd": fr_cpd, "peak_device_bytes": fr_peak, "quality": q_fr,
+    })
+    check(fr_cpd["estep_impl"] == "streamed" and fr_cpd["n_control"] == n_t,
+          f"full-resolution CPD did not stream over all points: {fr_cpd}")
+    check(fr_launches["cpd_estep"] == 2 * fr_cpd["iterations"] > 0,
+          f"E-step launches {fr_launches['cpd_estep']} != 2 x {fr_cpd['iterations']} "
+          "EM iterations")
+    emit(profile_run(torch, tp, tg, sg, fr_cfg, fr_draws, smi, "profile_fullres",
+                     "profile_register_pair_fullres.txt"))
+
+    # --- The E-step kernel against its plain version at the paths' inputs:
+    # the full-resolution run's spectral clouds (target before and after
+    # CPD), D = 3 and with xyz appended (D = 6), 10242 and 5000 points.
+    X3 = full["spectral_coords_source"].contiguous()
+    Y3 = full["eig_vecs_target"][:, :3].contiguous()
+    moved3 = full["spectral_coords_target"].contiguous()
+    xyz_s = tp.pipeline._normed_points(sg)[0]
+    xyz_t = tp.pipeline._normed_points(tg)[0]
+    X6 = torch.cat([X3, xyz_s], dim=1).contiguous()
+    Y6 = torch.cat([Y3, xyz_t], dim=1).contiguous()
+    moved6 = torch.cat([moved3, xyz_t], dim=1).contiguous()
+    late = fr_cpd["sigma2"]
+    cases = []
+    for n in (n_t, 5000):
+        for d, X, Y, moved in ((3, X3, Y3, moved3), (6, X6, Y6, moved6)):
+            Xn, Yn, mn = X[:n].contiguous(), Y[:n].contiguous(), moved[:n].contiguous()
+            cases.append((f"{n}_d{d}_initial", Xn, Yn, float(cpd_ops._init_sigma2(Xn, Yn))))
+            cases.append((f"{n}_d{d}_late", Xn, mn, late))
+    est_results = phase_cpd_estep(torch, cpd_estep_kernel, cpd_ops, cases)
+    phase_cpd_run(torch, cpd_ops, X3, Y3, FULLRES_CFG["non_rigid_beta"],
+                  FULLRES_CFG["non_rigid_alpha"])
+    del cases, X6, Y6, moved6
+    torch.cuda.empty_cache()
+
+    # --- The reference's raw Focusr defaults: 5000-point streamed CPD after
+    # the affine pre-pass, on weighted spectral coordinates ---
+    rd_cfg = tp.PipelineConfig(**REFERENCE_DEFAULTS_CFG)
+    rd_draws = tp.make_draws(0, rd_cfg, n_t, n_s)
+    with CpdRecorder(cpd_ops) as rec:
+        rres, rd_first_s, rd_warm_s, rd_launches, rd_peak = drive(
+            torch, tp, kernels, tg, sg, rd_cfg, rd_draws)
+    rd_cpd = rec.runs[-1]
+    # Quality is recorded, not gated: the raw defaults are untuned for these
+    # meshes (pyfocusr_tpu/pipeline.py:78-89 says why PipelineConfig differs).
+    q_rd = quality_and_checks(tp, target_mesh, source_mesh, rres, n_s, min_unique=None)
+    emit({
+        "phase": "register_pair_reference_defaults_cuda",
+        "n_target": n_t, "n_source": n_s,
+        "config": "bench.py:122-134 with the raw Focusr defaults of "
+                  "pyfocusr_tpu/pipeline.py:78-89",
+        "first_call_s": rd_first_s, "warm_s": rd_warm_s, "launches": rd_launches,
+        "cpd": rd_cpd, "peak_device_bytes": rd_peak, "quality": q_rd,
+    })
+    check(rd_cpd["estep_impl"] == "streamed" and rd_cpd["n_control"] == 5000,
+          f"the raw-defaults CPD did not stream over 5000 points: {rd_cpd}")
+    check(rd_launches["cpd_estep"] == 2 * rd_cpd["iterations"] > 0,
+          f"E-step launches {rd_launches['cpd_estep']} != 2 x {rd_cpd['iterations']} "
+          "EM iterations")
+    del rres
+
+    # --- Every CPD option at once: landmarks snapped from positions (on the
+    # card), xyz appended (D = 6 in CPD), the affine pre-pass, all points ---
+    lm_verts = np.array([0, 11, 640, 1300, 2561, 5000, n_t - 1])
+    pairs, snap = tp.landmark_pairs_from_positions(
+        source_mesh, target_mesh, source_mesh.points[lm_verts],
+        target_mesh.points[lm_verts])
+    check(pairs.device.type == "cuda"
+          and np.array_equal(pairs.cpu().numpy(), np.stack([lm_verts] * 2, axis=1))
+          and float(snap.abs().max()) == 0.0,
+          "landmark_pairs_from_positions did not snap mesh vertices to themselves")
+    all_cfg = tp.PipelineConfig(**dict(FULLRES_CFG, include_points_as_features=True,
+                                       rigid_before_non_rigid_reg=True))
+    all_draws = tp.make_draws(0, all_cfg, n_t, n_s, n_landmarks=len(lm_verts))
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    with CpdRecorder(cpd_ops) as rec:
+        t0 = time.perf_counter()
+        ares = tp.register_pair(tg, sg, all_cfg, draws=all_draws, landmark_pairs=pairs)
+        torch.cuda.synchronize()
+        all_s = time.perf_counter() - t0
+    all_launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    all_cpd = rec.runs[-1]
+    q_all = quality_and_checks(tp, target_mesh, source_mesh, ares, n_s, min_unique=None)
+    emit({"phase": "register_pair_cpd_options_cuda",
+          "config": "full resolution with include_points_as_features, "
+                    "rigid_before_non_rigid_reg and 7 landmark pairs",
+          "seconds": all_s, "launches": all_launches, "cpd": all_cpd,
+          "cpd_width": int(ares["spectral_coords_source"].shape[1]), "quality": q_all})
+    check(ares["spectral_coords_source"].shape[1] == 6, "xyz columns did not reach CPD")
+    check(all_cpd["estep_impl"] == "streamed"
+          and all_launches["cpd_estep"] == 2 * all_cpd["iterations"] > 0,
+          f"E-step launches {all_launches['cpd_estep']} != 2 x {all_cpd['iterations']}")
+    del ares
+
+    # --- Full resolution, CUDA against CPU, CPD capped at the same number of
+    # iterations on both (the CPU's plain E-step is two passes over 10242^2
+    # pairs per iteration) ---
+    cap_cfg = tp.PipelineConfig(**dict(FULLRES_CFG,
+                                       non_rigid_max_iterations=FULLRES_CPU_EM_CAP))
+    with CpdRecorder(cpd_ops) as rec:
+        cap_gpu = tp.register_pair(tg, sg, cap_cfg, draws=fr_draws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cap_cpu = tp.register_pair(tg.to("cpu"), sg.to("cpu"), cap_cfg, draws=fr_draws)
+        fr_cpu_s = time.perf_counter() - t0
+    cpd_gpu, cpd_cpu = rec.runs
+    agree = compare_runs(cap_gpu, cap_cpu)
+    s2_rel = abs(cpd_gpu["sigma2"] - cpd_cpu["sigma2"]) / cpd_cpu["sigma2"]
+    emit({"phase": "fullres_cuda_vs_cpu", "em_cap": FULLRES_CPU_EM_CAP,
+          "cpu_s": fr_cpu_s, "cpd_cuda": cpd_gpu, "cpd_cpu": cpd_cpu,
+          "sigma2_rel_diff": s2_rel, **agree})
+    check(cpd_gpu["iterations"] == cpd_cpu["iterations"], "CPD iterations CUDA vs CPU")
+    check(s2_rel <= FULLRES_SIGMA2_RTOL, "CPD sigma2 CUDA vs CPU")
+    check(agree["eigval_max_rel_diff"] <= EIGVAL_RTOL, "full-res eigenvalues CUDA vs CPU")
+    check(agree["eigvec_min_abs_cos"] >= COS_MIN, "full-res eigenvectors CUDA vs CPU")
+    check(agree["correspondence_agreement"] >= CORR_AGREE_MIN,
+          "full-res final correspondences CUDA vs CPU")
+    check(abs(agree["unique_fraction_gpu"] - agree["unique_fraction_cpu"])
+          <= UNIQUE_DIFF_MAX, "full-res unique fraction CUDA vs CPU")
+    del cap_gpu, cap_cpu
+    return fr_launches, rd_launches, est_results
+
+
 def main():
     import torch
 
@@ -534,9 +883,15 @@ def main():
     sys.path.insert(0, ROOT)
     import pyfocusr_tpu_torch as tp
     from pyfocusr_tpu_torch.ops import assignment as TA
-    from pyfocusr_tpu_torch.ops import jv_kernel, knn_kernel, sinkhorn_kernel
+    from pyfocusr_tpu_torch.ops import (
+        cpd_estep_kernel,
+        jv_kernel,
+        knn_kernel,
+        sinkhorn_kernel,
+    )
 
-    kernels = {"knn": knn_kernel, "lse_rows": sinkhorn_kernel, "jv": jv_kernel}
+    kernels = {"knn": knn_kernel, "lse_rows": sinkhorn_kernel, "jv": jv_kernel,
+               "cpd_estep": cpd_estep_kernel}
     smi = nvidia_smi_line()
     cap = torch.cuda.get_device_capability(0)
     emit({
@@ -629,8 +984,8 @@ def main():
     hdraws = tp.make_draws(0, hcfg, n_t, n_s)
     hres, h_first_s, h_warm_s, h_launches, h_peak = drive(
         torch, tp, kernels, tg, sg, hcfg, hdraws)
-    for name, count in h_launches.items():
-        check(count > 0, f"the 'hungarian' register_pair launched no {name} kernel")
+    for name in ("knn", "lse_rows", "jv"):
+        check(h_launches[name] > 0, f"the 'hungarian' register_pair launched no {name} kernel")
     q_h = quality_and_checks(tp, target_mesh, source_mesh, hres, n_s)
     init = hres["initial_correspondences"]
     init_unique = len(torch.unique(init)) / n_s
@@ -719,6 +1074,10 @@ def main():
           f"'hungarian' final correspondences are not one-to-one: {f_unique}")
     del fres
 
+    torch.cuda.empty_cache()
+    fr_launches, rd_launches, est_results = cpd_paths(
+        torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi)
+
     knn_main = next(r for r in knn_results if r["case"] == "xyz_k1")
     knn_ops_ms = knn_main["nq"] * knn_main["nr"] * (3 * knn_main["d"] + 1) \
         / F32_OPS_PER_S * 1e3  # sub, mul, add per dimension and one compare
@@ -729,6 +1088,10 @@ def main():
     lse_main = next(r for r in lse_results if r["n"] == n_s and r["level"] == 13
                     and not r["transpose"])
     jv_main = next(r for r in jv_results if r["n"] == n_s and r["start"] == "sinkhorn")
+    # The late sigma2 is the one most of the path's EM iterations run at.
+    est_main = next(r for r in est_results if r["case"] == f"{n_t}_d3_late")
+    est_first = next(r for r in est_results if r["case"] == f"{n_t}_d3_initial")
+    est_5000 = next(r for r in est_results if r["case"] == "5000_d3_late")
     emit({"kernels": [
         {
             "name": "knn",
@@ -783,6 +1146,34 @@ def main():
             "lap_bulk_match_ms": jv_main["bulk_match_ms"],
             "shape": f"cost {n_s}x{n_s} f32, Sinkhorn-started, "
                      f"{jv_main['n_free_rows']} free rows",
+        },
+        {
+            "name": "cpd_estep",
+            "route": "cuda",
+            "source": "pyfocusr_tpu_torch/csrc/cpd_estep.cu",
+            "replaces": "pyfocusr_tpu/ops/pallas_kernels.py:105,131,159",
+            "launches": fr_launches["cpd_estep"],
+            "launches_reference_defaults": rd_launches["cpd_estep"],
+            # Of the per-point outputs Pt1, P1, PX; the scalars Np and L apart.
+            "max_abs_err": max(r["max_abs_err"][k] for r in est_results
+                               for k in ("Pt1", "P1", "PX")),
+            "max_abs_err_Np_L": max(r["max_abs_err"][k] for r in est_results
+                                    for k in ("Np", "L")),
+            "ms": est_main["kernel_ms"],
+            "plain_ms": est_main["plain_ms"],
+            "bound_ms": est_main["bound_ms"],
+            "bound_by": est_main["bound_by"],
+            # No single PyTorch call computes the E-step; the dense E-step
+            # (P materialized, 420 MB here) is the pipeline's other route.
+            "library_ms": None,
+            "dense_estep_ms": est_main["dense_estep_ms"],
+            "call_ms": est_main["call_ms"],
+            "ms_initial_sigma2": est_first["kernel_ms"],
+            "ms_5000_d3": est_5000["kernel_ms"],
+            "bound_ms_5000_d3": est_5000["bound_ms"],
+            "shape": f"X {n_s}x3, TY {n_t}x3 f32, the full-resolution run's final "
+                     "sigma2, both passes; ms is the device time of the launches, "
+                     "call_ms the wrapper's",
         },
     ]})
     print(smi, flush=True)

@@ -11,7 +11,10 @@ Entry points:
 * :class:`PipelineConfig`, :class:`GraphArrays`,
   :func:`mesh_to_graph_arrays` and :func:`register_pair` — the
   ``register_pair`` path (``pyfocusr_tpu/pipeline.py:842``) with 'kd' or
-  'hungarian' correspondences;
+  'hungarian' correspondences, CPD at any subsample size up to full
+  resolution, the affine pre-pass, landmarks and xyz-as-features;
+* :func:`landmark_pairs_from_positions` — ``landmark_pairs`` from picked
+  landmark coordinates;
 * :func:`make_draws` — the random inputs of ``register_pair``, from a seed;
 * :func:`graph_arrays_from_numpy` / :func:`config_from_dict` — build the
   inputs from the JAX package's ``GraphArrays`` fields and config dict;
@@ -26,6 +29,7 @@ from .pipeline import (
     PipelineConfig,
     config_from_dict,
     graph_arrays_from_numpy,
+    landmark_pairs_from_positions,
     make_draws,
     mesh_to_graph_arrays,
     register_pair,
@@ -39,6 +43,7 @@ __all__ = [
     "build_topology",
     "config_from_dict",
     "graph_arrays_from_numpy",
+    "landmark_pairs_from_positions",
     "make_draws",
     "mesh_to_graph_arrays",
     "register_pair",

@@ -1,9 +1,13 @@
-"""Low-rank deformable Coherent Point Drift (Myronenko & Song 2010).
+"""Coherent Point Drift (Myronenko & Song 2010): affine and low-rank
+deformable registration.
 
 Counterpart of ``pyfocusr_tpu/ops/cpd.py``: ``gaussian_kernel`` (:64),
-``_estep`` (:69), ``_init_sigma2`` (:93), ``low_rank_gaussian`` (:198,
-the dense-Gram branch, M <= 8192), ``_deformable_cpd_run`` (:266, dense
-E-step, no landmarks) and ``lowrank_transform`` (:387).
+``_estep`` (:69), ``_init_sigma2`` (:93), ``_affine_cpd_run`` (:120),
+``low_rank_gaussian`` (:198), ``_deformable_cpd_run`` (:266, with
+``estep_impl`` and ``landmarks``) and ``lowrank_transform`` (:387); and of
+``gaussian_matvec_tiled`` (``pyfocusr_tpu/ops/pallas_kernels.py:236``).
+The cycpd-compatible classes (``affine_registration``,
+``deformable_registration``) belong to the class API and are not ported.
 
 Kept from the JAX version for f32 reasons:
 
@@ -12,11 +16,15 @@ Kept from the JAX version for f32 reasons:
 * the balanced eigenbasis M-step, (S C S + a_s2 I) z = S Q^T F, instead of
   the Woodbury form, which cancels in f32 (``cpd.py:278-296``).
 
-The dense E-step materializes P [M, N]; at the pipeline's 1000-point
-subsample that is a [1000, 1000] product left to ``torch.matmul``.  The
-streamed E-step (TPU kernel ``cpd_estep_pallas``) is not ported yet.  The
-EM loop is a Python loop whose stop test |delta sigma2| <= tol is read on
-the host each iteration, as the JAX ``while_loop`` tests it.
+Two E-steps.  The dense one (``estep_impl="dense"``) materializes P [M, N]
+and leaves the product to ``torch.matmul``; the streamed one
+(``estep_impl="streamed"``) is ``cpd_estep_kernel.cpd_estep``, the
+hand-written CUDA kernel on a CUDA device and its plain tiled version on
+the CPU, which never forms P.  The pipeline takes the streamed one when
+M N > 3000^2.  Above 8192 control points the Gram of ``low_rank_gaussian``
+is applied in row tiles and never formed either.  The EM loops are Python
+loops whose stop test |delta sigma2| <= tol is read on the host each
+iteration, as the JAX ``while_loop`` tests it.
 """
 
 from __future__ import annotations
@@ -26,10 +34,12 @@ import math
 import torch
 
 from ..utils.precision import f32_matmuls
+from .cpd_estep_kernel import cpd_estep
 from .knn import pairwise_sq_dists
 
 __all__ = [
     "gaussian_kernel",
+    "gaussian_matvec_tiled",
     "low_rank_gaussian",
     "lowrank_transform",
 ]
@@ -40,13 +50,34 @@ def gaussian_kernel(a, b, beta):
     return torch.exp(-pairwise_sq_dists(a, b) / (2.0 * beta**2))
 
 
+@f32_matmuls
+def gaussian_matvec_tiled(Y, beta, V, tile: int = 2048):
+    """Z = G V with G = exp(-|y_i - y_j|^2 / 2 beta^2), in row tiles of
+    ``tile`` so the [M, M] Gram never materializes.  The JAX function is an
+    XLA function, not a Pallas kernel, so its port is plain torch: one
+    [tile, M] slab (matmul identity, as ``gaussian_kernel``) per step."""
+    return torch.cat([
+        gaussian_kernel(Y[s : s + tile], Y, beta) @ V
+        for s in range(0, Y.shape[0], tile)
+    ])
+
+
+def _outlier_constant(sigma2, w: float, D: int, M: int, N: int):
+    """The uniform-outlier term c = (2 pi sigma2)^(D/2) w/(1-w) M/N of the
+    E-step's denominator (0 for w = 0, the reference's setting)."""
+    if w <= 0:
+        return 0.0
+    return (2.0 * math.pi * sigma2) ** (D / 2.0) * (w / (1.0 - w)) * (M / N)
+
+
 def _estep(X, TY, sigma2, w):
-    """CPD E-step.  Returns (Pt1 [N], P1 [M], PX [M, D], Np, L)."""
+    """Dense CPD E-step (P [M, N] materialized).  Returns (Pt1 [N], P1 [M],
+    PX [M, D], Np, L)."""
     M = TY.shape[0]
     N, D = X.shape
     d2 = pairwise_sq_dists(TY, X)  # [M, N]
     P = torch.exp(-d2 / (2.0 * sigma2))
-    c = (2.0 * math.pi * sigma2) ** (D / 2.0) * (w / (1.0 - w)) * (M / N) if w > 0 else 0.0
+    c = _outlier_constant(sigma2, w, D, M, N)
     den = torch.clamp(P.sum(dim=0) + c, min=1e-30)
     L = -torch.log(den).sum() + D * N * torch.log(sigma2) / 2.0
     P = P / den[None, :]
@@ -73,25 +104,33 @@ def _init_sigma2(X, Y):
     return torch.clamp(total, min=0.0) / (D * M * N)
 
 
+# Above this many points low_rank_gaussian applies the Gram in row tiles
+# (cpd.py:212 of the JAX package).
+_DENSE_GRAM_MAX_M = 8192
+
+
 @f32_matmuls
 def low_rank_gaussian(Y, beta, num_eig: int, omega):
     """Top-``num_eig`` eigenpairs of the M x M Gaussian Gram of Y by
     randomized subspace iteration from the caller's f32 [M, >= p] normal
     block ``omega`` (p = min(num_eig + 16, M)).  Returns (Q [M, k], lam [k])
-    with G ~ Q diag(lam) Q^T; negative noise-floor estimates clamp to 0."""
+    with G ~ Q diag(lam) Q^T; negative noise-floor estimates clamp to 0.
+    Above 8192 points the Gram is applied by ``gaussian_matvec_tiled``."""
     M = Y.shape[0]
-    if M > 8192:
-        raise NotImplementedError(
-            "low_rank_gaussian above 8192 points needs the tiled Gram "
-            "matvec, not ported yet (ROADMAP Queue 1 item 10)"
-        )
-    G = gaussian_kernel(Y, Y, beta)
+    if M <= _DENSE_GRAM_MAX_M:
+        G = gaussian_kernel(Y, Y, beta)
+
+        def gmat(V):
+            return G @ V
+    else:  # the [M, M] Gram is applied in row tiles, never formed
+        def gmat(V):
+            return gaussian_matvec_tiled(Y, beta, V)
+
     p = min(num_eig + 16, M)
-    Z = G @ omega[:, :p].to(Y.dtype)
-    Qb, _ = torch.linalg.qr(Z)
+    Qb, _ = torch.linalg.qr(gmat(omega[:, :p].to(Y.dtype)))
     for _ in range(2):  # subspace iterations sharpen the small eigenvalues
-        Qb, _ = torch.linalg.qr(G @ Qb)
-    H = Qb.T @ (G @ Qb)
+        Qb, _ = torch.linalg.qr(gmat(Qb))
+    H = Qb.T @ gmat(Qb)
     H = 0.5 * (H + H.T)
     lam, S = torch.linalg.eigh(H)  # ascending
     lam = torch.flip(lam, dims=[0])[:num_eig]
@@ -106,12 +145,54 @@ def _sqrt_lam_gated(lam, dtype):
 
 
 @f32_matmuls
+def _affine_cpd_run(X, Y, max_iterations: int, tolerance: float, w: float = 0.0):
+    """Affine CPD with the dense E-step: moves Y onto X by TY = Y B^T + t.
+    Returns (TY, B, t, sigma2, iterations)."""
+    N, D = X.shape
+    sigma2 = _init_sigma2(X, Y)
+    B = torch.eye(D, dtype=X.dtype, device=X.device)
+    t = torch.zeros((D,), dtype=X.dtype, device=X.device)
+    it = 0
+    err = torch.tensor(float("inf"), dtype=X.dtype, device=X.device)
+    while it < max_iterations and bool(err > tolerance):
+        TY = Y @ B.T + t[None, :]
+        Pt1, P1, PX, Np, _ = _estep(X, TY, sigma2, w)
+        mu_x = (X.T @ Pt1) / Np
+        mu_y = (Y.T @ P1) / Np
+        Xh = X - mu_x[None, :]
+        Yh = Y - mu_y[None, :]
+        # A = Xh^T P^T Yh from PX, without a second pass over P.
+        A = (PX - P1[:, None] * mu_x[None, :]).T @ Yh
+        YPY = (Yh.T * P1[None, :]) @ Yh
+        B = torch.linalg.solve(YPY.T, A.T).T
+        t = mu_x - B @ mu_y
+        xPx = torch.dot(Pt1, (Xh * Xh).sum(dim=1))
+        trAB = torch.trace(A @ B.T)
+        sigma2_new = torch.clamp((xPx - trAB) / (Np * D), min=tolerance / 10.0)
+        err = (sigma2_new - sigma2).abs()
+        sigma2 = sigma2_new
+        it += 1
+    return Y @ B.T + t[None, :], B, t, sigma2, it
+
+
+@f32_matmuls
 def _deformable_cpd_run(X, Y, Q, lam, alpha: float, max_iterations: int,
-                        tolerance: float, w: float = 0.0):
+                        tolerance: float, w: float = 0.0,
+                        estep_impl: str = "dense", landmarks=None):
     """EM loop with the balanced low-rank M-step.  Moves Y onto X.
     Returns (TY, z, sigma2, iterations) with z the spectral warp
-    coefficients (displacement at the control points = Q diag(sqrt lam) z)."""
+    coefficients (displacement at the control points = Q diag(sqrt lam) z).
+
+    ``estep_impl``: "dense" (P materialized) or "streamed"
+    (``cpd_estep_kernel.cpd_estep``: the CUDA kernel for CUDA tensors).
+    ``landmarks``: optional (lm_idx int [L], lm_pos f32 [L, D], lm_w f32
+    [L]) prior correspondences, Y[lm_idx[l]] pulled toward lm_pos[l] with
+    pseudo-responsibility lm_w[l] (MAP CPD): the prior terms add to diag(P1)
+    and PX in the M-step solve only; sigma2 stays data-driven."""
+    if estep_impl not in ("dense", "streamed"):
+        raise ValueError(f"estep_impl must be 'dense' or 'streamed', got {estep_impl!r}")
     N, D = X.shape
+    M = Y.shape[0]
     k = lam.shape[0]
     sigma2 = _init_sigma2(X, Y)
     sqrt_lam = _sqrt_lam_gated(lam, X.dtype)
@@ -121,16 +202,35 @@ def _deformable_cpd_run(X, Y, Q, lam, alpha: float, max_iterations: int,
     def kernel_apply_z(z):
         return Q @ (sqrt_lam[:, None] * z)
 
+    def estep(TY, sigma2):
+        if estep_impl == "dense":
+            return _estep(X, TY, sigma2, w)
+        return cpd_estep(X, TY, sigma2, _outlier_constant(sigma2, w, D, M, N))
+
+    lm_p1 = lm_px = None
+    if landmarks is not None:
+        lm_idx, lm_pos, lm_w = landmarks
+        lm_idx = torch.as_tensor(lm_idx, device=X.device).long()
+        lm_pos = torch.as_tensor(lm_pos, dtype=X.dtype, device=X.device)
+        lm_w = torch.as_tensor(lm_w, dtype=X.dtype, device=X.device)
+        lm_p1 = torch.zeros((M,), dtype=X.dtype, device=X.device).index_add_(
+            0, lm_idx, lm_w)
+        lm_px = torch.zeros((M, D), dtype=X.dtype, device=X.device).index_add_(
+            0, lm_idx, lm_w[:, None] * lm_pos)
+
     z = torch.zeros((k, D), dtype=X.dtype, device=X.device)
     it = 0
     err = torch.tensor(float("inf"), dtype=X.dtype, device=X.device)
     while it < max_iterations and bool(err > tolerance):
         TY = Y + kernel_apply_z(z)
-        Pt1, P1, PX, Np, _ = _estep(X, TY, sigma2, w)
+        Pt1, P1, PX, Np, _ = estep(TY, sigma2)
+        P1_solve, PX_solve = P1, PX
+        if lm_p1 is not None:
+            P1_solve, PX_solve = P1 + lm_p1, PX + lm_px
         a_s2 = alpha * sigma2
-        F = PX - P1[:, None] * Y
+        F = PX_solve - P1_solve[:, None] * Y
         Ft = Q.T @ F
-        C = Q.T @ (P1[:, None] * Q)
+        C = Q.T @ (P1_solve[:, None] * Q)
         A = sqrt_lam[:, None] * C * sqrt_lam[None, :] + a_s2 * eye_k
         z = torch.linalg.solve(A, sqrt_lam[:, None] * Ft)
         TY_new = Y + kernel_apply_z(z)

@@ -4,21 +4,26 @@ Counterpart of ``pyfocusr_tpu/pipeline.py``: ``PipelineConfig`` (:74),
 ``GraphArrays`` (:292), ``mesh_to_graph_arrays`` (:349, unpadded, no
 patch plan), ``_masked_minmax_norm`` (:483), ``_spectrum`` (:495, the wide
 Chebyshev path with the plain ELL filter operator of :590-605),
-``_normed`` (:702), ``_warm_supported`` (:790), ``_warm_x0`` (:801),
-``register_pair`` (:842) and the default branches of ``_register_pair_jit``
-(:1381-1764):
+``_normed`` (:702), ``landmark_pairs_from_positions`` (:709),
+``_warm_supported`` (:790), ``_warm_x0`` (:801), ``register_pair`` (:842)
+and the branches of ``_register_pair_jit`` (:1381-1764) listed below:
 
     ICP -> spectra (target cold, source warm-started from the target's
-    block) -> eigsort -> spectral coords -> low-rank CPD (dense E-step)
-    -> correspondences ('kd': nearest neighbour; 'hungarian': one-to-one
+    block) -> eigsort -> spectral coords (optionally weighted, optionally
+    with xyz appended, :1592-1613) -> CPD: landmark rows forced into the
+    control subsample (:1619-1643), optional affine pre-pass (:1645-1651),
+    low-rank deformable CPD with the dense E-step, or the streamed one
+    when the subsample exceeds 3000^2 pairs (:1653-1671) ->
+    correspondences ('kd': nearest neighbour; 'hungarian': one-to-one
     assignment, :1677-1733) -> Chebyshev graph smoothing -> k=3 IDW final
     locations.
 
 PyTorch runs eagerly, so the JAX package's single jitted program is a
 sequence of tensor operations on the device the inputs lie on.  On a CUDA
-device every nearest-neighbour query goes through the CUDA k-NN kernel, and
+device every nearest-neighbour query goes through the CUDA k-NN kernel,
 'hungarian' correspondences through the Sinkhorn and Jonker-Volgenant CUDA
-kernels (``ops/assignment.sinkhorn_jv_lap``).
+kernels (``ops/assignment.sinkhorn_jv_lap``), and the streamed CPD E-step
+through the CUDA E-step kernel (``ops/cpd_estep_kernel``).
 
 Randomness is an input.  ``jax.random`` cannot be reproduced in torch, so
 every random draw the JAX program makes internally is an entry of
@@ -28,10 +33,8 @@ Gram's ``omega``.  Feeding the same draws to both packages makes their runs
 comparable.
 
 Configurations that are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item: ``landmark_pairs``, ``warm_block``, the feature flags,
-``include_points_as_features``, ``rigid_before_non_rigid_reg``, ``eig_method`` other than 'chebyshev',
-meshes under 2048 vertices, padded graphs, and CPD subsamples above 3000
-points on CUDA.
+their ROADMAP item: ``warm_block``, the feature flags, ``eig_method`` other
+than 'chebyshev', meshes under 2048 vertices and padded graphs.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ __all__ = [
     "mesh_to_graph_arrays",
     "graph_arrays_from_numpy",
     "config_from_dict",
+    "landmark_pairs_from_positions",
     "make_draws",
     "register_pair",
 ]
@@ -365,6 +369,30 @@ def _normed(pts):
     return (pts - mn) / torch.clamp(pts.max(dim=0).values - mn, min=1e-30)
 
 
+def landmark_pairs_from_positions(source_mesh, target_mesh, source_positions,
+                                  target_positions, device=None):
+    """``register_pair``'s ``landmark_pairs`` from physical landmark
+    positions: each f32 [L, 3] position snaps to the nearest vertex of its
+    mesh (objects with ``.points``).  Built on ``device``, the CUDA card by
+    default (see ``utils.device.resolve_device``).  Returns (pairs int64
+    [L, 2] as (source vertex, target vertex), snap distances f32 [L, 2]);
+    large distances flag landmarks that do not lie on the surfaces."""
+    device = resolve_device(device)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    sp, tp = f32(source_positions), f32(target_positions)
+    if sp.shape != tp.shape or sp.dim() != 2 or sp.shape[1] != 3:
+        raise ValueError(
+            "source/target landmark positions must both be [L, 3]; got "
+            f"{tuple(sp.shape)} and {tuple(tp.shape)}"
+        )
+    d_s, idx_s = nn_query(f32(source_mesh.points), sp)
+    d_t, idx_t = nn_query(f32(target_mesh.points), tp)
+    return torch.stack([idx_s, idx_t], dim=1), torch.stack([d_s, d_t], dim=1)
+
+
 def _warm_supported(cfg: PipelineConfig, n_a: int, n_b: int) -> bool:
     """Whether the cross-mesh spectral warm start applies (wide-chebyshev
     path on both sides)."""
@@ -394,7 +422,8 @@ def _choice(rng, n: int, m: int) -> np.ndarray:
     return rng.choice(n, size=m, replace=False).astype(np.int64)
 
 
-def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int):
+def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
+               n_landmarks: int = 0):
     """Every random input of ``register_pair``, drawn with numpy on the host
     from ``seed`` (so CPU and CUDA runs can see identical inputs):
 
@@ -402,7 +431,9 @@ def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int):
     eigsort_target   int64 [min(n_coords_spectral_ordering, N_t)]
     eigsort_source   int64 [min(n_coords_spectral_ordering, N_s)]
     cpd_source       int64 [n_reg]   rows of the source spectral cloud (X)
-    cpd_target       int64 [n_reg]   rows of the target spectral cloud (Y)
+    cpd_target       int64 [n_reg - n_landmarks]  rows of the target
+                                     spectral cloud (Y) after the landmark
+                                     rows of ``landmark_pairs``
     eig_block_target f32 [N_t, eig_wide_block]  initial eigensolver block
     eig_block_source f32 [N_s, eig_wide_block]  only when the source solve
                                                  is not warm-started
@@ -417,7 +448,7 @@ def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int):
     draws["eigsort_source"] = _choice(rng, n_source, cfg.n_coords_spectral_ordering)
     n_reg = min(cfg.n_coords_spectral_registration, n_target, n_source)
     draws["cpd_source"] = _choice(rng, n_source, n_reg)
-    draws["cpd_target"] = _choice(rng, n_target, n_reg)
+    draws["cpd_target"] = _choice(rng, n_target, n_reg - n_landmarks)
     draws["eig_block_target"] = rng.standard_normal(
         (n_target, cfg.eig_wide_block)
     ).astype(np.float32)
@@ -459,10 +490,24 @@ def _not_ported(what: str, item: str):
     )
 
 
+def _n_reg(cfg: PipelineConfig, target: GraphArrays, source: GraphArrays) -> int:
+    """Size of the CPD control subsample."""
+    return min(cfg.n_coords_spectral_registration, target.n_points,
+               source.n_points)
+
+
 def _check_supported(target: GraphArrays, source: GraphArrays,
                      cfg: PipelineConfig, landmark_pairs, warm_block):
-    if landmark_pairs is not None:
-        raise _not_ported("landmark_pairs (MAP CPD)", "8")
+    if landmark_pairs is not None and (
+            landmark_pairs.dim() != 2 or landmark_pairs.shape[1] != 2):
+        raise ValueError(
+            f"landmark_pairs must be [L, 2], got {tuple(landmark_pairs.shape)}"
+        )
+    if landmark_pairs is not None and landmark_pairs.shape[0] >= _n_reg(
+            cfg, target, source):
+        raise ValueError(
+            "landmark_pairs must be fewer than n_coords_spectral_registration"
+        )
     if warm_block is not None:
         raise _not_ported("warm_block (class-template warm start)", "8")
     if _use_hungarian(cfg) and target.n_points != source.n_points:
@@ -475,10 +520,6 @@ def _check_supported(target: GraphArrays, source: GraphArrays,
                  "include_features_in_adj_matrix"):
         if getattr(cfg, flag):
             raise _not_ported(flag, "8")
-    if cfg.include_points_as_features:
-        raise _not_ported("include_points_as_features", "8")
-    if cfg.rigid_before_non_rigid_reg:
-        raise _not_ported("rigid_before_non_rigid_reg (affine CPD)", "6")
     if cfg.eig_method != "chebyshev":
         raise _not_ported(f"eig_method={cfg.eig_method!r}", "3 and 15")
     for graph, name in ((target, "target"), (source, "source")):
@@ -489,12 +530,6 @@ def _check_supported(target: GraphArrays, source: GraphArrays,
             )
         if not bool((graph.valid_mask > 0).all()):
             raise _not_ported(f"a padded {name} graph", "13")
-    n_reg = min(cfg.n_coords_spectral_registration, target.n_points,
-                source.n_points)
-    if n_reg * n_reg > 3000 * 3000 and target.device.type == "cuda":
-        raise _not_ported(
-            f"a CPD subsample of {n_reg} points on CUDA (streamed E-step)", "10"
-        )
 
 
 @f32_matmuls
@@ -508,6 +543,13 @@ def register_pair(target: GraphArrays, source: GraphArrays,
     None too).  ``generator`` also feeds the eigensolver's SVQB refill
     noise, drawn only for a rank-deficient block.
 
+    ``landmark_pairs``: optional int [L, 2] known correspondences (source
+    vertex, target vertex), L < n_reg (see
+    :func:`landmark_pairs_from_positions`).  The target vertices become the
+    first L CPD control points and pull toward their source vertices' spectral
+    coordinates with weight ``cfg.landmark_weight`` (MAP CPD); ``draws``
+    then holds n_reg - L ``cpd_target`` rows.
+
     Returns a dict with the JAX package's keys:
     correspondences / initial_correspondences int64 [Ns],
     nearest_points / weighted_points / average_points f32 [Ns, 3],
@@ -519,18 +561,29 @@ def register_pair(target: GraphArrays, source: GraphArrays,
         raise ValueError(
             f"target on {target.device} but source on {source.device}"
         )
-    _check_supported(target, source, cfg, landmark_pairs, warm_block)
     device = target.device
+    if landmark_pairs is not None:
+        landmark_pairs = torch.as_tensor(landmark_pairs).to(
+            dtype=torch.int64, device=device)
+    _check_supported(target, source, cfg, landmark_pairs, warm_block)
+    n_lm = 0 if landmark_pairs is None else landmark_pairs.shape[0]
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     if draws is None:
         seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                  device=generator.device))
-        draws = make_draws(seed, cfg, target.n_points, source.n_points)
+        draws = make_draws(seed, cfg, target.n_points, source.n_points, n_lm)
     draws = _draws_to(draws, device)
+    n_cpd_target = _n_reg(cfg, target, source) - n_lm
+    if draws["cpd_target"].shape[0] != n_cpd_target:
+        raise ValueError(
+            f"draws['cpd_target'] has {draws['cpd_target'].shape[0]} rows; "
+            f"n_reg - len(landmark_pairs) = {n_cpd_target}"
+        )
     stage = _StageRanges()
     try:
-        return _register_pair(target, source, cfg, generator, draws, stage)
+        return _register_pair(target, source, cfg, generator, draws, stage,
+                              landmark_pairs)
     finally:
         stage.close()
 
@@ -554,7 +607,20 @@ class _StageRanges:
             self._open = None
 
 
-def _register_pair(target, source, cfg, generator, draws, stage):
+def _normed_points(graph: GraphArrays):
+    """xyz shifted to the per-axis minimum and divided by the mean axis
+    range (real vertices only); returns (normalized points, mean range)."""
+    mask = graph.valid_mask[:, None] > 0
+    inf = torch.tensor(float("inf"), device=graph.device)
+    mn = torch.where(mask, graph.points, inf).min(dim=0).values
+    mx = torch.where(mask, graph.points, -inf).max(dim=0).values
+    mean_range = (mx - mn).mean()
+    normed = (graph.points - mn[None, :]) / torch.clamp(mean_range, min=1e-30)
+    return normed * graph.valid_mask[:, None], mean_range
+
+
+def _register_pair(target, source, cfg, generator, draws, stage,
+                   landmark_pairs=None):
     device = target.device
     k_total = cfg.n_total
 
@@ -637,17 +703,52 @@ def _register_pair(target, source, cfg, generator, draws, stage):
         else graph_ops.mean_filter
     )
 
+    # --- xyz appended as features ---
+    if cfg.include_points_as_features:
+        np_s, range_s = _normed_points(source)
+        np_t, range_t = _normed_points(target)
+        if cfg.norm_physical_and_spectral:
+            src_coords = torch.cat([src_coords, np_s], dim=1)
+            tgt_coords = torch.cat([tgt_coords, np_t], dim=1)
+        else:
+            src_coords = torch.cat([src_coords * range_s, source.points], dim=1)
+            tgt_coords = torch.cat([tgt_coords * range_t, target.points], dim=1)
+
     # --- CPD: move the target spectral cloud onto the source's ---
     stage("cpd")
+    n_reg = _n_reg(cfg, target, source)
     X = src_coords[draws["cpd_source"]]
-    Y = tgt_coords[draws["cpd_target"]]
-    num_eig = min(cfg.non_rigid_n_eigens, Y.shape[0])
+    cpd_landmarks = None
+    if landmark_pairs is not None:
+        # The landmark target vertices are the first control points, so the
+        # prior terms act on real control points.
+        n_lm = landmark_pairs.shape[0]
+        Y = tgt_coords[torch.cat([landmark_pairs[:, 1], draws["cpd_target"]])]
+        cpd_landmarks = (
+            torch.arange(n_lm, device=device),
+            src_coords[landmark_pairs[:, 0]],
+            torch.full((n_lm,), cfg.landmark_weight, dtype=torch.float32,
+                       device=device),
+        )
+    else:
+        Y = tgt_coords[draws["cpd_target"]]
+    if cfg.rigid_before_non_rigid_reg:
+        _, B, t_vec, _, _ = cpd_ops._affine_cpd_run(
+            X, Y, cfg.rigid_reg_max_iterations, cfg.rigid_tolerance,
+            w=cfg.non_rigid_outlier_w,
+        )
+        Y = Y @ B.T + t_vec[None, :]
+        tgt_coords = tgt_coords @ B.T + t_vec[None, :]
+    num_eig = min(cfg.non_rigid_n_eigens, n_reg)
     Qg, lam_g = cpd_ops.low_rank_gaussian(
         Y, cfg.non_rigid_beta, num_eig, draws["cpd_omega"]
     )
+    # Above 3000^2 pairs the responsibilities are streamed, never formed.
+    estep_impl = "streamed" if n_reg * n_reg > 3000 * 3000 else "dense"
     _, z_cpd, _, _ = cpd_ops._deformable_cpd_run(
         X, Y, Qg, lam_g, cfg.non_rigid_alpha, cfg.non_rigid_max_iterations,
         cfg.non_rigid_tolerance, w=cfg.non_rigid_outlier_w,
+        estep_impl=estep_impl, landmarks=cpd_landmarks,
     )
     tgt_coords_moved = cpd_ops.lowrank_transform(
         tgt_coords, Y, Qg, lam_g, z_cpd, cfg.non_rigid_beta

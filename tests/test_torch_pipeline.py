@@ -96,10 +96,10 @@ HUNGARIAN = dict(FAST, initial_correspondence_type="hungarian",
                  final_correspondence_type="hungarian")
 
 
-def _jax_draws(key, cfg, tg, sg):
+def _jax_draws(key, cfg, tg, sg, n_landmarks=0):
     """The random inputs JAX's register_pair draws from ``key``
-    (pipeline.py:1407,1423,1520-1521,1619,1642; eigen.py:404-405;
-    cpd.py:237)."""
+    (pipeline.py:1407,1423,1520-1521,1619,1632,1642; eigen.py:404-405;
+    cpd.py:237); with landmarks the target subsample has n_reg - L rows."""
     keys = jax.random.split(key, 8)
 
     def ri(k, g, m):
@@ -114,7 +114,7 @@ def _jax_draws(key, cfg, tg, sg):
         "eigsort_target": ri(keys[2], tg, cfg.n_coords_spectral_ordering),
         "eigsort_source": ri(keys[3], sg, cfg.n_coords_spectral_ordering),
         "cpd_source": ri(keys[4], sg, n_reg),
-        "cpd_target": ri(keys[5], tg, n_reg),
+        "cpd_target": ri(keys[5], tg, n_reg - n_landmarks),
         "eig_block_target": np.asarray(jax.random.normal(
             jax.random.split(keys[0])[1], (tg.n_points, cfg.eig_wide_block),
             jnp.float32)),
@@ -133,16 +133,20 @@ def jax_pair(mesh_5k_target, mesh_5k_source):
             JP.mesh_to_graph_arrays(mesh_5k_source, patch_blocks=False))
 
 
-def _run_both(jax_pair, kw):
+def _run_both(jax_pair, kw, landmark_pairs=None):
     tg, sg = jax_pair
     cfg = JP.PipelineConfig(**kw)
     key = jax.random.PRNGKey(0)
-    want = jax.tree.map(np.asarray, JP.register_pair(tg, sg, cfg, key))
+    n_lm = 0 if landmark_pairs is None else len(landmark_pairs)
+    jax_lm = None if landmark_pairs is None else jnp.asarray(landmark_pairs, jnp.int32)
+    want = jax.tree.map(np.asarray, JP.register_pair(tg, sg, cfg, key,
+                                                     landmark_pairs=jax_lm))
     got = TP.register_pair(
         TP.graph_arrays_from_numpy(_fields(tg), device="cpu"),
         TP.graph_arrays_from_numpy(_fields(sg), device="cpu"),
         TP.config_from_dict(dataclasses.asdict(cfg)),
-        draws=_jax_draws(key, cfg, tg, sg),
+        draws=_jax_draws(key, cfg, tg, sg, n_lm),
+        landmark_pairs=landmark_pairs,
     )
     return want, got
 
@@ -407,13 +411,10 @@ def torch_pair(jax_pair):
 
 
 @pytest.mark.parametrize("cfg_kw,call_kw,item", [
-    ({}, dict(landmark_pairs=np.zeros((2, 2), np.int64)), "8"),
     ({}, dict(warm_block={}), "8"),
     (dict(use_features_as_coords=True), {}, "8"),
     (dict(use_features_in_graph=True), {}, "8"),
     (dict(include_features_in_adj_matrix=True), {}, "8"),
-    (dict(include_points_as_features=True), {}, "8"),
-    (dict(rigid_before_non_rigid_reg=True), {}, "6"),
     (dict(eig_method="lanczos"), {}, "3"),
     (dict(eig_method="chebyshev-narrow"), {}, "3"),
 ])
