@@ -154,6 +154,9 @@ ESTEP_TOL_OF_SCALE = 1e-5
 # (tests/test_pallas_kernels.py:71-93): moved cloud and sigma2.
 EM_TY_ATOL = 1e-3
 EM_SIGMA2_ATOL = 1e-5
+# Subdivisions of the icosahedron for the JV case above the old one-block
+# limit of 25600 columns: 40962 vertices.
+JV_BIG_LEVELS = 6
 # Final CPD sigma2 of the full-resolution CUDA and CPU runs, relative: the
 # same EM iterations with sums in another order on each device.
 FULLRES_SIGMA2_RTOL = 1e-3
@@ -196,6 +199,18 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms_once(torch, fn):
+    """One call's result and its milliseconds on the card (CUDA events), for
+    a call too long to repeat."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(torch, fn, reps: int = 20) -> float:
@@ -356,12 +371,81 @@ def dual_certificate(torch, cost, col, u, v):
             "duality_gap_rel": abs(obj - dual) / max(abs(obj), 1e-30)}
 
 
-def phase_jv(torch, SK, JV, TA, cost_small, cost_full):
-    """The Jonker-Volgenant kernel against ``jv_device_plain`` (a host loop,
-    run on CPU copies of the same inputs: both do the same f32 additions,
-    subtractions and comparisons, so the results must be equal), warm-started from the
-    Sinkhorn duals and cold, and against scipy at n = 2562; at n = 10242 the
-    duality certificate, the budget and the time per step."""
+def jv_vs_plain(torch, JV, cost, u0, v0, r4c, c4r, budget, col, steps, u, v):
+    """The kernel's result against ``jv_device_plain`` (a host loop, run on
+    CPU copies of the same inputs: both do the same f32 additions,
+    subtractions and comparisons, so the results must be equal)."""
+    t0 = time.perf_counter()
+    pcol, psteps, pu, pv = JV.jv_device_plain(
+        cost.cpu(), u0.cpu(), v0.cpu(), r4c.cpu(), c4r.cpu(), budget)
+    res = {"plain_ms": (time.perf_counter() - t0) * 1e3, "plain_on": "cpu",
+           "col4row_equal": bool(torch.equal(pcol, col.cpu())),
+           "steps_equal": int(psteps) == int(steps),
+           "duals_equal": bool(torch.equal(pu, u.cpu()) and torch.equal(pv, v.cpu())),
+           "max_abs_err": max(float((pu - u.cpu()).abs().max()),
+                              float((pv - v.cpu()).abs().max())),
+           "col4row_mismatches": int((pcol != col.cpu()).sum())}
+    check(res["col4row_equal"] and res["steps_equal"] and res["duals_equal"],
+          f"JV kernel disagrees with its plain version: {res}")
+    return res
+
+
+def jv_bound(steps, n):
+    """Rows visited are re-read from device memory (4 n bytes a step, at most
+    n distinct rows); 5 f32 operations a column a step."""
+    bytes_ms = (min(steps, n) * n + 8 * n) * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = 5 * steps * n / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def jv_checks(torch, TA, cost, col, u, v, res, budget_hit_ok=False):
+    """When the budget was not hit: no row left free, the kernel's own
+    result a permutation, and the duality certificate.  Where the budget ran
+    out (only where the caller allows it): a permutation after the solver's
+    greedy completion of the rows left free."""
+    n = cost.shape[0]
+    spread = float(cost.max() - cost.min())
+    res["budget_hit"] = res["steps"] >= res["budget"]
+    res["rows_left_free"] = int((col < 0).sum())
+    if res["budget_hit"]:
+        check(budget_hit_ok, f"JV step budget hit: {res}")
+        col = TA._greedy_complete(col.long(), n)
+    else:
+        check(res["rows_left_free"] == 0, f"JV left rows free within its budget: {res}")
+    res["permutation"] = bool(torch.equal(torch.sort(col.long()).values,
+                                          torch.arange(n, device=cost.device)))
+    check(res["permutation"], f"JV kernel result is no permutation: {res}")
+    if not res["budget_hit"]:
+        res.update(dual_certificate(torch, cost, col, u, v))
+        check(res["min_reduced_cost"] >= -1e-5 * spread
+              and res["duality_gap_rel"] <= 1e-5,
+              f"JV duality certificate fails: {res}")
+
+
+def subdivided_xyz_cost(torch, tp, levels, device):
+    """Euclidean distances between the vertices of the synthetic pair
+    subdivided ``levels`` times (40962 vertices at 6), f32, made in row
+    blocks so that no temporary exceeds a block."""
+    src = torch.tensor(synthetic_bone(tp, 1, levels).points, device=device)
+    tgt = torch.tensor(synthetic_bone(tp, 2, levels).points, device=device)
+    cost = torch.empty((src.shape[0], tgt.shape[0]), dtype=torch.float32, device=device)
+    for r0 in range(0, src.shape[0], 4096):
+        cost[r0:r0 + 4096] = euclidean_cost(torch, src[r0:r0 + 4096], tgt)
+    return cost
+
+
+def phase_jv(torch, tp, SK, JV, TA, cost_small, cost_full):
+    """The Jonker-Volgenant kernel against ``jv_device_plain`` on CPU copies
+    of the same inputs, warm-started from the Sinkhorn duals and cold, and
+    against scipy at n = 2562; at n = 10242 the duality certificate, the
+    budget and the time per step.  Then, at 2562: a tie-heavy integer cost
+    (equal to the plain version under a budget that ends partway, and solved
+    in full against scipy's objective) and the Sinkhorn-started cost under
+    half the steps it needs; and above the old one-block limit, n = 40962
+    (Euclidean cost between the vertices of the pair's next subdivision,
+    Sinkhorn-started, budget 400 n, held by the permutation and the duality
+    certificate: the plain host loop is too slow there)."""
     from scipy.optimize import linear_sum_assignment
 
     results = []
@@ -394,43 +478,90 @@ def phase_jv(torch, SK, JV, TA, cost_small, cost_full):
             ms = cuda_ms(torch, run, reps=3)
             res = {"n": n, "start": start, "n_free_rows": n_free, "steps": steps,
                    "budget": budget, "steps_per_free_row": steps / max(n_free, 1),
-                   "kernel_ms": ms, "us_per_step": ms * 1e3 / max(steps, 1),
-                   "permutation": bool(torch.equal(
-                       torch.sort(col.long()).values, torch.arange(n, device="cuda"))),
-                   **dual_certificate(torch, cost, col, u, v)}
+                   "kernel_ms": ms, "us_per_step": ms * 1e3 / max(steps, 1)}
             if start == "sinkhorn":
                 res.update(lap_ms)
-            check(res["permutation"], f"JV kernel result is no permutation: {res}")
-            check(steps < budget, f"JV step budget hit: {res}")
-            check(res["min_reduced_cost"] >= -1e-5 * spread
-                  and res["duality_gap_rel"] <= 1e-5,
-                  f"JV duality certificate fails: {res}")
+            jv_checks(torch, TA, cost, col, u, v, res)
             if scipy_obj is not None:
                 res["scipy_objective"] = scipy_obj
                 check(abs(res["objective"] - scipy_obj) <= 1e-6 * scipy_obj,
                       f"JV objective differs from scipy's: {res}")
-            t0 = time.perf_counter()
-            pcol, psteps, pu, pv = JV.jv_device_plain(
-                cost.cpu(), u0.cpu(), v0.cpu(), r4c.cpu(), c4r.cpu(), budget)
-            res["plain_ms"] = (time.perf_counter() - t0) * 1e3
-            res["plain_on"] = "cpu"
-            res["col4row_equal"] = bool(torch.equal(pcol, col.cpu()))
-            res["steps_equal"] = int(psteps) == steps
-            res["duals_equal"] = bool(torch.equal(pu, u.cpu())
-                                      and torch.equal(pv, v.cpu()))
-            res["max_abs_err"] = max(float((pu - u.cpu()).abs().max()),
-                                     float((pv - v.cpu()).abs().max()))
-            res["col4row_mismatches"] = int((pcol != col.cpu()).sum())
-            check(res["col4row_equal"] and res["steps_equal"] and res["duals_equal"],
-                  f"JV kernel disagrees with its plain version: {res}")
-            # Rows visited are re-read from device memory: 4 n bytes a step.
-            bytes_ms = (min(steps, n) * n + 8 * n) * 4 / HBM_BYTES_PER_S * 1e3
-            ops_ms = 5 * steps * n / F32_OPS_PER_S * 1e3
-            res["bound_ms"] = max(bytes_ms, ops_ms)
-            res["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+            res.update(jv_vs_plain(torch, JV, cost, u0, v0, r4c, c4r, budget,
+                                   col, steps, u, v))
+            res.update(jv_bound(steps, n))
             results.append(res)
-    emit({"phase": "jv_kernel_vs_plain", "cases": results})
-    return results
+            if n <= 4096 and start == "sinkhorn":
+                # The budget runs out partway through a search.
+                half = steps // 2
+                hcol, hsteps, hu, hv = JV.jv_device_cuda(cost, u0, v0, r4c, c4r, half)
+                torch.cuda.synchronize()
+                hres = {"n": n, "start": "sinkhorn_budget_half", "n_free_rows": n_free,
+                        "steps": int(hsteps), "budget": half,
+                        "rows_left_free": int((hcol < 0).sum())}
+                check(int(hsteps) == half and hres["rows_left_free"] > 0,
+                      f"JV budget case did not run out: {hres}")
+                hres.update(jv_vs_plain(torch, JV, cost, u0, v0, r4c, c4r, half,
+                                        hcol, hsteps, hu, hv))
+                results.append(hres)
+
+    # Ties everywhere, also across the CTAs' column ranges: integers 0-9.
+    n = cost_small.shape[0]
+    dev = cost_small.device
+    ties = torch.tensor(np.random.default_rng(0).integers(0, 10, (n, n))
+                        .astype(np.float32), device=dev)
+    v0 = torch.zeros(n, device=dev)
+    u0, r4c, c4r = TA._bulk_match(ties, v0)
+    n_free = int((c4r < 0).sum())
+    budget = 40 * n  # the plain loop runs ~10 s; the full solve needs ~1280 n
+    col, steps, u, v = JV.jv_device_cuda(ties, u0, v0, r4c, c4r, budget)
+    torch.cuda.synchronize()
+    res = {"n": n, "start": "ties_int0-9_cold_budget", "n_free_rows": n_free,
+           "steps": int(steps), "budget": budget,
+           "rows_left_free": int((col < 0).sum())}
+    res.update(jv_vs_plain(torch, JV, ties, u0, v0, r4c, c4r, budget, col, steps, u, v))
+    results.append(res)
+    budget = 2000 * n
+    (col, steps, u, v), ms = cuda_ms_once(
+        torch, lambda: JV.jv_device_cuda(ties, u0, v0, r4c, c4r, budget))
+    res = {"n": n, "start": "ties_int0-9_cold", "n_free_rows": n_free,
+           "steps": int(steps), "budget": budget, "kernel_ms": ms,
+           "us_per_step": ms * 1e3 / max(int(steps), 1)}
+    jv_checks(torch, TA, ties, col, u, v, res)
+    c64 = ties.double().cpu().numpy()
+    ri, ci = linear_sum_assignment(c64)
+    res["scipy_objective"] = float(c64[ri, ci].sum())
+    check(res["objective"] == res["scipy_objective"],
+          f"JV objective on integer costs differs from scipy's: {res}")
+    results.append(res)
+    del ties
+
+    # Above the one-block limit of 25600: the next subdivision, 40962.
+    cost = subdivided_xyz_cost(torch, tp, JV_BIG_LEVELS, dev)
+    n = cost.shape[0]
+    spread = float(cost.max() - cost.min())
+    _, g = SK.sinkhorn_duals_streamed(cost, spread / 4.0, 1.0 / 3.0, 14, 30)
+    u0, r4c, c4r = TA._bulk_match(cost, g)
+    n_free = int((c4r < 0).sum())
+    budget = 400 * n
+    (col, steps, u, v), ms = cuda_ms_once(
+        torch, lambda: JV.jv_device_cuda(cost, u0, g, r4c, c4r, budget))
+    res = {"n": n, "start": "sinkhorn_xyz_subdivided", "n_free_rows": n_free,
+           "steps": int(steps), "budget": budget,
+           "steps_per_free_row": int(steps) / max(n_free, 1),
+           "kernel_ms": ms, "us_per_step": ms * 1e3 / max(int(steps), 1),
+           "cost_bytes": cost.numel() * 4, "plain": "not run (host loop too slow)"}
+    jv_checks(torch, TA, cost, col, u, v, res, budget_hit_ok=True)
+    res.update(jv_bound(int(steps), n))
+    results.append(res)
+    del cost
+    torch.cuda.empty_cache()
+    config = JV.library_config()
+    check(config["cluster_size"] == JV.CLUSTER_SIZE
+          and config["threads_per_cta"] == JV.THREADS_PER_CTA
+          and config["max_n"] == JV.MAX_N,
+          f"the JV library was built with another configuration: {config}")
+    emit({"phase": "jv_kernel_vs_plain", "config": config, "cases": results})
+    return results, config
 
 
 class CpdRecorder:
@@ -684,8 +815,8 @@ def profile_run(torch, tp, tg, sg, cfg, draws, smi, phase, table_name):
     own_ms = {}
     for e in events:
         if e.device_type == DeviceType.CUDA:
-            for tag in ("knn_kernel", "lse_rows_kernel", "lse_cols", "jv_kernel",
-                        "estep_"):
+            for tag in ("knn_kernel", "lse_rows_kernel", "lse_cols",
+                        "jv_cluster_kernel", "estep_"):
                 if tag in e.name:
                     own_ms[tag] = own_ms.get(tag, 0.0) + e.time_range.elapsed_us() / 1e3
     stages = [
@@ -976,7 +1107,8 @@ def main():
     cost_full = euclidean_cost(torch, res["spectral_coords_source"],
                                res["spectral_coords_target"])
     lse_results = phase_lse(torch, sinkhorn_kernel, (cost_small, cost_full))
-    jv_results = phase_jv(torch, sinkhorn_kernel, jv_kernel, TA, cost_small, cost_full)
+    jv_results, jv_config = phase_jv(torch, tp, sinkhorn_kernel, jv_kernel, TA,
+                                     cost_small, cost_full)
     del cost_small, cost_full
     torch.cuda.empty_cache()
 
@@ -1088,6 +1220,8 @@ def main():
     lse_main = next(r for r in lse_results if r["n"] == n_s and r["level"] == 13
                     and not r["transpose"])
     jv_main = next(r for r in jv_results if r["n"] == n_s and r["start"] == "sinkhorn")
+    jv_small = next(r for r in jv_results if r["n"] < n_s and r["start"] == "sinkhorn")
+    jv_big = next(r for r in jv_results if r["n"] > n_s)
     # The late sigma2 is the one most of the path's EM iterations run at.
     est_main = next(r for r in est_results if r["case"] == f"{n_t}_d3_late")
     est_first = next(r for r in est_results if r["case"] == f"{n_t}_d3_initial")
@@ -1133,8 +1267,10 @@ def main():
             "launches": h_launches["jv"],
             # Of the final duals; the assignment and the step count are
             # held to equality with the plain version.
-            "max_abs_err": max(r["max_abs_err"] for r in jv_results),
-            "col4row_mismatches": sum(r["col4row_mismatches"] for r in jv_results),
+            "max_abs_err": max(r["max_abs_err"] for r in jv_results
+                               if "max_abs_err" in r),
+            "col4row_mismatches": sum(r.get("col4row_mismatches", 0)
+                                      for r in jv_results),
             "ms": jv_main["kernel_ms"],
             "plain_ms": jv_main["plain_ms"],
             "bound_ms": jv_main["bound_ms"],
@@ -1142,6 +1278,18 @@ def main():
             "library_ms": None,  # no single PyTorch call solves an assignment
             "steps": jv_main["steps"],
             "us_per_step": jv_main["us_per_step"],
+            # The same start at 2562 (its 26 MB cost stays in L2) beside
+            # 10242 (420 MB: rows come from device memory).
+            "us_per_step_2562": jv_small["us_per_step"],
+            "us_per_step_10242": jv_main["us_per_step"],
+            "cluster_size": jv_config["cluster_size"],
+            "threads_per_cta": jv_config["threads_per_cta"],
+            "smem_per_cta_bytes": jv_kernel.smem_per_cta_bytes(
+                n_s, jv_config["static_smem_bytes"]),
+            "max_n": jv_config["max_n"],
+            "n_40962": {k: jv_big[k] for k in (
+                "steps", "n_free_rows", "kernel_ms", "us_per_step", "budget_hit",
+                "cost_bytes")},
             "lap_warm_start_ms": jv_main["warm_start_ms"],
             "lap_bulk_match_ms": jv_main["bulk_match_ms"],
             "shape": f"cost {n_s}x{n_s} f32, Sinkhorn-started, "

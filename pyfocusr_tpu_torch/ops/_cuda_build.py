@@ -5,7 +5,8 @@ Each source under ``csrc/`` has a plain C interface; it is compiled for
 ``sm_90a`` with ``nvcc`` into a shared library of its own at first use,
 cached under ``build/pyfocusr_tpu_torch/`` (or
 ``$PYFOCUSR_TPU_TORCH_BUILD_DIR``) keyed on a hash of the source and the
-flags, and loaded with ``ctypes``.  One library per source keeps the builds
+flags (and of the headers under ``csrc/``, which a source may include), and
+loaded with ``ctypes``.  One library per source keeps the builds
 independent: several can compile at once (``nvcc`` runs in a subprocess, so
 threads that each call one kernel module's ``load_library`` overlap).
 """
@@ -92,8 +93,9 @@ class CudaLibrary:
             return self._lib
 
     def _build_and_load(self):
+        headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         out = BUILD_DIR / f"libpyfocusr_{self.stem}_{digest}.so"
         self.build_seconds = 0.0

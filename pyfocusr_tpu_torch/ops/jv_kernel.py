@@ -24,10 +24,18 @@ the assignment's cost, up to f32 rounding.
 
 The two versions do the same f32 operations in the same order (there are no
 products to contract), so they agree exactly: the same ``col4row``, the
-same step count.  What bounds the kernel and what its design does about it
-is written at the top of ``csrc/jv.cu``: one block runs the whole loop in
-one launch, with v, spc and the scanned mask in shared memory, which holds
-n <= ``MAX_N``; a larger problem raises.
+same step count, the same duals.  What bounds the kernel and what its
+design does about it is written at the top of ``csrc/jv.cu``.  In short,
+the search is a chain of dependent steps (load a cost row at an address the
+previous step chose, relax, take the argmin), so one launch of one
+thread-block cluster of ``CLUSTER_SIZE`` CTAs runs all of it: each CTA owns
+a contiguous range of columns and keeps their search state (17 bytes a
+column) in its shared memory, loads only its slice of each row, and the
+argmin is one exchange of candidates per step, written into every CTA's
+shared memory and counted on its mbarrier (no cluster barrier per step).
+Every CTA merges the same candidates, so all take the same decisions.
+``MAX_N`` is the most columns the cluster's shared memory holds; a larger
+problem raises.
 
 ``jv_device`` dispatches on where the tensors lie: CPU tensors take
 ``jv_device_plain``; CUDA tensors launch the kernel or raise.  There is no
@@ -43,21 +51,29 @@ import torch
 from ._cuda_build import CudaLibrary, require_sm90
 
 __all__ = [
+    "CLUSTER_SIZE",
     "LAUNCHES",
     "MAX_N",
+    "THREADS_PER_CTA",
     "jv_device",
     "jv_device_cuda",
     "jv_device_plain",
+    "library_config",
     "load_library",
+    "smem_per_cta_bytes",
 ]
 
 # Launch count of the CUDA kernel: the wrapper adds one per launch and does
 # nothing else with it; callers reset it to 0 to count a run's launches.
 LAUNCHES = 0
 
-# Largest n whose v, spc (f32) and scanned (bytes) fit one block's 227 KB of
-# shared memory (9 n bytes); ``kMaxN`` in csrc/jv.cu.
-MAX_N = 25600
+# The kernel's configuration, the constants kClusterSize, kThreads and kMaxN
+# of csrc/jv.cu (``library_config`` reads them back from the built
+# library): one cluster of 16 CTAs of 256 threads, each CTA holding at most
+# 12800 columns' search state (17 bytes a column) in its shared memory.
+CLUSTER_SIZE = 16
+THREADS_PER_CTA = 256
+MAX_N = CLUSTER_SIZE * 12800
 
 _BIG = 1e30
 
@@ -67,10 +83,10 @@ _LIBRARY = CudaLibrary("jv.cu", "jv", "Jonker-Volgenant", {
         ctypes.c_void_p, ctypes.c_int,  # free_rows, budget
         ctypes.c_void_p, ctypes.c_void_p,  # u, v
         ctypes.c_void_p, ctypes.c_void_p,  # row4col, col4row
-        ctypes.c_void_p, ctypes.c_void_p,  # path, visited (scratch)
         ctypes.c_void_p,  # steps_used
         ctypes.c_int, ctypes.c_void_p,  # device, stream
     ],
+    "pyfocusr_jv_config": [ctypes.POINTER(ctypes.c_int)] * 4,
 })
 # Filled by load_library(): seconds spent in nvcc (0.0 on a cache hit) and
 # the compiler's register/shared-memory report.
@@ -84,6 +100,26 @@ def load_library():
     lib = _LIBRARY.load()
     BUILD_SECONDS, BUILD_LOG = _LIBRARY.build_seconds, _LIBRARY.build_log
     return lib
+
+
+def library_config() -> dict:
+    """The configuration the built library reports: cluster size, threads
+    per CTA, largest n, and the static shared memory of one CTA (the
+    exchange slots; the dynamic part is 17 bytes a column)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = load_library().pyfocusr_jv_config(*[ctypes.byref(x) for x in vals])
+    if err != 0:
+        raise RuntimeError(f"pyfocusr_jv_config failed: error {err}")
+    names = ("cluster_size", "threads_per_cta", "max_n", "static_smem_bytes")
+    return dict(zip(names, (x.value for x in vals)))
+
+
+def smem_per_cta_bytes(n: int, static_bytes: int) -> int:
+    """Shared memory one CTA takes for an n-column problem: v, spc, path and
+    row4col (16 bytes a column) and the byte mask rounded up to a word, for
+    its ceil(n / CLUSTER_SIZE) columns, plus the static exchange slots."""
+    width = -(-n // CLUSTER_SIZE)
+    return 16 * width + 4 * (-(-width // 4)) + static_bytes
 
 
 def _check_inputs(cost, u0, v0, row4col0, col4row0, max_total_steps):
@@ -108,9 +144,9 @@ def _check_inputs(cost, u0, v0, row4col0, col4row0, max_total_steps):
 
 
 def jv_device_cuda(cost, u0, v0, row4col0, col4row0, max_total_steps: int):
-    """Launch the CUDA kernel (one block, one launch for all free rows) on
-    the current stream.  Raises on anything the kernel does not take; never
-    falls back to the plain version."""
+    """Launch the CUDA kernel (one cluster of ``CLUSTER_SIZE`` CTAs, one
+    launch for all free rows) on the current stream.  Raises on anything the
+    kernel does not take; never falls back to the plain version."""
     global LAUNCHES
     _check_inputs(cost, u0, v0, row4col0, col4row0, max_total_steps)
     if cost.device.type != "cuda":
@@ -120,8 +156,8 @@ def jv_device_cuda(cost, u0, v0, row4col0, col4row0, max_total_steps: int):
     n = cost.shape[0]
     if n > MAX_N:
         raise ValueError(
-            f"jv_device_cuda keeps 9 n bytes of search state in one block's "
-            f"shared memory: n <= {MAX_N}, got {n}"
+            f"jv_device_cuda keeps 17 bytes of search state a column in the "
+            f"shared memory of a {CLUSTER_SIZE}-CTA cluster: n <= {MAX_N}, got {n}"
         )
     require_sm90(cost.device, "jv_device_cuda")
     lib = load_library()
@@ -135,15 +171,17 @@ def jv_device_cuda(cost, u0, v0, row4col0, col4row0, max_total_steps: int):
     v = v0.clone().contiguous()
     row4col = row4col0.clone().contiguous()
     col4row = col4row0.clone().contiguous()
-    scratch = torch.empty((2, n), dtype=torch.int32, device=dev)
     steps = torch.zeros((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pyfocusr_jv_f32(
         cost.data_ptr(), n, free_rows.data_ptr(), int(max_total_steps),
         u.data_ptr(), v.data_ptr(), row4col.data_ptr(), col4row.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), steps.data_ptr(),
-        dev.index, stream,
+        steps.data_ptr(), dev.index, stream,
     )
+    if err == -2:
+        raise RuntimeError(
+            f"the card cannot schedule one cluster of {CLUSTER_SIZE} CTAs of "
+            f"{THREADS_PER_CTA} threads (cudaOccupancyMaxActiveClusters is 0)")
     if err != 0:
         raise RuntimeError(f"jv CUDA kernel launch failed: error {err}")
     LAUNCHES += 1

@@ -17,6 +17,9 @@ versions.  Tolerances:
   objective within 1e-5 relative (tests/test_kernels.py:194).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +53,11 @@ def _geometric_cost(n, seed, noise):
 
 def _random_cost(n, seed):
     return np.random.default_rng(seed).uniform(0, 1, (n, n)).astype(np.float32)
+
+
+def _int_cost(n, seed):
+    """Integers 0-9: most comparisons in a search are ties."""
+    return np.random.default_rng(seed).integers(0, 10, (n, n)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -191,17 +199,23 @@ JV_CASES = {
                                   np.zeros(300, np.float32)),
     "contested300_sinkhorn": lambda: (
         _geometric_cost(300, 1, 0.3), _warm_v0(_geometric_cost(300, 1, 0.3))),
+    # Ties everywhere, also between the column ranges of a cluster's CTAs.
+    "tie_heavy_int": lambda: (_int_cost(200, 0), np.zeros(200, np.float32)),
 }
+# Step budget per column: the path's 60, except that the tie-heavy cost
+# scans ~n columns per free row (19 293 steps at n = 200).
+JV_BUDGET_PER_N = {"tie_heavy_int": 200}
 
 
 @pytest.fixture(scope="module", params=sorted(JV_CASES))
 def jv_case(request):
     C, v0 = JV_CASES[request.param]()
-    return C, v0, TA._bulk_match(torch.tensor(C), torch.tensor(v0))
+    budget = JV_BUDGET_PER_N.get(request.param, 60) * C.shape[0]
+    return C, v0, TA._bulk_match(torch.tensor(C), torch.tensor(v0)), budget
 
 
 def test_bulk_match_matches_jax(jv_case):
-    C, v0, (u0, r4c, c4r) = jv_case
+    C, v0, (u0, r4c, c4r), _ = jv_case
     ju0, jr4c, jc4r = JA._bulk_match(jnp.asarray(C), jnp.asarray(v0))
     np.testing.assert_array_equal(r4c.numpy(), np.asarray(jr4c))
     np.testing.assert_array_equal(c4r.numpy(), np.asarray(jc4r))
@@ -213,18 +227,19 @@ def test_bulk_match_matches_jax(jv_case):
 
 
 def test_jv_plain_matches_pallas_and_xla(jv_case):
-    C, v0, (u0, r4c, c4r) = jv_case
+    C, v0, (u0, r4c, c4r), budget = jv_case
     n = C.shape[0]
     assert int((c4r < 0).sum()) > 0  # the case leaves rows to augment
     col, steps, u, v = jv_kernel.jv_device(
-        torch.tensor(C), u0, torch.tensor(v0), r4c, c4r, 60 * n)
+        torch.tensor(C), u0, torch.tensor(v0), r4c, c4r, budget)
+    assert int(steps) < budget
     pcol, psteps = PK.jv_device_pallas(
         jnp.asarray(C), jnp.asarray(u0.numpy()), jnp.asarray(v0),
-        jnp.asarray(r4c.numpy()), jnp.asarray(c4r.numpy()), 60 * n, n,
+        jnp.asarray(r4c.numpy()), jnp.asarray(c4r.numpy()), budget, n,
         interpret=True)
     np.testing.assert_array_equal(col.numpy(), np.asarray(pcol))
     assert int(steps) == int(psteps) > 0
-    xcol, xsteps = JA._jv_device(jnp.asarray(C), jnp.asarray(v0), 60 * n)
+    xcol, xsteps = JA._jv_device(jnp.asarray(C), jnp.asarray(v0), budget)
     np.testing.assert_array_equal(col.numpy(), np.asarray(xcol))
     assert int(steps) == int(xsteps)
     assert col.dtype == torch.int32 and steps.dtype == torch.int32
@@ -236,10 +251,10 @@ def test_jv_plain_matches_pallas_and_xla(jv_case):
 def test_jv_final_duals_certify_the_optimum(jv_case):
     """The duals the port's JV returns: reduced costs >= 0 everywhere, 0 on
     the assignment, and sum(u) + sum(v) equal to the objective."""
-    C, v0, (u0, r4c, c4r) = jv_case
+    C, v0, (u0, r4c, c4r), budget = jv_case
     n = C.shape[0]
     col, _, u, v = jv_kernel.jv_device(
-        torch.tensor(C), u0, torch.tensor(v0), r4c, c4r, 60 * n)
+        torch.tensor(C), u0, torch.tensor(v0), r4c, c4r, budget)
     red = torch.tensor(C).double() - u.double()[:, None] - v.double()[None, :]
     tol = 1e-5 * float(C.max())
     assert float(red.min()) >= -tol
@@ -300,8 +315,30 @@ def test_jv_wrapper_contract():
         jv_kernel.jv_device(torch.rand((6, 7)), u0, z, r4c, c4r, 360)
     with pytest.raises(ValueError, match="shape"):
         jv_kernel.jv_device(C, u0[:5], z, r4c, c4r, 360)
-    # 9 n bytes of search state must fit one block's 227 KB of shared memory.
-    assert 9 * jv_kernel.MAX_N + 1024 <= 232448 < 9 * (jv_kernel.MAX_N + 512)
+    # 17 bytes of search state a column, ceil(n / CLUSTER_SIZE) columns a
+    # CTA, must fit one block's 227 KB of shared memory beside the slots.
+    slots = 2 * jv_kernel.CLUSTER_SIZE * (jv_kernel.THREADS_PER_CTA // 32) * 16
+    assert jv_kernel.smem_per_cta_bytes(jv_kernel.MAX_N, slots) <= 232448
+
+
+def test_jv_kernel_source_agrees_with_wrapper():
+    """The cluster size, threads per CTA and largest n that csrc/jv.cu is
+    built with are the wrapper's, and n = 40962 (the next subdivision of the
+    10242-vertex meshes) is within the limit."""
+    src = (Path(jv_kernel.__file__).parent.parent / "csrc" / "jv.cu").read_text()
+
+    def const(pattern):
+        return int(re.search(pattern, src).group(1))
+
+    cluster = const(r"constexpr int kClusterSize = (\d+);")
+    threads = const(r"constexpr int kThreads = (\d+);")
+    cols = const(r"constexpr int kMaxColsPerCta = (\d+);")
+    assert re.search(r"constexpr int kMaxN = kClusterSize \* kMaxColsPerCta;", src)
+    assert cluster == jv_kernel.CLUSTER_SIZE >= 8
+    assert threads == jv_kernel.THREADS_PER_CTA
+    assert cluster * cols == jv_kernel.MAX_N >= 40962
+    slots = 2 * cluster * (threads // 32) * 16
+    assert 17 * cols + slots <= 232448
 
 
 # ------------------------------------------------------ sinkhorn_jv_lap
@@ -449,11 +486,21 @@ def test_kernels_match_plain_on_card():
             assert SK.LAUNCHES == before + 1
             p = SK.lse_rows_plain(C, vec, inv_t, transpose)
             assert float((k - p).abs().max()) <= 1e-5 * spread
-    for v0 in (vec, torch.zeros_like(vec)):
-        u0, r4c, c4r = TA._bulk_match(C, v0)
+    # (cost, v0, budget): warm and cold on the contested cost; tie-heavy
+    # integer costs at n = 1, 10, 17 (the cluster's CTAs own ceil(n / 16)
+    # columns each, so some own none) and 200; and a budget that runs out
+    # partway through a search.
+    cases = [(C, vec, 60 * 300), (C, torch.zeros_like(vec), 60 * 300)]
+    for n in (1, 10, 17, 200):
+        cases.append((torch.tensor(_int_cost(n, n)).cuda(),
+                      torch.zeros(n, device="cuda"), 200 * n))
+    cases.append((C, torch.zeros_like(vec), 1000))
+    for cost, v0, budget in cases:
+        u0, r4c, c4r = TA._bulk_match(cost, v0)
         before = jv_kernel.LAUNCHES
-        got = jv_kernel.jv_device(C, u0, v0, r4c, c4r, 60 * 300)
+        got = jv_kernel.jv_device(cost, u0, v0, r4c, c4r, budget)
         assert jv_kernel.LAUNCHES == before + 1
-        want = jv_kernel.jv_device_plain(C.cpu(), u0.cpu(), v0.cpu(), r4c.cpu(),
-                                         c4r.cpu(), 60 * 300)
+        want = jv_kernel.jv_device_plain(cost.cpu(), u0.cpu(), v0.cpu(), r4c.cpu(),
+                                         c4r.cpu(), budget)
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert int(got[1]) == 1000 and int((got[0] < 0).sum()) > 0
