@@ -28,6 +28,11 @@ launch counts set to 0 just before and read just after:
   78-89``): a 5000-point CPD subsample (streamed), the affine pre-pass,
   weighted spectral coordinates, alpha 0.5, beta 3, 1000 iterations.
 
+Every CPD EM loop on the card runs as one captured iteration replayed as a
+CUDA graph, the host reading the stop flag every ``EM_BLOCK`` iterations; a
+phase holds that loop bit for bit against the plain loop (a host read per
+iteration) at full resolution and on the 'kd' path's 1000 points.
+
 Each kernel is held against its plain PyTorch version on the card at the
 shapes those paths give it.  Each phase prints one JSON line; any failed
 check exits non-zero.  The last three lines are the kernels line, the
@@ -150,6 +155,10 @@ DEGENERATE_GAP = 1e-2
 # different orders and the kernel contracts with FMA; a first check on the
 # card measured <= 1e-7 of that scale.
 ESTEP_TOL_OF_SCALE = 1e-5
+# The first version of the E-step kernel (one thread a row, chunks merged by
+# a second kernel) at 10242^2, D = 3, both passes, device time as PERF.md
+# section 6 records it (run N), printed beside this run's time.
+FIRST_ESTEP_KERNEL_MS = 0.180
 # Streamed EM against dense EM on the card, 8 iterations
 # (tests/test_pallas_kernels.py:71-93): moved cloud and sigma2.
 EM_TY_ATOL = 1e-3
@@ -566,27 +575,58 @@ def phase_jv(torch, tp, SK, JV, TA, cost_small, cost_full):
 
 class CpdRecorder:
     """Records what each ``_deformable_cpd_run`` of the pipeline returned
-    (EM iterations, final sigma2, the E-step taken) while installed; the
-    pipeline calls it through the module attribute."""
+    (EM iterations, final sigma2, the E-step taken), and the last call's
+    arguments, and the iterations and E-step of each affine pre-pass
+    (``affine_runs``), while installed; the pipeline calls both through the
+    module attributes."""
 
     def __init__(self, cpd_ops):
         self.mod = cpd_ops
         self.real = cpd_ops._deformable_cpd_run
+        self.real_affine = cpd_ops._affine_cpd_run
         self.runs = []
+        self.affine_runs = []
+        self.last_call = None
 
     def __enter__(self):
         def recorded(*args, **kwargs):
+            self.last_call = (args, kwargs)
             out = self.real(*args, **kwargs)
             self.runs.append({"iterations": int(out[3]), "sigma2": float(out[2]),
                               "estep_impl": kwargs.get("estep_impl", "dense"),
                               "n_control": int(args[1].shape[0])})
             return out
 
+        def recorded_affine(*args, **kwargs):
+            out = self.real_affine(*args, **kwargs)
+            self.affine_runs.append({"iterations": int(out[4]),
+                                     "estep_impl": kwargs.get("estep_impl", "dense")})
+            return out
+
         self.mod._deformable_cpd_run = recorded
+        self.mod._affine_cpd_run = recorded_affine
         return self
 
     def __exit__(self, *exc):
         self.mod._deformable_cpd_run = self.real
+        self.mod._affine_cpd_run = self.real_affine
+
+    def streamed_loops(self):
+        """(EM iterations, loops) of the last pair's streamed runs: its
+        deformable run and the affine pre-pass before it, if streamed."""
+        loops = [self.runs[-1]]
+        if self.affine_runs and self.affine_runs[-1]["estep_impl"] == "streamed":
+            loops.append(self.affine_runs[-1])
+        return sum(r["iterations"] for r in loops), len(loops)
+
+
+def estep_launches_fit(launches: int, rec, cpd_ops) -> bool:
+    """E-step launches of a pair's streamed EM runs (``rec``, a
+    CpdRecorder): two per iteration, plus two per masked iteration replayed
+    after a run converged (fewer than one block a run; the kernels launch
+    and return at once on the stop flag)."""
+    iterations, loops = rec.streamed_loops()
+    return 0 < 2 * iterations <= launches < 2 * (iterations + loops * cpd_ops.EM_BLOCK)
 
 
 def estep_bound(M: int, N: int, D: int):
@@ -606,33 +646,27 @@ def estep_bound(M: int, N: int, D: int):
             "f32_ops_ms": ops_ms, "sfu_exp_ms": exp_ms, "bytes_ms": bytes_ms}
 
 
-def device_ms_by_kernel(torch, fn, per_call, reps: int = 20):
-    """Device milliseconds per call of ``fn`` spent in the kernels whose
-    names contain each tag of ``per_call`` (tag -> kernels of that tag one
-    call launches), from a ``torch.profiler`` trace of ``reps`` calls: the
-    card's own time, without the host's launch overhead that CUDA events
-    around a host-bound wrapper would include.  A tag's time is its mean
-    kernel duration times its kernels per call, so a trace that lost
-    events still reads right; the events seen are returned beside it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def graph_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``calls`` calls captured in a
+    CUDA graph and replayed ``reps`` times between CUDA events, so the
+    host's launch overhead, which a host-bound wrapper would add to plain
+    CUDA events, is not in the time."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    total_us, seen = dict.fromkeys(per_call, 0.0), dict.fromkeys(per_call, 0)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            for tag in per_call:
-                if tag in e.name:
-                    total_us[tag] += e.time_range.elapsed_us()
-                    seen[tag] += 1
-    check(all(seen.values()), f"the profiler saw no kernel of some tag: {seen}")
-    ms = {tag: total_us[tag] / seen[tag] * per_call[tag] / 1e3 for tag in per_call}
-    return ms, {"seen": seen, "expected": {t: k * reps for t, k in per_call.items()}}
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * reps)
 
 
 def phase_cpd_estep(torch, EK, cpd_ops, cases):
@@ -641,10 +675,11 @@ def phase_cpd_estep(torch, EK, cpd_ops, cases):
     defaults) and widths (D = 3; D = 6 with xyz appended), at the initial
     sigma2 of EM and at the small sigma2 a full-resolution run ends at;
     kernel, plain and dense-E-step (P materialized) times and the bound.
-    ``kernel_ms`` is the device time of the kernel's launches by name (the
-    den pass: partial sums and their merge; the row pass: the same);
-    ``call_ms`` the whole wrapper by CUDA events, which the host's launch
-    overhead sets when it exceeds the device time."""
+    ``kernel_ms`` is the device time of one call of a planned ``CudaEstep``
+    (its two launches) from a CUDA graph of calls, ``den_pass_ms`` that of
+    the den pass alone, ``row_pass_ms`` the difference; ``call_ms`` one call
+    by plain CUDA events, which the host's launch overhead sets when it
+    exceeds the device time."""
     results = []
     for name, X, TY, sigma2 in cases:
         (N, D), M = X.shape, TY.shape[0]
@@ -659,22 +694,20 @@ def phase_cpd_estep(torch, EK, cpd_ops, cases):
             scale = max(1.0, float(w.abs().max()))
             errs[out] = err
             ok = ok and err <= ESTEP_TOL_OF_SCALE * scale
-        run_k = lambda: EK.cpd_estep_cuda(X, TY, s2)
+        est = EK.CudaEstep(X, M)
+        run_k = lambda: est(TY, s2)
         run_p = lambda: EK.cpd_estep_plain(X, TY, s2)
         p1 = cuda_ms(torch, run_p, reps=3)
         k1 = cuda_ms(torch, run_k)
         k2 = cuda_ms(torch, run_k)
         p2 = cuda_ms(torch, run_p, reps=3)
         dense = cuda_ms(torch, lambda: cpd_ops._estep(X, TY, s2, 0.0), reps=3)
-        dev, events = device_ms_by_kernel(torch, run_k, dict.fromkeys(
-            ("estep_den_partial", "estep_den_finish", "estep_row_partial",
-             "estep_sum_chunks"), 1))
+        kernel_ms = graph_ms(torch, run_k)
+        den_ms = graph_ms(torch, lambda: est.den_pass(TY, s2))
         res = {"case": name, "M": M, "N": N, "D": D, "sigma2": sigma2,
                "max_abs_err": errs, "within_tolerance": ok,
-               "kernel_ms": sum(dev.values()),
-               "den_pass_ms": dev["estep_den_partial"] + dev["estep_den_finish"],
-               "row_pass_ms": dev["estep_row_partial"] + dev["estep_sum_chunks"],
-               "profiled_kernels": events,
+               "kernel_ms": kernel_ms, "den_pass_ms": den_ms,
+               "row_pass_ms": kernel_ms - den_ms,
                "call_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                "dense_estep_ms": dense, **estep_bound(M, N, D)}
         check(ok, f"E-step kernel disagrees with its plain version: {res}")
@@ -684,7 +717,70 @@ def phase_cpd_estep(torch, EK, cpd_ops, cases):
                        "per output",
           "dense_estep_ms": "ops/cpd._estep, P [M, N] materialized: the E-step the "
                             "pipeline takes at or under 3000^2 pairs",
+          "first_kernel_version_ms": FIRST_ESTEP_KERNEL_MS,
           "launches": "one E-step is two launches, the den pass and the row pass"})
+    return results
+
+
+def phase_cpd_loops(torch, cpd_ops, EK, runs):
+    """The blocked EM loop (one iteration captured as a CUDA graph, replayed
+    ``EM_BLOCK`` times between host reads) against the plain loop (a host
+    read per iteration), on the inputs the pipeline gave
+    ``_deformable_cpd_run``: iterations, sigma2, z and the moved cloud must
+    be equal bit for bit. Per EM iteration: the blocked loop's fenced wall
+    time (host), with and without its one-off capture; its device time as
+    the sum of the kernels in a ``torch.profiler`` trace of one more run (a
+    lower bound: gaps between a graph's kernels are not in it, and a trace
+    can lose events) and as the span between CUDA events around another run
+    less its capture; the E-step kernel's launches must lie in [2 it, 2 (it
+    + K))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    K = cpd_ops.EM_BLOCK
+    results = []
+    for name, (args, kwargs) in runs:
+        out = {}
+        for loop in ("plain", "blocked"):
+            EK.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cpd_ops._deformable_cpd_run(*args, **dict(kwargs, loop=loop))
+            torch.cuda.synchronize()
+            out[loop] = (res, time.perf_counter() - t0, EK.LAUNCHES,
+                         dict(cpd_ops.EM_STATS))
+        (pTY, pz, ps2, pit), (bTY, bz, bs2, bit) = out["plain"][0], out["blocked"][0]
+        equal = {"iterations": pit == bit, "sigma2": bool(torch.equal(ps2, bs2)),
+                 "z": bool(torch.equal(pz, bz)), "TY": bool(torch.equal(pTY, bTY))}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cpd_ops._deformable_cpd_run(*args, **dict(kwargs, loop="blocked"))
+            torch.cuda.synchronize()
+        device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        _, span_ms = cuda_ms_once(torch, lambda: cpd_ops._deformable_cpd_run(
+            *args, **dict(kwargs, loop="blocked")))
+        span_ms -= cpd_ops.EM_STATS["capture_ms"]  # the card waits while the host captures
+        stats, wall_s, launches = out["blocked"][3], out["blocked"][1], out["blocked"][2]
+        it = max(bit, 1)
+        streamed = kwargs.get("estep_impl") == "streamed"
+        r = {"case": name, "n_control": int(args[1].shape[0]),
+             "estep_impl": kwargs.get("estep_impl", "dense"),
+             "iterations": bit, "equal_to_plain": equal, "sigma2": float(bs2),
+             "host_ms_per_iteration": wall_s * 1e3 / it,
+             "host_ms_per_iteration_after_capture":
+                 (wall_s * 1e3 - stats["capture_ms"]) / it,
+             "device_ms_per_iteration": device_us / 1e3 / it,
+             "device_span_ms_per_iteration": span_ms / it,
+             "plain_host_ms_per_iteration": out["plain"][1] * 1e3 / max(pit, 1),
+             "replay_ms_per_replay": stats["replay_ms"] / max(stats["replays"], 1),
+             "estep_launches": launches if streamed else None, **stats}
+        results.append(r)
+        check(all(equal.values()), f"graph EM loop differs from the plain loop: {r}")
+        check(stats["graph"] and stats["host_reads"] <= -(-bit // K) + 1,
+              f"graph EM loop read the host too often: {r}")
+        check(not streamed or 2 * bit <= launches < 2 * (bit + K),
+              f"E-step launches {launches} outside [2 x {bit}, 2 x ({bit} + {K}))")
+    emit({"phase": "cpd_loop_graph_vs_plain", "block": K, "cases": results})
     return results
 
 
@@ -885,9 +981,10 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
     })
     check(fr_cpd["estep_impl"] == "streamed" and fr_cpd["n_control"] == n_t,
           f"full-resolution CPD did not stream over all points: {fr_cpd}")
-    check(fr_launches["cpd_estep"] == 2 * fr_cpd["iterations"] > 0,
-          f"E-step launches {fr_launches['cpd_estep']} != 2 x {fr_cpd['iterations']} "
-          "EM iterations")
+    check(estep_launches_fit(fr_launches["cpd_estep"], rec, cpd_ops),
+          f"E-step launches {fr_launches['cpd_estep']} outside [2 x, 2 x ({fr_cpd['iterations']} "
+          "EM iterations + the EM block))")
+    fr_call = rec.last_call
     emit(profile_run(torch, tp, tg, sg, fr_cfg, fr_draws, smi, "profile_fullres",
                      "profile_register_pair_fullres.txt"))
 
@@ -912,6 +1009,13 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
     est_results = phase_cpd_estep(torch, cpd_estep_kernel, cpd_ops, cases)
     phase_cpd_run(torch, cpd_ops, X3, Y3, FULLRES_CFG["non_rigid_beta"],
                   FULLRES_CFG["non_rigid_alpha"])
+    # The EM loop as a CUDA graph against the plain loop, at full resolution
+    # and on the 'kd' path's 1000 points.
+    kd_cfg = tp.PipelineConfig(**BENCH_CFG)
+    with CpdRecorder(cpd_ops) as rec:
+        tp.register_pair(tg, sg, kd_cfg, draws=tp.make_draws(0, kd_cfg, n_t, n_s))
+    loop_results = phase_cpd_loops(torch, cpd_ops, cpd_estep_kernel,
+                                   (("fullres", fr_call), ("kd_1000", rec.last_call)))
     del cases, X6, Y6, moved6
     torch.cuda.empty_cache()
 
@@ -932,13 +1036,16 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
         "config": "bench.py:122-134 with the raw Focusr defaults of "
                   "pyfocusr_tpu/pipeline.py:78-89",
         "first_call_s": rd_first_s, "warm_s": rd_warm_s, "launches": rd_launches,
-        "cpd": rd_cpd, "peak_device_bytes": rd_peak, "quality": q_rd,
+        "cpd": rd_cpd, "affine_prepass": rec.affine_runs[-1:],
+        "peak_device_bytes": rd_peak, "quality": q_rd,
     })
     check(rd_cpd["estep_impl"] == "streamed" and rd_cpd["n_control"] == 5000,
           f"the raw-defaults CPD did not stream over 5000 points: {rd_cpd}")
-    check(rd_launches["cpd_estep"] == 2 * rd_cpd["iterations"] > 0,
-          f"E-step launches {rd_launches['cpd_estep']} != 2 x {rd_cpd['iterations']} "
-          "EM iterations")
+    check(rec.affine_runs and rec.affine_runs[-1]["estep_impl"] == "streamed",
+          f"the raw-defaults affine pre-pass did not stream: {rec.affine_runs}")
+    check(estep_launches_fit(rd_launches["cpd_estep"], rec, cpd_ops),
+          f"E-step launches {rd_launches['cpd_estep']} outside [2 x, 2 x (EM iterations "
+          f"{rec.streamed_loops()} + a block a loop))")
     del rres
 
     # --- Every CPD option at once: landmarks snapped from positions (on the
@@ -968,11 +1075,13 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
           "config": "full resolution with include_points_as_features, "
                     "rigid_before_non_rigid_reg and 7 landmark pairs",
           "seconds": all_s, "launches": all_launches, "cpd": all_cpd,
+          "affine_prepass": rec.affine_runs[-1:],
           "cpd_width": int(ares["spectral_coords_source"].shape[1]), "quality": q_all})
     check(ares["spectral_coords_source"].shape[1] == 6, "xyz columns did not reach CPD")
     check(all_cpd["estep_impl"] == "streamed"
-          and all_launches["cpd_estep"] == 2 * all_cpd["iterations"] > 0,
-          f"E-step launches {all_launches['cpd_estep']} != 2 x {all_cpd['iterations']}")
+          and estep_launches_fit(all_launches["cpd_estep"], rec, cpd_ops),
+          f"E-step launches {all_launches['cpd_estep']} outside [2 x, 2 x "
+          f"(EM iterations {rec.streamed_loops()} + a block a loop))")
     del ares
 
     # --- Full resolution, CUDA against CPU, CPD capped at the same number of
@@ -1001,7 +1110,7 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
     check(abs(agree["unique_fraction_gpu"] - agree["unique_fraction_cpu"])
           <= UNIQUE_DIFF_MAX, "full-res unique fraction CUDA vs CPU")
     del cap_gpu, cap_cpu
-    return fr_launches, rd_launches, est_results
+    return fr_launches, rd_launches, est_results, loop_results
 
 
 def main():
@@ -1207,7 +1316,7 @@ def main():
     del fres
 
     torch.cuda.empty_cache()
-    fr_launches, rd_launches, est_results = cpd_paths(
+    fr_launches, rd_launches, est_results, loop_results = cpd_paths(
         torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi)
 
     knn_main = next(r for r in knn_results if r["case"] == "xyz_k1")
@@ -1316,9 +1425,15 @@ def main():
             "library_ms": None,
             "dense_estep_ms": est_main["dense_estep_ms"],
             "call_ms": est_main["call_ms"],
+            "den_pass_ms": est_main["den_pass_ms"],
+            "row_pass_ms": est_main["row_pass_ms"],
             "ms_initial_sigma2": est_first["kernel_ms"],
             "ms_5000_d3": est_5000["kernel_ms"],
             "bound_ms_5000_d3": est_5000["bound_ms"],
+            "em_loop": {r["case"]: {k: r[k] for k in (
+                "iterations", "host_ms_per_iteration", "device_ms_per_iteration",
+                "device_span_ms_per_iteration", "replays", "host_reads", "capture_ms")}
+                for r in loop_results},
             "shape": f"X {n_s}x3, TY {n_t}x3 f32, the full-resolution run's final "
                      "sigma2, both passes; ms is the device time of the launches, "
                      "call_ms the wrapper's",

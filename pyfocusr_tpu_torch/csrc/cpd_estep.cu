@@ -3,40 +3,49 @@
 //
 // Replaces the TPU kernels `_estep_den_kernel` and `_estep_row_kernel`
 // behind `cpd_estep_pallas` (pyfocusr_tpu/ops/pallas_kernels.py:105,131,159)
-// with the same two passes:
+// with the same two passes, each one launch:
 //
 //   den pass:  den_n = max(sum_m exp(-|x_n - ty_m|^2 / 2 s2) + c, 1e-30)
 //              (raw exp, no max-rescaling: cycpd's semantics)
+//              Pt1_n = 1 - c / den_n,  L = -sum_n log den_n + D N log(s2) / 2
 //   row pass:  p_mn = exp(-|x_n - ty_m|^2 / 2 s2) / den_n
-//              P1_m = sum_n p_mn,   PX_m = sum_n p_mn x_n
+//              P1_m = sum_n p_mn,   PX_m = sum_n p_mn x_n,   Np = sum_m P1_m
 //
-// Pt1, Np and the log-likelihood L are O(N) reductions of den and P1 left to
-// the caller (ops/cpd_estep_kernel.py).
+// with c = (2 pi s2)^(D/2) w/(1-w) M/N.  sigma2 is read from the device, so
+// the caller never reads it back and the launches can be captured in a CUDA
+// graph; `done` (optional, on the device) makes both passes return at once
+// when it is set, so iterations replayed after EM has converged cost nothing.
 //
 // Squared distances are direct differences sum_d (x_d - ty_d)^2, not the
-// |x|^2 + |ty|^2 - 2 x.ty identity the TPU kernels take from the MXU: on CUDA
-// cores both cost the same, and the differences do not cancel when sigma2 is
-// small late in EM.  The exponential is `expf` (full accuracy, ~2 ulp).
+// |x|^2 + |ty|^2 - 2 x.ty identity the TPU kernels take from the MXU: the
+// identity cancels when sigma2 is small late in EM, and at D = 3 it would
+// feed the tensor cores a depth of 3 in TF32, which breaks the f32 rule.
 //
-// What bounds it on the H100: each (m, n) element costs one exp and ~3D + 2
-// (den pass) or ~5D + 3 (row pass) f32 operations; the inputs are a few
-// hundred KB (10242 x 3 floats is 123 KB) and stay in L2.  So the bound is
-// the rate of the special-function units (16 exp per SM per clock) or the
-// f32 rate, not bytes: ~25-30 us per pass at 10242^2.
+// What bounds it on the H100: per (m, n) pair the den pass issues ~9
+// instructions with one exponential, the row pass ~13 with one; the inputs
+// are a few hundred KB and stay in L2.  So the bound is the special-function
+// units (16 exp per SM per clock: 0.050 ms for both passes at 10242^2) or
+// instruction issue (~22 per pair at 128 lanes x 132 SMs: ~0.07 ms), not
+// bytes.
 //
 // What the design does about it:
-//   * A thread owns one output row (x_n in the den pass, ty_m in the row
-//     pass) and keeps its coordinates and sums in registers; D is a template
-//     parameter (padded to 3, 6, 8 or 16 with zeros) so the loops unroll.
-//   * The other cloud is staged through shared memory in tiles of kTile
-//     rows; every thread of the block reads the same word (a broadcast).
-//   * The TPU carries den, P1 and PX across a sequential grid in VMEM; here
-//     blocks run in no order, so each reduction is a loop inside the block.
-//     One thread per row would give only 41 blocks of 256 at n = 10242 (20
-//     at 5000) for 132 SMs, so the reduced axis is split into `chunks`
-//     (blockIdx.y) that write partial sums to a workspace, and a second small
-//     kernel adds the chunks in order.  No float atomics: the sums repeat
-//     bit for bit from run to run.
+//   * exp2 by one `ex2.approx.ftz.f32` with log2(e) / (2 sigma2) folded into
+//     one multiplier: one MUFU op per pair and no `expf` range reduction.
+//   * A warp owns R output rows (4; 8 at D = 4-6; 2 where more would leave
+//     the card short of warps, and at D > 8); every lane holds them in
+//     registers and takes every 32nd point of the other cloud, so one
+//     shared-memory load feeds R pairs.
+//   * The other cloud is staged by the block as float4 vectors: (x, y, z, 0)
+//     in the den pass and (x, y, z, 1/den) in the row pass at D <= 3, one
+//     16-byte load per point; wider D takes 2-5 vectors (instances for 3, 6,
+//     8, 16).
+//   * Each warp reduces the whole other cloud, so no chunk workspace and no
+//     merge pass exist: the 32 lanes' sums are merged by a fixed xor-shuffle
+//     tree, identical in every lane.  At 10242 points that is 2561 warps,
+//     one wave of ~19 warps an SM.  Np and L are sums over blocks: each
+//     block writes its sum, and the last block to finish (an integer
+//     counter, reset for the next launch) adds them in block order.  No
+//     float atomics: the results repeat bit for bit.
 //   * The ragged edges are masked by index; the TPU version's +-1e15
 //     padding has no counterpart.
 //
@@ -46,231 +55,343 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 256;  // rows of the reduced cloud per shared-memory tile
+constexpr int kWarps = 4;  // warps a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 512;  // points of the other cloud per shared-memory tile
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
+// Rows a warp owns: kRows at D <= 3 and at 7-8, kRowsD6 at 4-6 (a staged
+// point is two float4 there, so it is worth feeding more rows); 2 at D > 8
+// and below kWideMin rows, where more rows a warp would leave the card
+// short of warps (132 SMs x 16 warps x kRows rows).
+constexpr int kRows = 4;
+constexpr int kRowsD6 = 8;
+constexpr int kWideMin = 132 * 16 * kRows;
 
-// params[0] = 1 / (2 sigma2), params[1] = c (outlier term), on the device so
-// that the caller never reads sigma2 back to the host.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// Partial den over one chunk of TY rows (blockIdx.y); part is [chunks, N].
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    estep_den_partial_kernel(const float* __restrict__ X,
-                             const float* __restrict__ TY, int N, int M, int D,
-                             int rows_per_chunk,
-                             const float* __restrict__ params,
-                             float* __restrict__ part) {
-  __shared__ float sty[kTile][DP];
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = n < N;
-  float x[DP];
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    x[d] = (active && d < D) ? X[(size_t)n * D + d] : 0.0f;
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Stages points [base, base + cols) of P [n, D] as V float4 vectors each,
+// component `extra_at` holding extra[point] when extra is not null.
+template <int V>
+__device__ void stage(float4 (*dst)[V], const float* __restrict__ P, int D,
+                      int base, int cols, const float* __restrict__ extra,
+                      int extra_at) {
+  for (int e = threadIdx.x; e < cols * V; e += kThreads) {
+    const int r = e / V;
+    const int d0 = (e % V) * 4;
+    const float* src = P + (size_t)(base + r) * D;
+    float w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = d0 + i;
+      w[i] = (extra != nullptr && d == extra_at) ? extra[base + r]
+                                                 : (d < D ? src[d] : 0.0f);
+    }
+    dst[r][e % V] = make_float4(w[0], w[1], w[2], w[3]);
   }
-  const float neg_inv2s2 = -params[0];
-  const int m0 = blockIdx.y * rows_per_chunk;
-  const int m1 = min(M, m0 + rows_per_chunk);
-  float acc = 0.0f;
-  for (int base = m0; base < m1; base += kTile) {
-    const int rows = min(kTile, m1 - base);
+}
+
+// Sum over the blocks of the grid of one value per block, in block order:
+// every block writes its value to block_sums; the last block to arrive at
+// `counter` adds them (thread t takes blocks t, t + kThreads, ..., then a
+// fixed tree) and returns true in thread 0 with the total in *total.  The
+// counter is reset to 0 for the next launch.
+__device__ bool grid_sum(float block_value, float* block_sums, int* counter,
+                         float* total) {
+  __shared__ int last;
+  __shared__ float red[kThreads];
+  if (threadIdx.x == 0) block_sums[blockIdx.x] = block_value;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  float s = 0.0f;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads) s += __ldcg(&block_sums[b]);
+  red[threadIdx.x] = s;
+  __syncthreads();
+#pragma unroll
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  *total = red[0];
+  return threadIdx.x == 0;
+}
+
+// Sum of one value per warp (lane 0's) in warp order, in every thread.
+__device__ float block_sum_of_warps(float warp_value) {
+  __shared__ float per_warp[kWarps];
+  if ((threadIdx.x & 31) == 0) per_warp[threadIdx.x >> 5] = warp_value;
+  __syncthreads();
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += per_warp[w];
+  return s;
+}
+
+struct Args {
+  const float* X;       // [N, D]
+  const float* TY;      // [M, D]
+  int N, M, D;
+  const float* sigma2;  // device scalar
+  const int* done;      // device flag, or null
+  float* inv_den;       // [N], written by the den pass, read by the row pass
+  float* block_sums;    // [blocks]
+  int* counter;         // zero between launches
+};
+
+// ---------------------------------------------------------------- den pass
+// A warp owns R rows of X and reduces over all of TY.
+template <int DP, int R>
+__global__ void __launch_bounds__(kThreads)
+    estep_den_kernel(Args a, float outlier_coef, float* __restrict__ pt1,
+                     float* __restrict__ L) {
+  constexpr int V = (DP + 3) / 4;
+  if (a.done != nullptr && *a.done) return;
+  __shared__ float4 sty[kTile][V];
+  const int lane = threadIdx.x & 31;
+  const float s2 = *a.sigma2;
+  const float scale = -kLog2e / (2.0f * s2);
+  const int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * R;
+  float x[R][DP];
+  float acc[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int n = row0 + j;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) {
+      x[j][d] = (n < a.N && d < a.D) ? a.X[(size_t)n * a.D + d] : 0.0f;
+    }
+    acc[j] = 0.0f;
+  }
+  for (int base = 0; base < a.M; base += kTile) {
+    const int cols = min(kTile, a.M - base);
     __syncthreads();  // the previous tile has been read
-    for (int e = threadIdx.x; e < kTile * DP; e += kThreads) {
-      const int r = e / DP;
-      const int d = e % DP;
-      sty[r][d] = (r < rows && d < D) ? TY[(size_t)(base + r) * D + d] : 0.0f;
-    }
+    stage<V>(sty, a.TY, a.D, base, cols, nullptr, -1);
     __syncthreads();
 #pragma unroll 4
-    for (int r = 0; r < rows; ++r) {
-      float d2 = 0.0f;
+    for (int r = lane; r < cols; r += 32) {
+      float4 t[V];
 #pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        const float diff = x[d] - sty[r][d];
-        d2 = fmaf(diff, diff, d2);
-      }
-      acc += expf(d2 * neg_inv2s2);
-    }
-  }
-  if (active) part[(size_t)blockIdx.y * N + n] = acc;
-}
-
-// den and 1/den from the chunks' partial sums, added in chunk order.
-__global__ void __launch_bounds__(kThreads)
-    estep_den_finish_kernel(const float* __restrict__ part, int N, int chunks,
-                            const float* __restrict__ params,
-                            float* __restrict__ den,
-                            float* __restrict__ inv_den) {
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  if (n >= N) return;
-  float s = part[n];
-  for (int k = 1; k < chunks; ++k) s += part[(size_t)k * N + n];
-  const float v = fmaxf(s + params[1], 1e-30f);
-  den[n] = v;
-  inv_den[n] = 1.0f / v;
-}
-
-// Partial P1 and PX over one chunk of X columns (blockIdx.y).  part is
-// [chunks, M * (D + 1)]: per chunk, P1 [M] then PX [M, D] row-major.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    estep_row_partial_kernel(const float* __restrict__ X,
-                             const float* __restrict__ TY,
-                             const float* __restrict__ inv_den, int N, int M,
-                             int D, int cols_per_chunk,
-                             const float* __restrict__ params,
-                             float* __restrict__ part) {
-  __shared__ float sx[kTile][DP + 1];  // x_n, then 1 / den_n
-  const int m = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = m < M;
-  float ty[DP];
-  float px[DP];
+      for (int v = 0; v < V; ++v) t[v] = sty[r][v];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    ty[d] = (active && d < D) ? TY[(size_t)m * D + d] : 0.0f;
-    px[d] = 0.0f;
-  }
-  float p1 = 0.0f;
-  const float neg_inv2s2 = -params[0];
-  const int n0 = blockIdx.y * cols_per_chunk;
-  const int n1 = min(N, n0 + cols_per_chunk);
-  for (int base = n0; base < n1; base += kTile) {
-    const int cols = min(kTile, n1 - base);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTile * (DP + 1); e += kThreads) {
-      const int r = e / (DP + 1);
-      const int d = e % (DP + 1);
-      float v = 0.0f;
-      if (r < cols) {
-        if (d == DP) {
-          v = inv_den[base + r];
-        } else if (d < D) {
-          v = X[(size_t)(base + r) * D + d];
+      for (int j = 0; j < R; ++j) {
+        float d2 = 0.0f;
+#pragma unroll
+        for (int d = 0; d < DP; ++d) {
+          const float diff = x[j][d] - comp(t[d / 4], d % 4);
+          d2 = fmaf(diff, diff, d2);
         }
+        acc[j] += fast_exp2(d2 * scale);
       }
-      sx[r][d] = v;
     }
+  }
+  const float c = outlier_coef > 0.0f
+                      ? powf(2.0f * 3.14159265358979f * s2, 0.5f * a.D) * outlier_coef
+                      : 0.0f;
+  float log_sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float v = fmaxf(warp_sum(acc[j]) + c, 1e-30f);
+    const int n = row0 + j;
+    if (n < a.N) {
+      const float inv = 1.0f / v;
+      if (lane == j) {
+        a.inv_den[n] = inv;
+        pt1[n] = 1.0f - c * inv;
+      }
+      log_sum += logf(v);
+    }
+  }
+  float total;
+  if (grid_sum(block_sum_of_warps(log_sum), a.block_sums, a.counter, &total)) {
+    *L = -total + (float)a.D * (float)a.N * logf(s2) / 2.0f;
+  }
+}
+
+// ---------------------------------------------------------------- row pass
+// A warp owns R rows of TY and reduces over all of X.  p1px is P1 [M] then
+// PX [M, D].
+template <int DP, int R>
+__global__ void __launch_bounds__(kThreads)
+    estep_row_kernel(Args a, float* __restrict__ p1px, float* __restrict__ Np) {
+  constexpr int V = (DP + 4) / 4;  // x_n, then 1 / den_n at component DP
+  if (a.done != nullptr && *a.done) return;
+  __shared__ float4 sx[kTile][V];
+  const int lane = threadIdx.x & 31;
+  const float scale = -kLog2e / (2.0f * *a.sigma2);
+  const int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * R;
+  float ty[R][DP];
+  float px[R][DP];
+  float p1[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int m = row0 + j;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) {
+      ty[j][d] = (m < a.M && d < a.D) ? a.TY[(size_t)m * a.D + d] : 0.0f;
+      px[j][d] = 0.0f;
+    }
+    p1[j] = 0.0f;
+  }
+  for (int base = 0; base < a.N; base += kTile) {
+    const int cols = min(kTile, a.N - base);
+    __syncthreads();
+    stage<V>(sx, a.X, a.D, base, cols, a.inv_den, DP);
     __syncthreads();
 #pragma unroll 4
-    for (int r = 0; r < cols; ++r) {
-      float d2 = 0.0f;
+    for (int r = lane; r < cols; r += 32) {
+      float4 t[V];
 #pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        const float diff = sx[r][d] - ty[d];
-        d2 = fmaf(diff, diff, d2);
+      for (int v = 0; v < V; ++v) t[v] = sx[r][v];
+      const float inv = comp(t[DP / 4], DP % 4);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float d2 = 0.0f;
+#pragma unroll
+        for (int d = 0; d < DP; ++d) {
+          const float diff = comp(t[d / 4], d % 4) - ty[j][d];
+          d2 = fmaf(diff, diff, d2);
+        }
+        const float p = fast_exp2(d2 * scale) * inv;
+        p1[j] += p;
+#pragma unroll
+        for (int d = 0; d < DP; ++d) px[j][d] = fmaf(p, comp(t[d / 4], d % 4), px[j][d]);
       }
-      const float p = expf(d2 * neg_inv2s2) * sx[r][DP];
-      p1 += p;
-#pragma unroll
-      for (int d = 0; d < DP; ++d) px[d] = fmaf(p, sx[r][d], px[d]);
     }
   }
-  if (!active) return;
-  float* out = part + (size_t)blockIdx.y * M * (D + 1);
-  out[m] = p1;
+  float p1_sum = 0.0f;
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    if (d < D) out[M + (size_t)m * D + d] = px[d];
+  for (int j = 0; j < R; ++j) {
+    const float s = warp_sum(p1[j]);
+    const int m = row0 + j;
+    if (m < a.M) {
+      if (lane == j) p1px[m] = s;
+      p1_sum += s;
+    }
+#pragma unroll
+    for (int d = 0; d < DP; ++d) {
+      const float v = warp_sum(px[j][d]);
+      if (m < a.M && d < a.D && lane == j) p1px[a.M + (size_t)m * a.D + d] = v;
+    }
+  }
+  float total;
+  if (grid_sum(block_sum_of_warps(p1_sum), a.block_sums, a.counter, &total)) {
+    *Np = total;
   }
 }
 
-// out[e] = sum over chunks k (in order) of part[k * len + e].
-__global__ void __launch_bounds__(kThreads)
-    estep_sum_chunks_kernel(const float* __restrict__ part, long long len,
-                            int chunks, float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= len) return;
-  float s = part[e];
-  for (int k = 1; k < chunks; ++k) s += part[(size_t)k * len + e];
-  out[e] = s;
+int padded(int D) { return D <= 3 ? 3 : D <= 6 ? 6 : D <= 8 ? 8 : 16; }
+
+// Rows a warp owns for `rows` output rows at width D.
+int rows_per_warp(int rows, int D) {
+  if (rows < kWideMin || padded(D) > 8) return 2;
+  return padded(D) == 6 ? kRowsD6 : kRows;
 }
 
-template <int DP>
-cudaError_t launch_den(const float* X, const float* TY, int N, int M, int D,
-                       int chunks, const float* params, float* part,
-                       cudaStream_t s) {
-  const int per_chunk = (M + chunks - 1) / chunks;
-  const dim3 grid((N + kThreads - 1) / kThreads, chunks);
-  estep_den_partial_kernel<DP><<<grid, kThreads, 0, s>>>(
-      X, TY, N, M, D, per_chunk, params, part);
-  return cudaGetLastError();
+int blocks_for(int rows, int D) {
+  const int per_block = kWarps * rows_per_warp(rows, D);
+  return (rows + per_block - 1) / per_block;
 }
 
-template <int DP>
-cudaError_t launch_rows(const float* X, const float* TY, const float* inv_den,
-                        int N, int M, int D, int chunks, const float* params,
-                        float* part, cudaStream_t s) {
-  const int per_chunk = (N + chunks - 1) / chunks;
-  const dim3 grid((M + kThreads - 1) / kThreads, chunks);
-  estep_row_partial_kernel<DP><<<grid, kThreads, 0, s>>>(
-      X, TY, inv_den, N, M, D, per_chunk, params, part);
-  return cudaGetLastError();
+bool bad_shape(int N, int M, int D) { return N < 1 || M < 1 || D < 1 || D > 16; }
+
+// Makes `device` current if it is not (a CUDA graph capture may be under way,
+// so nothing else is called).
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
 }
 
-bool bad_shape(int N, int M, int D, int chunks) {
-  return N < 1 || M < 1 || D < 1 || D > 16 || chunks < 1 || chunks > 65535;
+template <int DP, int R>
+void den_launch(const Args& a, float coef, float* pt1, float* L, int blocks,
+                cudaStream_t s) {
+  estep_den_kernel<DP, R><<<blocks, kThreads, 0, s>>>(a, coef, pt1, L);
+}
+
+template <int DP, int R>
+void row_launch(const Args& a, float* p1px, float* Np, int blocks, cudaStream_t s) {
+  estep_row_kernel<DP, R><<<blocks, kThreads, 0, s>>>(a, p1px, Np);
 }
 
 }  // namespace
 
-// Plain C entry points, loaded through ctypes.  X f32 [N, D] and TY f32
-// [M, D] are contiguous device arrays; params f32 [2] = (1 / (2 sigma2), c)
-// lies on the device; outputs and workspaces are allocated by the caller.
-// Both launch on `stream` without synchronising and return
-// cudaGetLastError() (0 on success, -1 for shapes the kernels do not take).
+// Plain C entry points, loaded through ctypes.  Every one returns 0 on
+// success, -1 for shapes the kernels do not take, or a CUDA error code.
 
-// den f32 [N] and inv_den f32 [N]; part f32 [chunks, N] workspace, the TY
-// rows split into `chunks`.
-extern "C" int pyfocusr_cpd_estep_den_f32(const float* X, const float* TY,
-                                          int N, int M, int D,
-                                          const float* params, int chunks,
-                                          float* part, float* den,
-                                          float* inv_den, int device,
-                                          void* stream) {
-  if (bad_shape(N, M, D, chunks)) return -1;
-  cudaError_t err = cudaSetDevice(device);
+// Blocks of the den pass and of the row pass for X [N, D] and TY [M, D],
+// into out[2]: the caller sizes the block-sum workspaces from them.
+extern "C" int pyfocusr_cpd_estep_plan(int N, int M, int D, int* out) {
+  if (bad_shape(N, M, D)) return -1;
+  out[0] = blocks_for(N, D);
+  out[1] = blocks_for(M, D);
+  return 0;
+}
+
+// The den pass: Pt1 and 1/den f32 [N] and L f32 [1] from X, TY, the device
+// scalar sigma2 and the outlier coefficient w / (1 - w) * M / N (0 for w =
+// 0).  block_sums f32 [blocks] and counter int32 [1] (zero before the first
+// launch) are its workspace.
+extern "C" int pyfocusr_cpd_estep_den_f32(
+    const float* X, const float* TY, int N, int M, int D, const float* sigma2,
+    float outlier_coef, const int* done, float* inv_den, float* block_sums,
+    int* counter, float* pt1, float* L, int device, void* stream) {
+  if (bad_shape(N, M, D)) return -1;
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 3) {
-    err = launch_den<3>(X, TY, N, M, D, chunks, params, part, s);
-  } else if (D <= 6) {
-    err = launch_den<6>(X, TY, N, M, D, chunks, params, part, s);
-  } else if (D <= 8) {
-    err = launch_den<8>(X, TY, N, M, D, chunks, params, part, s);
-  } else {
-    err = launch_den<16>(X, TY, N, M, D, chunks, params, part, s);
+  const Args a{X, TY, N, M, D, sigma2, done, inv_den, block_sums, counter};
+  const int blocks = blocks_for(N, D);
+  const bool wide = rows_per_warp(N, D) > 2;
+  switch (padded(D)) {
+    case 3: (wide ? den_launch<3, kRows> : den_launch<3, 2>)(a, outlier_coef, pt1, L, blocks, s); break;
+    case 6: (wide ? den_launch<6, kRowsD6> : den_launch<6, 2>)(a, outlier_coef, pt1, L, blocks, s); break;
+    case 8: (wide ? den_launch<8, kRows> : den_launch<8, 2>)(a, outlier_coef, pt1, L, blocks, s); break;
+    default: den_launch<16, 2>(a, outlier_coef, pt1, L, blocks, s);
   }
-  if (err != cudaSuccess) return (int)err;
-  estep_den_finish_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      part, N, chunks, params, den, inv_den);
   return (int)cudaGetLastError();
 }
 
-// p1px f32 [M * (D + 1)]: P1 [M] then PX [M, D]; part f32 [chunks, M * (D +
-// 1)] workspace, the X rows split into `chunks`; inv_den from the den pass.
-extern "C" int pyfocusr_cpd_estep_rows_f32(const float* X, const float* TY,
-                                           const float* inv_den, int N, int M,
-                                           int D, const float* params,
-                                           int chunks, float* part,
-                                           float* p1px, int device,
-                                           void* stream) {
-  if (bad_shape(N, M, D, chunks)) return -1;
-  cudaError_t err = cudaSetDevice(device);
+// The row pass: p1px f32 [M * (D + 1)] (P1 [M] then PX [M, D]) and Np f32
+// [1], from X, TY and 1/den of the den pass; block_sums f32 [blocks] and
+// counter int32 [1] as in the den pass (a workspace of its own).
+extern "C" int pyfocusr_cpd_estep_rows_f32(
+    const float* X, const float* TY, int N, int M, int D, const float* sigma2,
+    const int* done, float* inv_den, float* block_sums, int* counter,
+    float* p1px, float* Np, int device, void* stream) {
+  if (bad_shape(N, M, D)) return -1;
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 3) {
-    err = launch_rows<3>(X, TY, inv_den, N, M, D, chunks, params, part, s);
-  } else if (D <= 6) {
-    err = launch_rows<6>(X, TY, inv_den, N, M, D, chunks, params, part, s);
-  } else if (D <= 8) {
-    err = launch_rows<8>(X, TY, inv_den, N, M, D, chunks, params, part, s);
-  } else {
-    err = launch_rows<16>(X, TY, inv_den, N, M, D, chunks, params, part, s);
+  const Args a{X, TY, N, M, D, sigma2, done, inv_den, block_sums, counter};
+  const int blocks = blocks_for(M, D);
+  const bool wide = rows_per_warp(M, D) > 2;
+  switch (padded(D)) {
+    case 3: (wide ? row_launch<3, kRows> : row_launch<3, 2>)(a, p1px, Np, blocks, s); break;
+    case 6: (wide ? row_launch<6, kRowsD6> : row_launch<6, 2>)(a, p1px, Np, blocks, s); break;
+    case 8: (wide ? row_launch<8, kRows> : row_launch<8, 2>)(a, p1px, Np, blocks, s); break;
+    default: row_launch<16, 2>(a, p1px, Np, blocks, s);
   }
-  if (err != cudaSuccess) return (int)err;
-  const long long len = (long long)M * (D + 1);
-  const long long blocks = (len + kThreads - 1) / kThreads;
-  estep_sum_chunks_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(part, len,
-                                                                chunks, p1px);
   return (int)cudaGetLastError();
 }

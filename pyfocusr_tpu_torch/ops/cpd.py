@@ -18,23 +18,31 @@ Kept from the JAX version for f32 reasons:
 
 Two E-steps.  The dense one (``estep_impl="dense"``) materializes P [M, N]
 and leaves the product to ``torch.matmul``; the streamed one
-(``estep_impl="streamed"``) is ``cpd_estep_kernel.cpd_estep``, the
+(``estep_impl="streamed"``) is ``cpd_estep_kernel.estep_for``, the
 hand-written CUDA kernel on a CUDA device and its plain tiled version on
 the CPU, which never forms P.  The pipeline takes the streamed one when
 M N > 3000^2.  Above 8192 control points the Gram of ``low_rank_gaussian``
-is applied in row tiles and never formed either.  The EM loops are Python
-loops whose stop test |delta sigma2| <= tol is read on the host each
-iteration, as the JAX ``while_loop`` tests it.
+is applied in row tiles and never formed either.
+
+Both EM loops run on one driver, ``_em_loop``, whose state (the warp, sigma2,
+the last change of sigma2, the iteration count and a stop flag) lives on
+the device, as in the JAX ``while_loop``.  By default each iteration is
+masked by the stop flag and the host reads the flag every ``EM_BLOCK``
+iterations; on a CUDA device the iteration is captured once as a CUDA graph
+and replayed.  ``loop="plain"`` is the sequential loop that reads the stop
+test every iteration, the plain version the blocked loop equals bit for bit.
 """
 
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 
 from ..utils.precision import f32_matmuls
-from .cpd_estep_kernel import cpd_estep
+from . import cpd_estep_kernel
+from .cpd_estep_kernel import outlier_constant
 from .knn import pairwise_sq_dists
 
 __all__ = [
@@ -62,14 +70,6 @@ def gaussian_matvec_tiled(Y, beta, V, tile: int = 2048):
     ])
 
 
-def _outlier_constant(sigma2, w: float, D: int, M: int, N: int):
-    """The uniform-outlier term c = (2 pi sigma2)^(D/2) w/(1-w) M/N of the
-    E-step's denominator (0 for w = 0, the reference's setting)."""
-    if w <= 0:
-        return 0.0
-    return (2.0 * math.pi * sigma2) ** (D / 2.0) * (w / (1.0 - w)) * (M / N)
-
-
 def _estep(X, TY, sigma2, w):
     """Dense CPD E-step (P [M, N] materialized).  Returns (Pt1 [N], P1 [M],
     PX [M, D], Np, L)."""
@@ -77,7 +77,7 @@ def _estep(X, TY, sigma2, w):
     N, D = X.shape
     d2 = pairwise_sq_dists(TY, X)  # [M, N]
     P = torch.exp(-d2 / (2.0 * sigma2))
-    c = _outlier_constant(sigma2, w, D, M, N)
+    c = outlier_constant(sigma2, w, D, M, N)
     den = torch.clamp(P.sum(dim=0) + c, min=1e-30)
     L = -torch.log(den).sum() + D * N * torch.log(sigma2) / 2.0
     P = P / den[None, :]
@@ -144,19 +144,163 @@ def _sqrt_lam_gated(lam, dtype):
     return torch.where(lam > lam[0] * eps2, torch.sqrt(lam), torch.zeros_like(lam))
 
 
+# EM iterations run between two host reads of the blocked loop's stop flag:
+# on the card, replays of the captured iteration.  A run overshoots its
+# convergence by at most K - 1 masked iterations, whose M-step ops still run
+# (the streamed E-step kernels return at once on the flag): at K = 8 that is
+# a few milliseconds beside the 50-300 iterations a run takes, while the
+# host reads, each a wait for the device to drain, drop eightfold.
+EM_BLOCK = 8
+
+# What the last blocked EM loop did: iterations, whether it ran as a CUDA
+# graph, iterations run after the first (replays on the card), host reads
+# of its flag, and host milliseconds spent capturing, replaying (launching
+# the replays) and reading.
+EM_STATS = {}
+
+
+def _solve(A, B):
+    """A^{-1} B for the M-step's small systems by LU, without the host check
+    of the factorisation that ``torch.linalg.solve`` makes (a read of the
+    device, which a CUDA graph cannot hold).  A singular A gives non-finite
+    values, and the loop then stops on its NaN test, as JAX's does."""
+    return torch.linalg.solve_ex(A, B, check_errors=False)[0]
+
+
+def _em_loop(update, state, max_iterations: int, tolerance: float,
+             loop: str = "blocked") -> int:
+    """Run EM on ``state`` (a dict of tensors, with the 0-d ``"sigma2"``)
+    until |delta sigma2| <= tolerance or ``max_iterations``, JAX's
+    ``while_loop`` condition.  ``update(state, done)`` returns the candidate
+    values of one iteration (a dict of some of the keys, ``"sigma2"`` among
+    them); ``done`` is an int32 device flag the E-step may skip on, or None.
+    Returns the iteration count; ``state`` holds the final values.
+
+    ``loop="plain"``: the sequential loop, one host read of the stop test
+    per iteration.  ``loop="blocked"``: the iteration is masked (it keeps
+    the old state where ``done`` is set, advances its count only while not
+    done, and sets ``done = not (err > tol) or it >= max_iterations``, NaN
+    included), all of it on the device; the host reads the flag every
+    ``EM_BLOCK`` iterations.  On a CUDA device one iteration runs eagerly
+    (on a side stream, which also sets up the libraries' workspaces), is then
+    captured as a CUDA graph and replayed; a failed capture raises.  On the
+    CPU the masked iteration runs eagerly.  Both loops give the same values
+    bit for bit."""
+    if loop not in ("blocked", "plain"):
+        raise ValueError(f"loop must be 'blocked' or 'plain', got {loop!r}")
+    sigma2 = state["sigma2"]
+    if loop == "plain":
+        it = 0
+        err = torch.full_like(sigma2, float("inf"))
+        while it < max_iterations and bool(err > tolerance):
+            new = update(state, None)
+            err = (new["sigma2"] - state["sigma2"]).abs()
+            state.update(new)
+            it += 1
+        return it
+
+    EM_STATS.clear()
+    EM_STATS.update(iterations=0, graph=False, replays=0, host_reads=0,
+                    capture_ms=0.0, replay_ms=0.0, read_ms=0.0, block=EM_BLOCK)
+    if not (max_iterations > 0 and math.inf > tolerance):
+        return 0
+    err = torch.full_like(sigma2, float("inf"))
+    ctrl = torch.zeros((2,), dtype=torch.int32, device=sigma2.device)  # it, done
+    it_count, done_flag = ctrl[0], ctrl[1:]
+
+    def step():
+        done = done_flag[0] != 0
+        new = update(state, done_flag)
+        err_new = (new["sigma2"] - state["sigma2"]).abs()
+        for key, val in new.items():
+            state[key].copy_(torch.where(done, state[key], val))
+        err.copy_(torch.where(done, err, err_new))
+        it_count.add_((~done).to(torch.int32))
+        done_flag.copy_(((~(err > tolerance)) | (it_count >= max_iterations))
+                        .to(torch.int32).reshape(1))
+
+    run = step
+    if sigma2.device.type == "cuda":
+        run = _captured(step, sigma2.device)
+    else:
+        step()
+    ran, reads, replay_s = 1, 1, 0.0
+    t0 = time.perf_counter()
+    it, done = ctrl.tolist()
+    read_s = time.perf_counter() - t0
+    while not done:
+        k = min(EM_BLOCK, max_iterations - ran)
+        if k <= 0:
+            raise RuntimeError("EM loop: the stop flag is unset after max_iterations")
+        t0 = time.perf_counter()
+        for _ in range(k):
+            run()
+        t1 = time.perf_counter()
+        it, done = ctrl.tolist()
+        replay_s += t1 - t0
+        read_s += time.perf_counter() - t1
+        ran += k
+        reads += 1
+    EM_STATS.update(iterations=it, replays=ran - 1, host_reads=reads,
+                    replay_ms=replay_s * 1e3, read_ms=read_s * 1e3)
+    return it
+
+
+def _captured(step, device):
+    """Run ``step`` once eagerly on a side stream, capture it there as a CUDA
+    graph and return the replay.  The capture is begun and ended on the
+    graph itself, not through ``torch.cuda.graph``, whose entry synchronizes
+    and empties the allocator's cache each time, so that every block the
+    rest of a pair had cached would be allocated again after each EM loop.
+    The E-step kernel's launches in the graph count in
+    ``cpd_estep_kernel.LAUNCHES`` at each replay, not at the capture."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        step()
+        t0 = time.perf_counter()
+        before = cpd_estep_kernel.LAUNCHES
+        graph.capture_begin()
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    EM_STATS.update(graph=True, capture_ms=(time.perf_counter() - t0) * 1e3)
+    per_replay = cpd_estep_kernel.LAUNCHES - before
+    cpd_estep_kernel.LAUNCHES = before
+
+    def replay():
+        graph.replay()
+        cpd_estep_kernel.LAUNCHES += per_replay
+
+    return replay
+
+
+def _estep_for(X, M: int, w: float, estep_impl: str):
+    """The E-step of one EM run as ``(TY, sigma2, done) -> (Pt1, P1, PX, Np,
+    L)``: dense, or streamed (``cpd_estep_kernel.estep_for``)."""
+    if estep_impl == "dense":
+        return lambda TY, sigma2, done: _estep(X, TY, sigma2, w)
+    if estep_impl == "streamed":
+        return cpd_estep_kernel.estep_for(X, M, w)
+    raise ValueError(f"estep_impl must be 'dense' or 'streamed', got {estep_impl!r}")
+
+
 @f32_matmuls
-def _affine_cpd_run(X, Y, max_iterations: int, tolerance: float, w: float = 0.0):
-    """Affine CPD with the dense E-step: moves Y onto X by TY = Y B^T + t.
-    Returns (TY, B, t, sigma2, iterations)."""
+def _affine_cpd_run(X, Y, max_iterations: int, tolerance: float, w: float = 0.0,
+                    estep_impl: str = "dense", loop: str = "blocked"):
+    """Affine CPD: moves Y onto X by TY = Y B^T + t.  Returns (TY, B, t,
+    sigma2, iterations).  ``estep_impl`` as in ``_deformable_cpd_run`` (the
+    JAX function has the dense one only); ``loop``: see ``_em_loop``."""
     N, D = X.shape
-    sigma2 = _init_sigma2(X, Y)
-    B = torch.eye(D, dtype=X.dtype, device=X.device)
-    t = torch.zeros((D,), dtype=X.dtype, device=X.device)
-    it = 0
-    err = torch.tensor(float("inf"), dtype=X.dtype, device=X.device)
-    while it < max_iterations and bool(err > tolerance):
+    estep = _estep_for(X, Y.shape[0], w, estep_impl)
+
+    def update(state, done):
+        B, t, sigma2 = state["B"], state["t"], state["sigma2"]
         TY = Y @ B.T + t[None, :]
-        Pt1, P1, PX, Np, _ = _estep(X, TY, sigma2, w)
+        Pt1, P1, PX, Np, _ = estep(TY, sigma2, done)
         mu_x = (X.T @ Pt1) / Np
         mu_y = (Y.T @ P1) / Np
         Xh = X - mu_x[None, :]
@@ -164,37 +308,40 @@ def _affine_cpd_run(X, Y, max_iterations: int, tolerance: float, w: float = 0.0)
         # A = Xh^T P^T Yh from PX, without a second pass over P.
         A = (PX - P1[:, None] * mu_x[None, :]).T @ Yh
         YPY = (Yh.T * P1[None, :]) @ Yh
-        B = torch.linalg.solve(YPY.T, A.T).T
-        t = mu_x - B @ mu_y
+        B_new = _solve(YPY.T, A.T).T.contiguous()
+        t_new = mu_x - B_new @ mu_y
         xPx = torch.dot(Pt1, (Xh * Xh).sum(dim=1))
-        trAB = torch.trace(A @ B.T)
+        trAB = torch.trace(A @ B_new.T)
         sigma2_new = torch.clamp((xPx - trAB) / (Np * D), min=tolerance / 10.0)
-        err = (sigma2_new - sigma2).abs()
-        sigma2 = sigma2_new
-        it += 1
-    return Y @ B.T + t[None, :], B, t, sigma2, it
+        return {"B": B_new, "t": t_new, "sigma2": sigma2_new}
+
+    state = {"B": torch.eye(D, dtype=X.dtype, device=X.device),
+             "t": torch.zeros((D,), dtype=X.dtype, device=X.device),
+             "sigma2": _init_sigma2(X, Y)}
+    it = _em_loop(update, state, max_iterations, tolerance, loop)
+    B, t = state["B"], state["t"]
+    return Y @ B.T + t[None, :], B, t, state["sigma2"], it
 
 
 @f32_matmuls
 def _deformable_cpd_run(X, Y, Q, lam, alpha: float, max_iterations: int,
                         tolerance: float, w: float = 0.0,
-                        estep_impl: str = "dense", landmarks=None):
+                        estep_impl: str = "dense", landmarks=None,
+                        loop: str = "blocked"):
     """EM loop with the balanced low-rank M-step.  Moves Y onto X.
     Returns (TY, z, sigma2, iterations) with z the spectral warp
     coefficients (displacement at the control points = Q diag(sqrt lam) z).
 
     ``estep_impl``: "dense" (P materialized) or "streamed"
-    (``cpd_estep_kernel.cpd_estep``: the CUDA kernel for CUDA tensors).
+    (``cpd_estep_kernel.estep_for``: the CUDA kernel for CUDA tensors).
     ``landmarks``: optional (lm_idx int [L], lm_pos f32 [L, D], lm_w f32
     [L]) prior correspondences, Y[lm_idx[l]] pulled toward lm_pos[l] with
     pseudo-responsibility lm_w[l] (MAP CPD): the prior terms add to diag(P1)
-    and PX in the M-step solve only; sigma2 stays data-driven."""
-    if estep_impl not in ("dense", "streamed"):
-        raise ValueError(f"estep_impl must be 'dense' or 'streamed', got {estep_impl!r}")
+    and PX in the M-step solve only; sigma2 stays data-driven.
+    ``loop``: see ``_em_loop``."""
     N, D = X.shape
     M = Y.shape[0]
     k = lam.shape[0]
-    sigma2 = _init_sigma2(X, Y)
     sqrt_lam = _sqrt_lam_gated(lam, X.dtype)
     eye_k = torch.eye(k, dtype=X.dtype, device=X.device)
     xx = (X * X).sum(dim=1)
@@ -202,10 +349,7 @@ def _deformable_cpd_run(X, Y, Q, lam, alpha: float, max_iterations: int,
     def kernel_apply_z(z):
         return Q @ (sqrt_lam[:, None] * z)
 
-    def estep(TY, sigma2):
-        if estep_impl == "dense":
-            return _estep(X, TY, sigma2, w)
-        return cpd_estep(X, TY, sigma2, _outlier_constant(sigma2, w, D, M, N))
+    estep = _estep_for(X, M, w, estep_impl)
 
     lm_p1 = lm_px = None
     if landmarks is not None:
@@ -218,12 +362,10 @@ def _deformable_cpd_run(X, Y, Q, lam, alpha: float, max_iterations: int,
         lm_px = torch.zeros((M, D), dtype=X.dtype, device=X.device).index_add_(
             0, lm_idx, lm_w[:, None] * lm_pos)
 
-    z = torch.zeros((k, D), dtype=X.dtype, device=X.device)
-    it = 0
-    err = torch.tensor(float("inf"), dtype=X.dtype, device=X.device)
-    while it < max_iterations and bool(err > tolerance):
+    def update(state, done):
+        z, sigma2 = state["z"], state["sigma2"]
         TY = Y + kernel_apply_z(z)
-        Pt1, P1, PX, Np, _ = estep(TY, sigma2)
+        Pt1, P1, PX, Np, _ = estep(TY, sigma2, done)
         P1_solve, PX_solve = P1, PX
         if lm_p1 is not None:
             P1_solve, PX_solve = P1 + lm_p1, PX + lm_px
@@ -232,18 +374,21 @@ def _deformable_cpd_run(X, Y, Q, lam, alpha: float, max_iterations: int,
         Ft = Q.T @ F
         C = Q.T @ (P1_solve[:, None] * Q)
         A = sqrt_lam[:, None] * C * sqrt_lam[None, :] + a_s2 * eye_k
-        z = torch.linalg.solve(A, sqrt_lam[:, None] * Ft)
-        TY_new = Y + kernel_apply_z(z)
+        z_new = _solve(A, sqrt_lam[:, None] * Ft).contiguous()
+        TY_new = Y + kernel_apply_z(z_new)
         xPx = torch.dot(Pt1, xx)
         yPy = torch.dot(P1, (TY_new * TY_new).sum(dim=1))
         trPXY = (TY_new * PX).sum()
         sigma2_new = torch.clamp(
             (xPx - 2.0 * trPXY + yPy) / (Np * D), min=tolerance / 10.0
         )
-        err = (sigma2_new - sigma2).abs()
-        sigma2 = sigma2_new
-        it += 1
-    return Y + kernel_apply_z(z), z, sigma2, it
+        return {"z": z_new, "sigma2": sigma2_new}
+
+    state = {"z": torch.zeros((k, D), dtype=X.dtype, device=X.device),
+             "sigma2": _init_sigma2(X, Y)}
+    it = _em_loop(update, state, max_iterations, tolerance, loop)
+    z = state["z"]
+    return Y + kernel_apply_z(z), z, state["sigma2"], it
 
 
 # Rows of the [rows, M] kernel block per step of lowrank_transform.

@@ -13,7 +13,9 @@ and the branches of ``_register_pair_jit`` (:1381-1764) listed below:
     with xyz appended, :1592-1613) -> CPD: landmark rows forced into the
     control subsample (:1619-1643), optional affine pre-pass (:1645-1651),
     low-rank deformable CPD with the dense E-step, or the streamed one
-    when the subsample exceeds 3000^2 pairs (:1653-1671) ->
+    when the subsample exceeds 3000^2 pairs (:1653-1671; the port streams
+    the affine pre-pass's E-step above that size too, where JAX keeps the
+    dense one) ->
     correspondences ('kd': nearest neighbour; 'hungarian': one-to-one
     assignment, :1677-1733) -> Chebyshev graph smoothing -> k=3 IDW final
     locations.
@@ -732,10 +734,12 @@ def _register_pair(target, source, cfg, generator, draws, stage,
         )
     else:
         Y = tgt_coords[draws["cpd_target"]]
+    # Above 3000^2 pairs the responsibilities are streamed, never formed.
+    estep_impl = "streamed" if n_reg * n_reg > 3000 * 3000 else "dense"
     if cfg.rigid_before_non_rigid_reg:
         _, B, t_vec, _, _ = cpd_ops._affine_cpd_run(
             X, Y, cfg.rigid_reg_max_iterations, cfg.rigid_tolerance,
-            w=cfg.non_rigid_outlier_w,
+            w=cfg.non_rigid_outlier_w, estep_impl=estep_impl,
         )
         Y = Y @ B.T + t_vec[None, :]
         tgt_coords = tgt_coords @ B.T + t_vec[None, :]
@@ -743,8 +747,6 @@ def _register_pair(target, source, cfg, generator, draws, stage,
     Qg, lam_g = cpd_ops.low_rank_gaussian(
         Y, cfg.non_rigid_beta, num_eig, draws["cpd_omega"]
     )
-    # Above 3000^2 pairs the responsibilities are streamed, never formed.
-    estep_impl = "streamed" if n_reg * n_reg > 3000 * 3000 else "dense"
     _, z_cpd, _, _ = cpd_ops._deformable_cpd_run(
         X, Y, Qg, lam_g, cfg.non_rigid_alpha, cfg.non_rigid_max_iterations,
         cfg.non_rigid_tolerance, w=cfg.non_rigid_outlier_w,

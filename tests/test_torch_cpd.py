@@ -1,8 +1,9 @@
 """Port parity for the CPD stage's full-resolution and prior pieces:
 ``pyfocusr_tpu_torch.ops.cpd_estep_kernel`` (the streamed E-step),
 ``gaussian_matvec_tiled``, the tiled branch of ``low_rank_gaussian``,
-``_deformable_cpd_run`` with ``estep_impl="streamed"`` and ``landmarks``, and
-``_affine_cpd_run``, against ``pyfocusr_tpu`` on the same inputs.
+``_deformable_cpd_run`` with ``estep_impl="streamed"`` and ``landmarks``,
+``_affine_cpd_run``, and the EM loops' two drivers (blocked and plain),
+against ``pyfocusr_tpu`` on the same inputs.
 
 Tolerances, and why:
 * ``cpd_estep_plain`` against ``cpd_estep_pallas(interpret=True)`` and
@@ -21,6 +22,8 @@ Tolerances, and why:
 * Streamed against dense EM, 8 iterations: TY within 1e-3, sigma2 within
   1e-5 (``tests/test_pallas_kernels.py:71-93``; reduction-order
   differences compound through the EM map as sigma2 shrinks).
+* The blocked EM loop against the plain loop: equal bit for bit (the same
+  operations; the mask keeps the candidate exactly while not done).
 * Landmark and affine runs against JAX: the same iteration count, TY within
   1e-3, B and t within 1e-4, sigma2 within 1e-6 absolute, the stop
   tolerance (sigma2 is a difference of O(1) sums, so its f32 noise is
@@ -67,20 +70,22 @@ ESTEP_CASES = {
 
 
 def _estep_inputs(case):
+    """X, TY, sigma2, the outlier weight w (the port's argument) and the
+    outlier constant c it implies (the JAX functions' argument)."""
     M, N, D, s2, w, seed = ESTEP_CASES[case]
     rng = np.random.default_rng(seed)
     X = rng.uniform(-1, 1, (N, D)).astype(np.float32)
     TY = rng.uniform(-1, 1, (M, D)).astype(np.float32)
-    return X, TY, s2, _outlier_c(s2, w, D, M, N)
+    return X, TY, s2, w, _outlier_c(s2, w, D, M, N)
 
 
 @pytest.mark.parametrize("case", sorted(ESTEP_CASES))
 def test_cpd_estep_plain_matches_jax(case):
-    X, TY, s2, c = _estep_inputs(case)
+    X, TY, s2, w, c = _estep_inputs(case)
     want_tiled = cpd_estep_tiled(jnp.asarray(X), jnp.asarray(TY), s2, c, tile_m=256)
     want_pallas = cpd_estep_pallas(jnp.asarray(X), jnp.asarray(TY), s2, c,
                                    tile_m=128, tile_n=128, interpret=True)
-    got = EK.cpd_estep_plain(torch.tensor(X), torch.tensor(TY), s2, c, tile_m=256)
+    got = EK.cpd_estep_plain(torch.tensor(X), torch.tensor(TY), s2, w, tile_m=256)
     assert [tuple(g.shape) for g in got] == [tuple(np.shape(w)) for w in want_tiled]
     for name, g, wt, wp in zip(NAMES, got, want_tiled, want_pallas):
         np.testing.assert_allclose(g.numpy(), np.asarray(wt), atol=ESTEP_ATOL,
@@ -90,15 +95,19 @@ def test_cpd_estep_plain_matches_jax(case):
 
 
 def test_cpd_estep_dispatches_cpu_tensors_to_the_plain_version():
-    X, TY, s2, c = _estep_inputs("258x513")
+    X, TY, s2, w, _ = _estep_inputs("outlier_w0.1")
     before = EK.LAUNCHES
-    got = EK.cpd_estep(torch.tensor(X), torch.tensor(TY), torch.tensor(s2), c)
-    want = EK.cpd_estep_plain(torch.tensor(X), torch.tensor(TY), s2, c, tile_m=100)
+    got = EK.cpd_estep(torch.tensor(X), torch.tensor(TY), torch.tensor(s2), w)
+    run = EK.estep_for(torch.tensor(X), TY.shape[0], w)
+    want = EK.cpd_estep_plain(torch.tensor(X), torch.tensor(TY), s2, w, tile_m=100)
     assert EK.LAUNCHES == before  # the kernel was not launched
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6, atol=1e-6)
+    for g, r, p in zip(got, run(torch.tensor(TY), torch.tensor(s2)), want):
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=1e-6, atol=1e-6)
+        assert torch.equal(g, r)
     with pytest.raises(ValueError, match="CUDA"):
-        EK.cpd_estep_cuda(torch.tensor(X), torch.tensor(TY), s2, c)
+        EK.cpd_estep_cuda(torch.tensor(X), torch.tensor(TY), s2, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        EK.CudaEstep(torch.tensor(X), TY.shape[0], w)
 
 
 @pytest.mark.parametrize("bad,err", [
@@ -256,11 +265,128 @@ def test_cpd_estep_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for case in sorted(ESTEP_CASES):
-        X, TY, s2, c = _estep_inputs(case)
+        X, TY, s2, w, _ = _estep_inputs(case)
         Xc, TYc = torch.tensor(X).cuda(), torch.tensor(TY).cuda()
         before = EK.LAUNCHES
-        got = EK.cpd_estep(Xc, TYc, torch.tensor(s2).cuda(), c)
+        got = EK.cpd_estep(Xc, TYc, torch.tensor(s2).cuda(), w)
         assert EK.LAUNCHES == before + 2
-        want = EK.cpd_estep_plain(Xc, TYc, s2, c)
+        want = EK.cpd_estep_plain(Xc, TYc, s2, w)
         for name, g, w in zip(NAMES, got, want):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+# ------------------------------------------------ the EM loops' two drivers
+
+# (kind, estep_impl, w, max_iterations, tolerance, landmarks) of the blocked
+# EM loop (``TC.EM_BLOCK`` masked iterations between host reads) against the
+# plain loop (a host read per iteration) and JAX's while_loop: stops by the
+# tolerance in the middle of a block, caps that are no multiple of the block
+# or 0, landmarks, both E-steps, w = 0 and 0.1, and the affine loop (JAX's
+# has the dense E-step only; the port's streamed one is held to it).
+LOOP_CASES = {
+    "tolerance_dense": ("deformable", "dense", 0.0, 60, 1e-5, False),
+    "tolerance_streamed_w0.1": ("deformable", "streamed", 0.1, 60, 1e-5, False),
+    "cap_13_streamed": ("deformable", "streamed", 0.0, 13, 0.0, False),
+    "cap_0": ("deformable", "dense", 0.0, 0, 1e-6, False),
+    "landmarks_streamed": ("deformable", "streamed", 0.0, 60, 1e-6, True),
+    "landmarks_dense_w0.1": ("deformable", "dense", 0.1, 60, 1e-6, True),
+    "affine_tolerance": ("affine", "dense", 0.0, 100, 1e-6, False),
+    "affine_streamed": ("affine", "streamed", 0.0, 100, 1e-6, False),
+    "affine_cap_11_w0.1": ("affine", "dense", 0.1, 11, 0.0, False),
+}
+
+
+def _affine_clouds():
+    rng = np.random.default_rng(7)
+    Y = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
+    A = np.array([[1.1, 0.1, 0.0], [-0.05, 0.95, 0.08], [0.02, 0.0, 1.05]], np.float32)
+    X = (Y[rng.permutation(400)[:350]] @ A.T + np.array([0.1, -0.2, 0.05])
+         + rng.normal(scale=0.01, size=(350, 3))).astype(np.float32)
+    return X, Y
+
+
+def _landmarks(X):
+    lm_idx = np.array([0, 17, 101, 250, 499], np.int32)
+    return lm_idx, (X[lm_idx] + 0.02).astype(np.float32), np.full((5,), 100.0, np.float32)
+
+
+def _port_loops(case, warp_pair, device="cpu"):
+    """The plain loop's and the blocked loop's results for one case on
+    ``device`` (iterations as ints), and EM_STATS of the blocked run."""
+    kind, impl, w, cap, tol, lm = LOOP_CASES[case]
+
+    def dev(*arrays):
+        return [a.to(device) for a in _t(*arrays)]
+
+    if kind == "affine":
+        X, Y = dev(*_affine_clouds())
+        runs = [TC._affine_cpd_run(X, Y, cap, tol, w=w, estep_impl=impl, loop=loop)
+                for loop in ("plain", "blocked")]
+    else:
+        X = warp_pair[0]
+        lms = dev(*_landmarks(X)) if lm else None
+        runs = [TC._deformable_cpd_run(*dev(*warp_pair), 0.5, cap, tol, w=w,
+                                       estep_impl=impl, landmarks=lms, loop=loop)
+                for loop in ("plain", "blocked")]
+    return runs[0], runs[1], dict(TC.EM_STATS)
+
+
+def _jax_loop(case, warp_pair):
+    kind, impl, w, cap, tol, lm = LOOP_CASES[case]
+    if kind == "affine":
+        X, Y = _affine_clouds()
+        return JC._affine_cpd_run(jnp.asarray(X), jnp.asarray(Y), cap, tol, w=w)
+    X, Y, Q, lam = warp_pair
+    lms = tuple(jnp.asarray(a) for a in _landmarks(X)) if lm else None
+    return JC._deformable_cpd_run(
+        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(Q), jnp.asarray(lam), 0.5, cap,
+        tol, w=w, estep_impl="tiled" if impl == "streamed" else "dense", landmarks=lms)
+
+
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_blocked_em_loop_matches_plain_loop_and_jax(case, warp_pair):
+    """The blocked loop equals the plain loop bit for bit (every output and
+    the iteration count) and reads the host at most ceil(it / K) + 1 times;
+    both match JAX at the tolerances of the landmark and affine tests above
+    (same iteration count; TY 1e-3, or 1e-4 for the affine map; sigma2 1e-6
+    absolute)."""
+    kind, _, _, cap, tol, _ = LOOP_CASES[case]
+    plain, blocked, stats = _port_loops(case, warp_pair)
+    want = _jax_loop(case, warp_pair)
+    it = blocked[-1]
+    assert isinstance(it, int) and it == plain[-1] == int(want[-1])
+    for p, b in zip(plain[:-1], blocked[:-1]):
+        assert torch.equal(p, b)
+    K = TC.EM_BLOCK
+    assert stats["iterations"] == it and not stats["graph"]
+    assert stats["host_reads"] <= -(-it // K) + 1
+    if tol > 0 and cap > 0:  # the tolerance stopped it
+        assert it < cap
+        # One eager iteration, then blocks of K: these stop inside a block.
+        assert not case.startswith("tolerance") or (it - 1) % K != 0, (it, K)
+    elif cap > 0:
+        assert it == cap and cap % K != 0
+    atol = 1e-4 if kind == "affine" else 1e-3
+    np.testing.assert_allclose(blocked[0].numpy(), np.asarray(want[0]), atol=atol)
+    assert abs(float(blocked[-2]) - float(want[-2])) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_graph_em_loop_matches_plain_on_card(warp_pair):
+    """Runs on a CUDA card only: the blocked loop runs as a captured CUDA
+    graph and equals the plain loop bit for bit in every case above; the
+    E-step kernel's launches count 2 per eager iteration or replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for case in sorted(LOOP_CASES):
+        before = EK.LAUNCHES
+        plain, blocked, stats = _port_loops(case, warp_pair, "cuda")
+        it = blocked[-1]
+        assert it == plain[-1], case
+        for p, b in zip(plain[:-1], blocked[:-1]):
+            assert torch.equal(p, b), case
+        assert stats["graph"] == (it > 0) and stats["iterations"] == it, (case, stats)
+        assert stats["host_reads"] <= -(-it // TC.EM_BLOCK) + 1, (case, stats)
+        if LOOP_CASES[case][1] == "streamed":
+            blocked_launches = EK.LAUNCHES - before - 2 * it  # the plain loop's
+            assert 2 * it <= blocked_launches < 2 * (it + TC.EM_BLOCK), (case, stats)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Warm times of the PyTorch port's 'kd' and 'hungarian' ``register_pair``
-paths and of its Jonker-Volgenant kernel, for several checkouts of the
+"""Warm times of the PyTorch port's ``register_pair`` paths ('kd',
+'hungarian', full-resolution CPD and the reference's raw ``Focusr``
+defaults) and of its Jonker-Volgenant kernel, for several checkouts of the
 repository in one run on one CUDA card.
 
     python3 tools/torch_paths_ab.py PARENT_DIR . . PARENT_DIR [--reps 5]
@@ -37,6 +38,7 @@ import statistics
 import subprocess
 import sys
 
+PATHS = ("kd", "hungarian", "fullres", "reference_defaults")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _WORK = os.path.join(_ROOT, "build", "torch_paths_ab")
 
@@ -90,7 +92,9 @@ for mod in kernels.values():
 target, source = cs.synthetic_bone(tp, 2), cs.synthetic_bone(tp, 1)
 tg, sg = tp.mesh_to_graph_arrays(target), tp.mesh_to_graph_arrays(source)
 out = {"root": root}
-for path, kw in (("kd", cs.BENCH_CFG), ("hungarian", cs.HUNGARIAN_CFG)):
+PATHS = (("kd", cs.BENCH_CFG), ("hungarian", cs.HUNGARIAN_CFG),
+         ("fullres", cs.FULLRES_CFG), ("reference_defaults", cs.REFERENCE_DEFAULTS_CFG))
+for path, kw in PATHS:
     cfg = tp.PipelineConfig(**kw)
     draws = tp.make_draws(0, cfg, tg.n_points, sg.n_points)
     tp.register_pair(tg, sg, cfg, draws=draws)
@@ -154,7 +158,7 @@ def main():
         line = _run(_CHILD, root, root, str(args.reps), _WORK, f"dir{i}", str(args.jv_reps))
         print(line, flush=True)
         res = json.loads(line)
-        for path in ("kd", "hungarian"):
+        for path in PATHS:
             by_root.setdefault(root, {}).setdefault(path, []).extend(res[path]["warm_s"])
         for name, case in res["jv"].items():
             a = torch.load(f"{_WORK}/out_dir0_{name}.pt")
