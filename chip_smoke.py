@@ -6,11 +6,12 @@ nvcc and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``pyfocusr_tpu_torch/csrc/`` (k-NN,
-Sinkhorn row-logsumexp, Jonker-Volgenant, streamed CPD E-step; one nvcc
-each, started together) and drives four paths of ``register_pair`` on a
-synthetic 10242-vertex bone pair, on CUDA tensors, each with the kernels'
-launch counts set to 0 just before and read just after:
+It builds the five CUDA kernels from ``pyfocusr_tpu_torch/csrc/`` (k-NN,
+Sinkhorn row-logsumexp, Jonker-Volgenant, streamed CPD E-step, the 3x3
+Umeyama close; one nvcc each, started together) and drives four paths of
+``register_pair`` on a synthetic 10242-vertex bone pair, on CUDA tensors,
+each with the kernels' launch counts set to 0 just before and read just
+after:
 
 * the default 'kd' path at the bench configuration (``bench.py:122-134``),
   once more under ``torch.profiler`` (per-stage host and device time, device
@@ -28,10 +29,13 @@ launch counts set to 0 just before and read just after:
   78-89``): a 5000-point CPD subsample (streamed), the affine pre-pass,
   weighted spectral coordinates, alpha 0.5, beta 3, 1000 iterations.
 
-Every CPD EM loop on the card runs as one captured iteration replayed as a
-CUDA graph, the host reading the stop flag every ``EM_BLOCK`` iterations; a
-phase holds that loop bit for bit against the plain loop (a host read per
-iteration) at full resolution and on the 'kd' path's 1000 points.
+Every CPD EM loop and every ICP on the card runs as one captured iteration
+replayed as a CUDA graph, the host reading the stop flag every 8
+iterations; two phases hold those loops bit for bit against the plain loops
+(a host read per iteration): CPD at full resolution and on the 'kd' path's
+1000 points, ICP on the 'kd' pair's inputs in rigid and similarity mode.
+The 'kd' path and the raw defaults run five warm pairs each in this one
+process, reported apart from the first call.
 
 Each kernel is held against its plain PyTorch version on the card at the
 shapes those paths give it.  Each phase prints one JSON line; any failed
@@ -46,6 +50,8 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -120,6 +126,11 @@ FULLRES_CPU_EM_CAP = 10
 # the larger of its bytes over the one and its operations over the other.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The 67 TFLOP/s count an FMA as two operations.  Operations that may not
+# fuse (the k-NN kernel's separately rounded subtract, multiply, add and
+# compare) each take one lane's issue slot: 132 SMs x 128 lanes x 1.98 GHz.
+F32_LANE_INSTR_PER_S = 132 * 128 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
 # Exponentials on the special-function units: 16 per SM per clock (CUDA C++
 # Programming Guide, arithmetic instruction throughput, compute capability
 # 9.0) on 132 SMs at the 1.98 GHz boost clock that the f32 figure implies
@@ -169,6 +180,23 @@ JV_BIG_LEVELS = 6
 # Final CPD sigma2 of the full-resolution CUDA and CPU runs, relative: the
 # same EM iterations with sums in another order on each device.
 FULLRES_SIGMA2_RTOL = 1e-3
+# The Umeyama close kernel against its plain version (torch.linalg.svd and
+# det in f64 on the card, rounded once to f32, as the kernel rounds its f64
+# Jacobi result): R absolute, s relative, t over the case's coordinate
+# scale.  On one H100 80GB HBM3 at 700 W the two read 0.0 apart on every
+# case; an f32 plain close read up to 6e-7 apart in R, which these limits
+# also admit.
+CLOSE_R_ATOL = 1e-6
+CLOSE_S_RTOL = 1e-6
+CLOSE_T_OF_SCALE = 1e-6
+# Clocks of one dependent f64 operation in one thread on the card: FMA,
+# division, square root, reciprocal square root, as tools/sm_rate_probe.py
+# measured them on one H100 80GB HBM3 at 700 W.  The close kernel's bound is
+# its chain of them (umeyama_bound).
+F64_CLOCKS = {"fma": 8.375, "div": 112.25, "sqrt": 80.25, "rsqrt": 55.25}
+# Warm register_pair calls of the 'kd' path and of the raw defaults, in this
+# one process after the first call.
+WARM_REPS = 5
 
 
 def emit(obj):
@@ -239,7 +267,8 @@ def cuda_ms(torch, fn, reps: int = 20) -> float:
 
 def compare_knn(torch, knn_kernel, ref, query, k):
     """Kernel against plain version on the same card: indices equal, inf
-    pattern equal, finite distances within rtol 1e-6."""
+    pattern equal, finite distances within rtol 1e-6 (and whether they are
+    equal outright)."""
     kd, ki = knn_kernel.knn_cuda(ref, query, k)
     pd, pi = knn_kernel.knn_plain(ref, query, k)
     torch.cuda.synchronize()
@@ -250,22 +279,46 @@ def compare_knn(torch, knn_kernel, ref, query, k):
     max_abs = float(err.max()) if err.numel() else 0.0
     tol_ok = bool(torch.all(err <= 1e-6 * pd[fin].abs())) if err.numel() else True
     return {"idx_equal": idx_equal, "inf_equal": inf_equal,
-            "max_abs_err": max_abs, "within_rtol_1e-6": tol_ok}
+            "max_abs_err": max_abs, "within_rtol_1e-6": tol_ok,
+            "bit_equal": bool(torch.equal(kd, pd)) and idx_equal}
+
+
+def knn_bound(nq, nr, d, k):
+    """Least time of the k-NN on the card, in ms, and what sets it: 3 d
+    unfused lane instructions a pair (d subtractions, d multiplies, d - 1
+    adds and one compare) over the card's lane rate; the inputs read and
+    the outputs written once."""
+    ops_ms = nq * nr * 3 * d / F32_LANE_INSTR_PER_S * 1e3
+    bytes_ms = ((nq + nr) * d * 4 + nq * k * 8) / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def phase_kernel(torch, knn_kernel, tgt_pts, src_pts):
+    """The k-NN kernel against ``knn_plain`` on the card: the contract cases
+    (ties, non-finite rows, fewer references than k, sentinel rows, D = 16),
+    query counts 1, 7, 2000 and 10242 at 10242 references, reference counts
+    that are no multiple of a tile or a split, every split (1-16 CTAs),
+    ties whose twins lie in different splits, and the ``done`` flag's early
+    return; then the main path's shapes timed: ``kernel_ms`` the device time
+    of one call from a CUDA graph of 20, ``call_ms`` one call between CUDA
+    events (the host's launch cost where it exceeds the device time)."""
     dev = "cuda"
     g = torch.Generator().manual_seed(0)
     ref = torch.tensor(tgt_pts, device=dev)
     query = torch.tensor(src_pts, device=dev)
+    nr = ref.shape[0]
+    icp_q = query[:2000].contiguous()
     spec_ref = (torch.rand(ref.shape, generator=g) - 0.5).to(dev)
     spec_query = (torch.rand(query.shape, generator=g) - 0.5).to(dev)
     timed = [
         # (name, ref, query, k): the main path's shapes
-        ("xyz_k1", ref, query, 1),  # warm-start map, ICP (landmark rows)
+        ("xyz_k1", ref, query, 1),  # warm-start map, mutual check
         ("xyz_k3", ref, query, 3),  # final k=3 query
         ("spectral_k1", spec_ref, spec_query, 1),  # initial correspondences
-        ("icp_k1", ref, query[:2000].contiguous(), 1),  # one ICP iteration
+        ("icp_k1", ref, icp_q, 1),  # one ICP iteration (2000 landmarks)
+        ("icp_k2", ref, icp_q, 2),
+        ("icp_k3", ref, icp_q, 3),
     ]
     ties = torch.randn(50, 3, generator=g).repeat_interleave(2, 0)
     nonfinite = torch.randn(40, 3, generator=g)
@@ -279,6 +332,11 @@ def phase_kernel(torch, knn_kernel, tgt_pts, src_pts):
         ("nr_lt_k", torch.randn(2, 3, generator=g), torch.randn(5, 3, generator=g), 3),
         ("sentinel_rows", sentinel, torch.zeros(1, 3), 3),
         ("d16", torch.randn(3000, 16, generator=g), torch.randn(700, 16, generator=g), 3),
+        ("d5", torch.randn(2000, 5, generator=g), torch.randn(300, 5, generator=g), 2),
+        ("nq_1", ref, query[:1], 3),
+        ("nq_7", ref, query[:7], 3),
+        ("nr_ragged", ref[:nr - 1], icp_q, 3),  # 10241: no multiple of a tile or split
+        ("nr_3001", ref[:3001], query, 2),
     ]
     results = []
     for name, r, q, k in contract:
@@ -286,23 +344,74 @@ def phase_kernel(torch, knn_kernel, tgt_pts, src_pts):
                           q.to(dev).contiguous(), k)
         res.update(case=name, nr=r.shape[0], nq=q.shape[0], d=r.shape[1], k=k)
         results.append(res)
+    # Every split of the reference axis the library picks (1-16 CTAs a
+    # cluster), each merged across its CTAs.
+    splits_seen = set()
+    for nq_s, nr_s in ((2000, 400), (2000, 700), (10242, nr), (2000, 3001), (2000, nr)):
+        q, r = query[:nq_s].contiguous(), ref[:nr_s].contiguous()
+        splits = knn_kernel.plan(nq_s, nr_s)["splits"]
+        splits_seen.add(splits)
+        res = compare_knn(torch, knn_kernel, r, q, 3)
+        res.update(case=f"splits_{splits}", nr=nr_s, nq=nq_s, d=3, k=3)
+        results.append(res)
+    check(splits_seen == {1, 2, 4, 8, 16}, f"k-NN splits covered: {sorted(splits_seen)}")
     ties_idx = knn_kernel.knn_cuda(ties.to(dev), ties[::2].contiguous().to(dev), 2)[1]
     check(bool(torch.equal(ties_idx[:, 0].cpu(), torch.arange(0, 100, 2, dtype=torch.int32))),
           "tie rule: lower reference index first")
+    # Twins at i and i + half: at the ICP shape's split (16 CTAs of 641
+    # references) every pair lies in two different CTAs.
+    half = nr // 2
+    twins = torch.cat([ref[:half], ref[:half]]).contiguous()
+    rows = torch.arange(0, half, 5, device=dev)
+    tq = (ref[rows] + 1e-3).contiguous()
+    res = compare_knn(torch, knn_kernel, twins, tq, 2)
+    td, ti = knn_kernel.knn_cuda(twins, tq, 2)
+    split_of = lambda i: i // -(-twins.shape[0] // knn_kernel.plan(tq.shape[0], twins.shape[0])["splits"])
+    res.update(case="cross_split_ties", nr=twins.shape[0], nq=tq.shape[0], d=3, k=2,
+               twins_in_other_split=bool((split_of(rows) != split_of(rows + half)).all()),
+               lower_index_first=bool(torch.equal(ti[:, 0].long(), rows)
+                                      and torch.equal(ti[:, 1].long(), rows + half)
+                                      and torch.equal(td[:, 0], td[:, 1])))
+    check(res["twins_in_other_split"] and res["lower_index_first"],
+          f"ties across splits: the lower index must come first: {res}")
+    results.append(res)
+    # The done flag: set, the kernel leaves its outputs as they were.
+    out = (torch.full((2000, 3), -1.0, device=dev),
+           torch.full((2000, 3), -7, dtype=torch.int32, device=dev))
+    flag = torch.ones(1, dtype=torch.int32, device=dev)
+    knn_kernel.knn_cuda(ref, icp_q, 3, out=out, done=flag)
+    torch.cuda.synchronize()
+    untouched = bool((out[0] == -1.0).all() and (out[1] == -7).all())
+    flag.zero_()
+    knn_kernel.knn_cuda(ref, icp_q, 3, out=out, done=flag)
+    pd, pi = knn_kernel.knn_plain(ref, icp_q, 3)
+    res = {"case": "done_flag", "nr": nr, "nq": 2000, "d": 3, "k": 3,
+           "set_leaves_outputs": untouched,
+           "unset_equal_to_plain": bool(torch.equal(out[0], pd) and torch.equal(out[1], pi))}
+    check(untouched and res["unset_equal_to_plain"], f"k-NN done flag: {res}")
+    results.append(res)
     for name, r, q, k in timed:
         res = compare_knn(torch, knn_kernel, r, q, k)
+        buf = (torch.empty((q.shape[0], k), device=dev),
+               torch.empty((q.shape[0], k), dtype=torch.int32, device=dev))
+        run_k = lambda: knn_kernel.knn_cuda(r, q, k, out=buf)
         # Alternate plain, kernel, kernel, plain so drift hits both alike.
         p1 = cuda_ms(torch, lambda: knn_kernel.knn_plain(r, q, k))
-        k1 = cuda_ms(torch, lambda: knn_kernel.knn_cuda(r, q, k))
-        k2 = cuda_ms(torch, lambda: knn_kernel.knn_cuda(r, q, k))
+        k1 = graph_ms(torch, run_k)
+        k2 = graph_ms(torch, run_k)
         p2 = cuda_ms(torch, lambda: knn_kernel.knn_plain(r, q, k))
         res.update(case=name, nr=r.shape[0], nq=q.shape[0], d=r.shape[1], k=k,
-                   kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+                   kernel_ms=(k1 + k2) / 2, call_ms=cuda_ms(torch, run_k),
+                   plain_ms=(p1 + p2) / 2, plan=knn_kernel.plan(q.shape[0], r.shape[0]),
+                   **knn_bound(q.shape[0], r.shape[0], r.shape[1], k))
         results.append(res)
     for res in results:
-        check(res["idx_equal"] and res["inf_equal"] and res["within_rtol_1e-6"],
-              f"k-NN kernel disagrees with its plain version: {res}")
-    emit({"phase": "knn_kernel_vs_plain", "cases": results})
+        if "idx_equal" in res:
+            check(res["idx_equal"] and res["inf_equal"] and res["within_rtol_1e-6"]
+                  and res["bit_equal"],
+                  f"k-NN kernel disagrees with its plain version: {res}")
+    emit({"phase": "knn_kernel_vs_plain", "cases": results,
+          "kernel_ms": "device time of one call from a CUDA graph of 20 calls"})
     return results
 
 
@@ -813,6 +922,290 @@ def phase_cpd_run(torch, cpd_ops, X, Y, beta, alpha):
     return res
 
 
+def _orthogonal(rng, det_sign):
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    if np.sign(np.linalg.det(q)) != det_sign:
+        q[:, 2] *= -1
+    return q
+
+
+# The close kernel's cases: (name, singular values of the covariance, sign
+# of its determinant, with_scale, rows of zero weight).
+CLOSE_CASES = [
+    ("rotation", (3.0, 2.0, 1.0), 1, False, False),
+    ("reflection", (3.0, 2.0, 1.0), -1, False, False),
+    ("near_equal", (2.0, 2.0 * (1 - 1e-4), 1.0), 1, False, False),
+    ("rank2", (3.0, 2.0, 0.0), 1, False, False),
+    ("similarity", (3.0, 2.0, 1.0), 1, True, False),
+    ("similarity_reflection", (2.5, 1.5, 0.5), -1, True, False),
+    ("weights", (3.0, 2.0, 1.0), 1, True, True),
+]
+
+
+def close_case_points(case, seed=0, n=500):
+    """src, dst f32 [n, 3] and weights [n] (numpy seed) whose weighted
+    cross-covariance has the case's singular values and determinant sign:
+    src has identity covariance over the weighted rows and dst = src M^T
+    + offset with M = U diag(sv) V^T; the rows of zero weight are noise."""
+    _, sv, det_sign, _, weighted = case
+    rng = np.random.default_rng(seed)
+    w = np.ones(n)
+    if weighted:
+        w[rng.choice(n, n // 4, replace=False)] = 0.0
+    keep = w > 0
+    x = rng.normal(size=(int(keep.sum()), 3))
+    x -= x.mean(0)
+    q, _ = np.linalg.qr(x)
+    src = np.zeros((n, 3))
+    src[keep] = q * np.sqrt(keep.sum())
+    src[~keep] = rng.normal(scale=30.0, size=(int((~keep).sum()), 3))
+    M = _orthogonal(rng, 1) @ np.diag(sv) @ _orthogonal(rng, det_sign).T
+    dst = src @ M.T + np.array([5.0, -3.0, 11.0])
+    dst[~keep] = rng.normal(scale=30.0, size=(int((~keep).sum()), 3))
+    src += np.array([-2.0, 7.0, 1.0])
+    return src.astype(np.float32), dst.astype(np.float32), w.astype(np.float32)
+
+
+def close_sweeps() -> int:
+    """The close kernel's Jacobi sweeps, read from its source."""
+    with open(os.path.join(ROOT, "pyfocusr_tpu_torch", "csrc", "umeyama3.cu")) as f:
+        return int(re.search(r"constexpr int kSweeps = (\d+);", f.read()).group(1))
+
+
+def close_emulated(cov, var_s, mu_s, mu_d, with_scale, sweeps):
+    """The close kernel's steps in numpy float64 (``1 / sqrt`` for the card's
+    ``rsqrt``) with ``sweeps`` Jacobi sweeps: out f32 [13] = (s, R, t) and
+    the rotations that ran (those whose off-diagonal entry was not 0)."""
+    A = np.asarray(cov, np.float64).reshape(3, 3)
+    S, V = A.T @ A, np.eye(3)
+    rotations = 0
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            apq = S[p, q]
+            if apq == 0.0:
+                continue
+            rotations += 1
+            r = 3 - p - q
+            theta = (S[q, q] - S[p, p]) / (2.0 * apq)
+            t = (0.5 / theta if abs(theta) > 1e150 else
+                 (1.0 if theta >= 0 else -1.0) / (abs(theta) + np.sqrt(theta * theta + 1.0)))
+            c = 1.0 / np.sqrt(t * t + 1.0)
+            sn = t * c
+            srp, srq = S[r, p], S[r, q]
+            S[p, p] -= t * apq
+            S[q, q] += t * apq
+            S[p, q] = S[q, p] = 0.0
+            S[r, p] = S[p, r] = c * srp - sn * srq
+            S[r, q] = S[q, r] = sn * srp + c * srq
+            vp, vq = V[:, p].copy(), V[:, q].copy()
+            V[:, p], V[:, q] = c * vp - sn * vq, sn * vp + c * vq
+    lam = np.diag(S).copy()
+    for a, b in ((0, 1), (0, 2), (1, 2)):
+        if lam[a] < lam[b]:
+            lam[[a, b]] = lam[[b, a]]
+            V[:, [a, b]] = V[:, [b, a]]
+    v1, v2 = V[:, 0], V[:, 1]
+    b1, b2 = A @ v1, A @ v2
+    n1 = np.linalg.norm(b1)
+    u1 = b1 / n1 if n1 > 0 else v1
+    b2 = b2 - (u1 @ b2) * u1
+    n2 = np.linalg.norm(b2)
+    if n2 > 1e-300 and n2 > 1e-15 * n1:
+        u2 = b2 / n2
+    else:
+        e = np.zeros(3)
+        e[int(np.argmin(np.abs(u1)))] = 1.0
+        u2 = np.cross(u1, e)
+        u2 /= np.linalg.norm(u2)
+    R = np.outer(u1, v1) + np.outer(u2, v2) + np.outer(np.cross(u1, u2), np.cross(v1, v2))
+    sc = float((R * A).sum()) / max(float(var_s), 1e-30) if with_scale else 1.0
+    t = np.asarray(mu_d, np.float64) - sc * (R @ np.asarray(mu_s, np.float64))
+    return np.concatenate([[sc], R.ravel(), t]).astype(np.float32), rotations
+
+
+def close_chain(moments, with_scale, kernel_out):
+    """What the close needs on these moments: the fewest Jacobi sweeps whose
+    rounded result (``close_emulated``) equals that of the kernel's sweeps,
+    the rotations they run, and whether the emulation gives the kernel's
+    bits."""
+    args = [x.detach().cpu().numpy() for x in moments]
+    kernel_sweeps = close_sweeps()
+    full, _ = close_emulated(*args, with_scale, kernel_sweeps)
+    for sweeps in range(kernel_sweeps + 1):
+        out, rotations = close_emulated(*args, with_scale, sweeps)
+        if np.array_equal(out, full):
+            break
+    return {"sweeps_needed": sweeps, "rotations": rotations,
+            "emulated_equals_kernel": bool(np.array_equal(
+                full, kernel_out.detach().cpu().numpy()))}
+
+
+def umeyama_bound(rotations: int):
+    """Least time of the close, in ms: one thread's chain of dependent f64
+    operations, each at its latency (F64_CLOCKS), for the rotations these
+    moments need (``close_chain``).  A rotation waits on two divisions, a
+    square root, a reciprocal square root and seven FMA-class steps (theta,
+    t, c, s, the update of the entries the next rotation reads); then the
+    sort, the two left singular vectors (two norms, three divisions), R, s
+    and t: about 25 FMA-class steps."""
+    c = F64_CLOCKS
+    rotation = 2 * c["div"] + c["sqrt"] + c["rsqrt"] + 7 * c["fma"]
+    tail = 3 * c["div"] + 2 * c["sqrt"] + 25 * c["fma"]
+    cycles = rotations * rotation + tail
+    return {"bound_ms": cycles / SM_CLOCK_HZ * 1e3, "bound_by": "operations",
+            "chain_clocks": cycles}
+
+
+def phase_umeyama(torch, icp_ops, UK, icp_call):
+    """The close kernel against ``umeyama_close_plain`` (``torch.linalg.svd``
+    and ``det`` in f64 on the card, rounded once to f32) on the moments of
+    CLOSE_CASES and of the 'kd' pair's first ICP iteration: R within
+    CLOSE_R_ATOL, s within CLOSE_S_RTOL, t within CLOSE_T_OF_SCALE of the
+    coordinates' scale.  Times: the kernel's device time from a CUDA graph
+    of 20 calls, the plain close and ``torch.linalg.svd`` alone between CUDA
+    events; the bound from the sweeps each case needs (``close_chain``)."""
+    dev = "cuda"
+    inputs = []
+    for case in CLOSE_CASES:
+        src, dst, w = close_case_points(case)
+        inputs.append((case[0], torch.tensor(src, device=dev), torch.tensor(dst, device=dev),
+                       torch.tensor(w, device=dev), case[3]))
+    (src, tgt), kw = icp_call
+    idx = first_icp_matches(torch, src, tgt)
+    for with_scale in (False, True):
+        inputs.append((f"kd_icp_first_iteration_scale_{with_scale}", src, tgt[idx],
+                       torch.ones(src.shape[0], device=dev), with_scale))
+    results = []
+    for name, src, dst, w, with_scale in inputs:
+        moments = icp_ops._moments(src, dst, w / w.sum())
+        ks, kR, kt = UK.umeyama_close_cuda(*moments, with_scale)
+        ps, pR, pt = UK.umeyama_close_plain(*moments, with_scale)
+        torch.cuda.synchronize()
+        scale = float(dst[w > 0].abs().max())
+        errs = {"R": float((kR - pR).abs().max()),
+                "s_rel": abs(float(ks - ps)) / abs(float(ps)),
+                "t_of_scale": float((kt - pt).abs().max()) / scale}
+        out = torch.empty(13, device=dev)
+        chain = close_chain(moments, with_scale, torch.cat([ks.view(1), kR.flatten(), kt]))
+        res = {"case": name, "with_scale": with_scale, "max_abs_err": errs,
+               "det_cov": float(torch.linalg.det(moments[0].double())),
+               "kernel_ms": graph_ms(torch, lambda: UK.umeyama_close_cuda(
+                   *moments, with_scale, out=out)),
+               "plain_ms": cuda_ms(torch, lambda: UK.umeyama_close_plain(*moments, with_scale)),
+               "svd_ms": cuda_ms(torch, lambda: torch.linalg.svd(moments[0])),
+               "sweeps": close_sweeps(), **chain, **umeyama_bound(chain["rotations"])}
+        check(errs["R"] <= CLOSE_R_ATOL and errs["s_rel"] <= CLOSE_S_RTOL
+              and errs["t_of_scale"] <= CLOSE_T_OF_SCALE,
+              f"Umeyama close kernel disagrees with its plain version: {res}")
+        results.append(res)
+    emit({"phase": "umeyama_kernel_vs_plain", "cases": results,
+          "tolerance": {"R": CLOSE_R_ATOL, "s_rel": CLOSE_S_RTOL, "t_of_scale": CLOSE_T_OF_SCALE},
+          "svd_ms": "torch.linalg.svd of the 3x3 covariance alone (the plain close also "
+                    "takes two det and the products)"})
+    return results
+
+
+def first_icp_matches(torch, src, tgt):
+    """Nearest target row of each source row after ICP's centroid match:
+    the matches of the first ICP iteration (plain version)."""
+    from pyfocusr_tpu_torch.ops import knn_kernel
+
+    moved = src + (tgt.mean(0) - src.mean(0))
+    return knn_kernel.knn_plain(tgt, moved.contiguous(), 1)[1][:, 0].long()
+
+
+class IcpRecorder:
+    """Records the arguments of the pipeline's ICP call while installed (the
+    pipeline calls it through the module attribute ``icp_fit``)."""
+
+    def __init__(self, pipeline):
+        self.mod = pipeline
+        self.real = pipeline.icp_fit
+        self.last_call = None
+
+    def __enter__(self):
+        def recorded(*args, **kwargs):
+            self.last_call = (args, kwargs)
+            return self.real(*args, **kwargs)
+
+        self.mod.icp_fit = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.icp_fit = self.real
+
+
+def phase_icp_loop(torch, icp_ops, KK, UK, icp_call):
+    """The blocked ICP loop (one iteration captured as a CUDA graph, replayed
+    ``ICP_BLOCK`` times between host reads) against the plain loop (a host
+    read per iteration), both with the kernels, on the 'kd' pair's ICP
+    inputs, rigid as the pipeline calls it and in similarity mode:
+    iterations, s, R, t and the moved cloud equal bit for bit; host reads
+    <= ceil(it / K) + 1; k-NN and close launches in [it, it + K).  Per
+    iteration: the blocked loop's fenced wall time (host), with and without
+    its capture; its device time as the sum of the kernels in a
+    ``torch.profiler`` trace of one more run (a lower bound: gaps between a
+    graph's kernels are not in it) and as the span between CUDA events
+    around another run less its capture; the plain loop's host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    K = icp_ops.ICP_BLOCK
+    args, kwargs = icp_call
+    results = []
+    for name, kw in (("kd_rigid", kwargs), ("kd_similarity", dict(kwargs, mode="similarity"))):
+        out = {}
+        for loop in ("plain", "blocked"):
+            KK.LAUNCHES = UK.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = icp_ops.icp(*args, **dict(kw, loop=loop, return_iterations=True))
+            torch.cuda.synchronize()
+            out[loop] = (res, time.perf_counter() - t0, (KK.LAUNCHES, UK.LAUNCHES),
+                         dict(icp_ops.ICP_STATS))
+        ((ps, pR, pt), pm, pit), ((bs, bR, bt), bm, bit) = out["plain"][0], out["blocked"][0]
+        equal = {"iterations": pit == bit, "s": bool(torch.equal(ps, bs)),
+                 "R": bool(torch.equal(pR, bR)), "t": bool(torch.equal(pt, bt)),
+                 "moved": bool(torch.equal(pm, bm))}
+        run = lambda: icp_ops.icp(*args, **dict(kw, loop="blocked"))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        _, span_ms = cuda_ms_once(torch, run)
+        span_ms -= icp_ops.ICP_STATS["capture_ms"]  # the card waits while the host captures
+        stats, wall_s, (knn_n, close_n) = out["blocked"][3], out["blocked"][1], out["blocked"][2]
+        it = max(bit, 1)
+        r = {"case": name, "mode": kw.get("mode", "rigid"), "n_source": int(args[0].shape[0]),
+             "n_target": int(args[1].shape[0]), "iterations": bit, "equal_to_plain": equal,
+             "host_ms_per_iteration": wall_s * 1e3 / it,
+             "host_ms_per_iteration_after_capture": (wall_s * 1e3 - stats["capture_ms"]) / it,
+             "device_ms_per_iteration": device_us / 1e3 / it,
+             "device_span_ms_per_iteration": span_ms / it,
+             "plain_host_ms_per_iteration": out["plain"][1] * 1e3 / max(pit, 1),
+             "replay_ms_per_replay": stats["replay_ms"] / max(stats["replays"], 1),
+             "knn_launches": knn_n, "close_launches": close_n,
+             "plain_knn_launches": out["plain"][2][0], **stats}
+        results.append(r)
+        check(all(equal.values()), f"graph ICP loop differs from the plain loop: {r}")
+        check(stats["graph"] and stats["host_reads"] <= -(-bit // K) + 1,
+              f"graph ICP loop read the host too often: {r}")
+        check(bit <= knn_n < bit + K and bit <= close_n < bit + K
+              and out["plain"][2] == (pit, pit),
+              f"ICP launches outside [{bit}, {bit} + {K}): {r}")
+    emit({"phase": "icp_loop_graph_vs_plain", "block": K, "cases": results})
+    return results
+
+
+def warm_summary(first_s, warm):
+    """First call, the warm calls, their median and spread, and the warm
+    calls slower than the first."""
+    return {"first_call_s": first_s, "warm_s": statistics.median(warm),
+            "warm_s_all": warm, "warm_s_spread": max(warm) - min(warm),
+            "warm_slower_than_first": [w for w in warm if w > first_s]}
+
+
 def quality_and_checks(tp, target_mesh, source_mesh, res, n_s, min_unique=0.6):
     import torch
 
@@ -912,7 +1305,7 @@ def profile_run(torch, tp, tg, sg, cfg, draws, smi, phase, table_name):
     for e in events:
         if e.device_type == DeviceType.CUDA:
             for tag in ("knn_kernel", "lse_rows_kernel", "lse_cols",
-                        "jv_cluster_kernel", "estep_"):
+                        "jv_cluster_kernel", "estep_", "umeyama3_kernel"):
                 if tag in e.name:
                     own_ms[tag] = own_ms.get(tag, 0.0) + e.time_range.elapsed_us() / 1e3
     stages = [
@@ -932,24 +1325,27 @@ def profile_run(torch, tp, tg, sg, cfg, draws, smi, phase, table_name):
             "table": f"build/{table_name}"}
 
 
-def drive(torch, tp, kernels, tg, sg, cfg, draws):
-    """The path once to warm up, then once with every kernel's launch count
-    set to 0 just before and read just after.  Returns (result, first-call
-    seconds, warm seconds, launches by kernel, peak device bytes)."""
+def drive(torch, tp, kernels, tg, sg, cfg, draws, warm_reps=1):
+    """The path once to warm up, then ``warm_reps`` times with every
+    kernel's launch count set to 0 just before each call and read just
+    after.  Returns (the last result, first-call seconds, the warm calls'
+    seconds, the last call's launches by kernel, peak device bytes)."""
     t0 = time.perf_counter()
     tp.register_pair(tg, sg, cfg, draws=draws)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    for mod in kernels.values():
-        mod.LAUNCHES = 0
-    t0 = time.perf_counter()
-    res = tp.register_pair(tg, sg, cfg, draws=draws)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
-    return res, first_s, warm_s, launches, torch.cuda.max_memory_allocated()
+    warm = []
+    for _ in range(warm_reps):
+        torch.cuda.synchronize()
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = tp.register_pair(tg, sg, cfg, draws=draws)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    return res, first_s, warm, launches, torch.cuda.max_memory_allocated()
 
 
 def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
@@ -967,7 +1363,7 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
     fr_cfg = tp.PipelineConfig(**FULLRES_CFG)
     fr_draws = tp.make_draws(0, fr_cfg, n_t, n_s)
     with CpdRecorder(cpd_ops) as rec:
-        full, fr_first_s, fr_warm_s, fr_launches, fr_peak = drive(
+        full, fr_first_s, (fr_warm_s,), fr_launches, fr_peak = drive(
             torch, tp, kernels, tg, sg, fr_cfg, fr_draws)
     fr_cpd = rec.runs[-1]
     q_fr = quality_and_checks(tp, target_mesh, source_mesh, full, n_s)
@@ -1024,8 +1420,8 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
     rd_cfg = tp.PipelineConfig(**REFERENCE_DEFAULTS_CFG)
     rd_draws = tp.make_draws(0, rd_cfg, n_t, n_s)
     with CpdRecorder(cpd_ops) as rec:
-        rres, rd_first_s, rd_warm_s, rd_launches, rd_peak = drive(
-            torch, tp, kernels, tg, sg, rd_cfg, rd_draws)
+        rres, rd_first_s, rd_warm, rd_launches, rd_peak = drive(
+            torch, tp, kernels, tg, sg, rd_cfg, rd_draws, warm_reps=WARM_REPS)
     rd_cpd = rec.runs[-1]
     # Quality is recorded, not gated: the raw defaults are untuned for these
     # meshes (pyfocusr_tpu/pipeline.py:78-89 says why PipelineConfig differs).
@@ -1035,7 +1431,7 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
         "n_target": n_t, "n_source": n_s,
         "config": "bench.py:122-134 with the raw Focusr defaults of "
                   "pyfocusr_tpu/pipeline.py:78-89",
-        "first_call_s": rd_first_s, "warm_s": rd_warm_s, "launches": rd_launches,
+        **warm_summary(rd_first_s, rd_warm), "launches": rd_launches,
         "cpd": rd_cpd, "affine_prepass": rec.affine_runs[-1:],
         "peak_device_bytes": rd_peak, "quality": q_rd,
     })
@@ -1123,15 +1519,17 @@ def main():
     sys.path.insert(0, ROOT)
     import pyfocusr_tpu_torch as tp
     from pyfocusr_tpu_torch.ops import assignment as TA
+    from pyfocusr_tpu_torch.ops import icp as icp_ops
     from pyfocusr_tpu_torch.ops import (
         cpd_estep_kernel,
         jv_kernel,
         knn_kernel,
         sinkhorn_kernel,
+        umeyama_kernel,
     )
 
     kernels = {"knn": knn_kernel, "lse_rows": sinkhorn_kernel, "jv": jv_kernel,
-               "cpd_estep": cpd_estep_kernel}
+               "cpd_estep": cpd_estep_kernel, "umeyama3": umeyama_kernel}
     smi = nvidia_smi_line()
     cap = torch.cuda.get_device_capability(0)
     emit({
@@ -1173,16 +1571,33 @@ def main():
     tg = tp.mesh_to_graph_arrays(target_mesh)
     sg = tp.mesh_to_graph_arrays(source_mesh)
     check(tg.device.type == "cuda", "mesh_to_graph_arrays builds on the card by default")
-    res, first_s, warm_s, kd_launches, peak = drive(torch, tp, kernels, tg, sg, cfg, draws)
+    with IcpRecorder(tp.pipeline) as icp_rec:
+        res, first_s, kd_warm, kd_launches, peak = drive(
+            torch, tp, kernels, tg, sg, cfg, draws, warm_reps=WARM_REPS)
+    kd_icp = dict(icp_ops.ICP_STATS)
+    # ICP's k-NN launches (2000 x 10242): the eager iteration and each
+    # replay; the path's other four queries are 10242 x 10242.
+    kd_icp_knn = kd_icp["replays"] + 1
     check(kd_launches["knn"] > 0, "register_pair launched no k-NN kernel")
+    check(kd_launches["umeyama3"] > 0, "register_pair launched no Umeyama close kernel")
+    check(kd_icp["graph"] and kd_icp["host_reads"]
+          <= -(-kd_icp["iterations"] // icp_ops.ICP_BLOCK) + 1,
+          f"the 'kd' pair's ICP did not run as a graph loop: {kd_icp}")
+    check(kd_launches["knn"] == kd_icp_knn + 4
+          and kd_launches["umeyama3"] == kd_icp_knn,
+          f"k-NN / close launches {kd_launches} against ICP {kd_icp}")
     q_gpu = quality_and_checks(tp, target_mesh, source_mesh, res, n_s)
     emit({
         "phase": "register_pair_cuda",
         "n_target": n_t, "n_source": n_s, "config": "bench.py:122-134",
-        "first_call_s": first_s, "warm_s": warm_s,
-        "knn_launches": kd_launches["knn"], "launches": kd_launches,
+        **warm_summary(first_s, kd_warm),
+        "knn_launches": kd_launches["knn"], "knn_launches_icp": kd_icp_knn,
+        "launches": kd_launches, "icp": kd_icp,
         "peak_device_bytes": peak, "quality": q_gpu,
     })
+    umeyama_results = phase_umeyama(torch, icp_ops, umeyama_kernel, icp_rec.last_call)
+    icp_results = phase_icp_loop(torch, icp_ops, knn_kernel, umeyama_kernel,
+                                 icp_rec.last_call)
 
     emit(profile_run(torch, tp, tg, sg, cfg, draws, smi, "profile",
                      "profile_register_pair.txt"))
@@ -1190,9 +1605,13 @@ def main():
     t0 = time.perf_counter()
     res_cpu = tp.register_pair(tg.to("cpu"), sg.to("cpu"), cfg, draws=draws)
     cpu_s = time.perf_counter() - t0
+    cpu_icp = dict(icp_ops.ICP_STATS)
     q_cpu = quality_and_checks(tp, target_mesh, source_mesh, res_cpu, n_s)
     agree = compare_runs(res, res_cpu)
-    emit({"phase": "cuda_vs_cpu", "cpu_s": cpu_s, "quality_cpu": q_cpu, **agree})
+    emit({"phase": "cuda_vs_cpu", "cpu_s": cpu_s, "quality_cpu": q_cpu,
+          "icp_iterations_cuda": kd_icp["iterations"],
+          "icp_iterations_cpu": cpu_icp["iterations"], **agree})
+    check(kd_icp["iterations"] == cpu_icp["iterations"], "ICP iterations CUDA vs CPU")
     check(agree["eigval_max_rel_diff"] <= EIGVAL_RTOL, "eigenvalues CUDA vs CPU")
     check(agree["eigvec_min_abs_cos"] >= COS_MIN, "eigenvectors CUDA vs CPU")
     check(agree["correspondence_agreement"] >= CORR_AGREE_MIN,
@@ -1223,7 +1642,7 @@ def main():
 
     # --- The 'hungarian' path at 10242 vertices ---
     hdraws = tp.make_draws(0, hcfg, n_t, n_s)
-    hres, h_first_s, h_warm_s, h_launches, h_peak = drive(
+    hres, h_first_s, (h_warm_s,), h_launches, h_peak = drive(
         torch, tp, kernels, tg, sg, hcfg, hdraws)
     for name in ("knn", "lse_rows", "jv"):
         check(h_launches[name] > 0, f"the 'hungarian' register_pair launched no {name} kernel")
@@ -1319,11 +1738,9 @@ def main():
     fr_launches, rd_launches, est_results, loop_results = cpd_paths(
         torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi)
 
-    knn_main = next(r for r in knn_results if r["case"] == "xyz_k1")
-    knn_ops_ms = knn_main["nq"] * knn_main["nr"] * (3 * knn_main["d"] + 1) \
-        / F32_OPS_PER_S * 1e3  # sub, mul, add per dimension and one compare
-    knn_bytes_ms = (knn_main["nq"] + knn_main["nr"]) * knn_main["d"] * 4 \
-        / HBM_BYTES_PER_S * 1e3
+    knn_by_case = {r["case"]: r for r in knn_results}
+    knn_main, knn_icp = knn_by_case["xyz_k1"], knn_by_case["icp_k1"]
+    close_main = umeyama_results[-2]  # the 'kd' pair's first ICP moments, rigid
     # The main path's shapes: the row pass at the last temperature, and the
     # Sinkhorn-started augmentation, both on the 10242 cost.
     lse_main = next(r for r in lse_results if r["n"] == n_s and r["level"] == 13
@@ -1342,14 +1759,23 @@ def main():
             "source": "pyfocusr_tpu_torch/csrc/knn.cu",
             "replaces": "pyfocusr_tpu/ops/pallas_kernels.py:647",
             "launches": kd_launches["knn"],
+            "launches_icp_shape": kd_icp_knn,
             "launches_hungarian_path": h_launches["knn"],
-            "max_abs_err": max(r["max_abs_err"] for r in knn_results),
+            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in knn_results),
             "ms": knn_main["kernel_ms"],
             "plain_ms": knn_main["plain_ms"],
-            "bound_ms": max(knn_ops_ms, knn_bytes_ms),
-            "bound_by": "operations" if knn_ops_ms >= knn_bytes_ms else "bytes",
+            "bound_ms": knn_main["bound_ms"],
+            "bound_by": knn_main["bound_by"],
             "library_ms": None,  # cdist + topk: two calls, and the matmul identity
             "shape": f"nq={knn_main['nq']} nr={knn_main['nr']} d=3 k=1",
+            "call_ms": knn_main["call_ms"],
+            "splits": knn_main["plan"]["splits"],
+            "ms_k3": knn_by_case["xyz_k3"]["kernel_ms"],
+            "bound_ms_k3": knn_by_case["xyz_k3"]["bound_ms"],
+            "icp_shape": {k: knn_icp[k] for k in ("nq", "nr", "kernel_ms", "call_ms",
+                                                   "plain_ms", "bound_ms", "plan")},
+            "icp_shape_ms_k2_k3": [knn_by_case["icp_k2"]["kernel_ms"],
+                                   knn_by_case["icp_k3"]["kernel_ms"]],
         },
         {
             "name": "lse_rows",
@@ -1437,6 +1863,30 @@ def main():
             "shape": f"X {n_s}x3, TY {n_t}x3 f32, the full-resolution run's final "
                      "sigma2, both passes; ms is the device time of the launches, "
                      "call_ms the wrapper's",
+        },
+        {
+            "name": "umeyama3",
+            "route": "cuda",
+            "source": "pyfocusr_tpu_torch/csrc/umeyama3.cu",
+            # No Pallas kernel: the SVD and det of the JAX umeyama, which
+            # torch cannot capture in a CUDA graph.
+            "replaces": "pyfocusr_tpu/ops/icp.py:48",
+            "launches": kd_launches["umeyama3"],
+            "max_abs_err": max(r["max_abs_err"]["R"] for r in umeyama_results),
+            "max_s_rel_err": max(r["max_abs_err"]["s_rel"] for r in umeyama_results),
+            "ms": close_main["kernel_ms"],
+            "plain_ms": close_main["plain_ms"],
+            "bound_ms": close_main["bound_ms"],
+            "bound_by": close_main["bound_by"],
+            "library_ms": None,  # no single PyTorch call; svd alone in svd_ms
+            "svd_ms": close_main["svd_ms"],
+            "chain_clocks": close_main["chain_clocks"],
+            "icp_loop": {r["case"]: {k: r[k] for k in (
+                "iterations", "host_ms_per_iteration", "host_ms_per_iteration_after_capture",
+                "device_ms_per_iteration", "device_span_ms_per_iteration",
+                "plain_host_ms_per_iteration", "replays", "host_reads", "capture_ms")}
+                for r in icp_results},
+            "shape": "cov 3x3 f32, one thread, the 'kd' pair's first ICP iteration",
         },
     ]})
     print(smi, flush=True)

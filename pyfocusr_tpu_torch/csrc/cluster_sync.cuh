@@ -1,8 +1,8 @@
-// Thread-block cluster primitives for Hopper (sm_90a), shared by csrc/jv.cu
-// and the latency probes of tools/jv_chain_floor.cu: the cluster barrier,
-// addresses in another CTA's shared memory, mbarriers, stores into another
-// CTA's shared memory that signal its mbarrier, and the launch of one
-// cluster.
+// Thread-block cluster primitives for Hopper (sm_90a), shared by csrc/jv.cu,
+// csrc/knn.cu and the latency probes of tools/jv_chain_floor.cu: the
+// cluster barrier, addresses in and loads from another CTA's shared memory,
+// mbarriers, stores into another CTA's shared memory that signal its
+// mbarrier, and the launch of one cluster or of a grid of clusters.
 
 #pragma once
 
@@ -27,6 +27,14 @@ __device__ __forceinline__ unsigned cluster_u32(unsigned local, int rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote) : "r"(local), "r"(rank));
   return remote;
+}
+
+// Two 32-bit words from another CTA's shared memory (a cluster address).
+__device__ __forceinline__ float2 ld_cluster_v2f32(unsigned addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void mbar_init(unsigned bar, int count) {
@@ -65,6 +73,41 @@ __device__ __forceinline__ void st_async_v4(unsigned slot, unsigned bar, int a,
       : "memory");
 }
 
+// The launch configuration of `grid` CTAs of `threads` threads with `smem`
+// bytes of dynamic shared memory, in clusters of `cluster` CTAs along x.
+inline void cluster_config(cudaLaunchConfig_t& config, cudaLaunchAttribute& attr,
+                           dim3 grid, int cluster, int threads, size_t smem,
+                           cudaStream_t stream) {
+  config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory and, above 8,
+// clusters of a non-portable size.
+template <typename... Params>
+cudaError_t cluster_attributes(void (*kernel)(Params...), int cluster, size_t smem) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return err;
+}
+
 // One cluster of `cluster` CTAs of `threads` threads with `smem` bytes of
 // dynamic shared memory, on `stream`.  Returns the launch's
 // cudaGetLastError() (0 on success), or -2 if the card cannot schedule the
@@ -72,30 +115,31 @@ __device__ __forceinline__ void st_async_v4(unsigned slot, unsigned bar, int a,
 template <typename... Params, typename... Args>
 int launch_cluster(void (*kernel)(Params...), int cluster, int threads,
                    size_t smem, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cluster_attributes(kernel, cluster, smem);
   if (err != cudaSuccess) return (int)err;
-  if (cluster > 8) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(cluster, 1, 1);
-  config.blockDim = dim3(threads, 1, 1);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cluster_config(config, attr, dim3(cluster, 1, 1), cluster, threads, smem, stream);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
   if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return -2;
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// A grid of `grid` CTAs in clusters of `cluster` CTAs along x (grid.x a
+// multiple of it), on `stream`.  Returns the launch's error (0 on success).
+template <typename... Params, typename... Args>
+int launch_grid_of_clusters(void (*kernel)(Params...), dim3 grid, int cluster,
+                            int threads, size_t smem, cudaStream_t stream,
+                            Args... args) {
+  cudaError_t err = cluster_attributes(kernel, cluster, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cluster_config(config, attr, grid, cluster, threads, smem, stream);
   err = cudaLaunchKernelEx(&config, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -36,10 +36,10 @@ test every iteration, the plain version the blocked loop equals bit for bit.
 from __future__ import annotations
 
 import math
-import time
 
 import torch
 
+from ..utils import device_loop
 from ..utils.precision import f32_matmuls
 from . import cpd_estep_kernel
 from .cpd_estep_kernel import outlier_constant
@@ -152,10 +152,10 @@ def _sqrt_lam_gated(lam, dtype):
 # host reads, each a wait for the device to drain, drop eightfold.
 EM_BLOCK = 8
 
-# What the last blocked EM loop did: iterations, whether it ran as a CUDA
-# graph, iterations run after the first (replays on the card), host reads
-# of its flag, and host milliseconds spent capturing, replaying (launching
-# the replays) and reading.
+# What the last blocked EM loop did (``device_loop.reset_stats``):
+# iterations, whether it ran as a CUDA graph, iterations run after the first
+# (replays on the card), host reads of its flag, and host milliseconds spent
+# capturing, replaying (launching the replays) and reading.
 EM_STATS = {}
 
 
@@ -180,12 +180,12 @@ def _em_loop(update, state, max_iterations: int, tolerance: float,
     per iteration.  ``loop="blocked"``: the iteration is masked (it keeps
     the old state where ``done`` is set, advances its count only while not
     done, and sets ``done = not (err > tol) or it >= max_iterations``, NaN
-    included), all of it on the device; the host reads the flag every
-    ``EM_BLOCK`` iterations.  On a CUDA device one iteration runs eagerly
-    (on a side stream, which also sets up the libraries' workspaces), is then
-    captured as a CUDA graph and replayed; a failed capture raises.  On the
-    CPU the masked iteration runs eagerly.  Both loops give the same values
-    bit for bit."""
+    included), all of it on the device, and ``utils/device_loop.run_blocked``
+    reads the flag every ``EM_BLOCK`` iterations: on a CUDA device one
+    iteration is captured as a CUDA graph and replayed (a failed capture
+    raises), on the CPU the masked iteration runs eagerly.  Both loops give
+    the same values bit for bit.  The E-step kernel's launches in the graph
+    count in ``cpd_estep_kernel.LAUNCHES`` at each replay."""
     if loop not in ("blocked", "plain"):
         raise ValueError(f"loop must be 'blocked' or 'plain', got {loop!r}")
     sigma2 = state["sigma2"]
@@ -199,9 +199,7 @@ def _em_loop(update, state, max_iterations: int, tolerance: float,
             it += 1
         return it
 
-    EM_STATS.clear()
-    EM_STATS.update(iterations=0, graph=False, replays=0, host_reads=0,
-                    capture_ms=0.0, replay_ms=0.0, read_ms=0.0, block=EM_BLOCK)
+    device_loop.reset_stats(EM_STATS, EM_BLOCK)
     if not (max_iterations > 0 and math.inf > tolerance):
         return 0
     err = torch.full_like(sigma2, float("inf"))
@@ -219,63 +217,8 @@ def _em_loop(update, state, max_iterations: int, tolerance: float,
         done_flag.copy_(((~(err > tolerance)) | (it_count >= max_iterations))
                         .to(torch.int32).reshape(1))
 
-    run = step
-    if sigma2.device.type == "cuda":
-        run = _captured(step, sigma2.device)
-    else:
-        step()
-    ran, reads, replay_s = 1, 1, 0.0
-    t0 = time.perf_counter()
-    it, done = ctrl.tolist()
-    read_s = time.perf_counter() - t0
-    while not done:
-        k = min(EM_BLOCK, max_iterations - ran)
-        if k <= 0:
-            raise RuntimeError("EM loop: the stop flag is unset after max_iterations")
-        t0 = time.perf_counter()
-        for _ in range(k):
-            run()
-        t1 = time.perf_counter()
-        it, done = ctrl.tolist()
-        replay_s += t1 - t0
-        read_s += time.perf_counter() - t1
-        ran += k
-        reads += 1
-    EM_STATS.update(iterations=it, replays=ran - 1, host_reads=reads,
-                    replay_ms=replay_s * 1e3, read_ms=read_s * 1e3)
-    return it
-
-
-def _captured(step, device):
-    """Run ``step`` once eagerly on a side stream, capture it there as a CUDA
-    graph and return the replay.  The capture is begun and ended on the
-    graph itself, not through ``torch.cuda.graph``, whose entry synchronizes
-    and empties the allocator's cache each time, so that every block the
-    rest of a pair had cached would be allocated again after each EM loop.
-    The E-step kernel's launches in the graph count in
-    ``cpd_estep_kernel.LAUNCHES`` at each replay, not at the capture."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(side):
-        step()
-        t0 = time.perf_counter()
-        before = cpd_estep_kernel.LAUNCHES
-        graph.capture_begin()
-        try:
-            step()
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream(device).wait_stream(side)
-    EM_STATS.update(graph=True, capture_ms=(time.perf_counter() - t0) * 1e3)
-    per_replay = cpd_estep_kernel.LAUNCHES - before
-    cpd_estep_kernel.LAUNCHES = before
-
-    def replay():
-        graph.replay()
-        cpd_estep_kernel.LAUNCHES += per_replay
-
-    return replay
+    return device_loop.run_blocked(step, ctrl, max_iterations, EM_BLOCK, EM_STATS,
+                                   kernels=(cpd_estep_kernel,), what="EM loop")
 
 
 def _estep_for(X, M: int, w: float, estep_impl: str):

@@ -10,9 +10,12 @@ flags, and loads it with ``ctypes``.
 
 What bounds the kernel on the H100, and what its design does about it, is
 written at the top of ``csrc/knn.cu``: the search is issue-bound (the data
-is ~100 KB), and at ~1e4 queries one thread per query would leave most of
-the card idle, so groups of 8 lanes share a query, split the reference axis,
-keep their top-k in registers and merge with warp shuffles.
+is ~100 KB; each pair is 3 D unfused f32 instructions), so a thread owns
+several queries and reads each reference point with one 16-byte shared
+load, lanes and the CTAs of a thread-block cluster split the reference axis
+(ICP's 2000 queries alone would fill a third of the card), and the partial
+top-k lists merge through warp shuffles and distributed shared memory.
+``plan`` reports the launch shape the library picks.
 
 Contract (both versions, bit-identical to each other):
 
@@ -26,7 +29,9 @@ Contract (both versions, bit-identical to each other):
 
 ``knn`` dispatches on where the tensors lie: CPU tensors take
 ``knn_plain``; CUDA tensors launch the kernel or raise.  There is no
-fallback from one to the other.
+fallback from one to the other.  ``knn_cuda`` can write into outputs the
+caller allocated once and skip on a device flag (``out=``, ``done=``), so
+that a loop captured as a CUDA graph allocates nothing for it.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ __all__ = [
     "knn_cuda",
     "knn_plain",
     "load_library",
+    "plan",
 ]
 
 # Launch count of the CUDA kernel: the wrapper adds one per launch and does
@@ -58,10 +64,16 @@ _LIBRARY = CudaLibrary("knn.cu", "knn", "k-NN", {
     "pyfocusr_knn_f32": [
         ctypes.c_void_p, ctypes.c_void_p,  # ref, query
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nr nq d k
+        ctypes.c_void_p,  # done
         ctypes.c_void_p, ctypes.c_void_p,  # out_d, out_i
         ctypes.c_int, ctypes.c_void_p,  # device, stream
     ],
+    "pyfocusr_knn_plan": [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # nq nr device out
+    ],
 })
+_PLAN_FIELDS = ("query_tiles", "splits", "queries_per_cta", "threads_per_cta",
+                "lanes_per_query", "queries_per_thread", "tile_points")
 # Filled by load_library(): seconds spent in nvcc (0.0 on a cache hit) and
 # the compiler's register/shared-memory report.
 BUILD_SECONDS = None
@@ -92,9 +104,39 @@ def _check_inputs(ref: torch.Tensor, query: torch.Tensor, k: int):
         raise ValueError(f"k must be >= 1, got {k}")
 
 
-def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int):
+def plan(nq: int, nr: int, device=0) -> dict:
+    """The launch shape the library picks for nq queries against nr
+    references on ``device``: query tiles, the split of the reference axis
+    (CTAs a cluster), and the kernel's constants."""
+    out = (ctypes.c_int * len(_PLAN_FIELDS))()
+    err = load_library().pyfocusr_knn_plan(nq, nr, torch.device(device).index or 0,
+                                           ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"knn plan failed: CUDA error {err}")
+    return dict(zip(_PLAN_FIELDS, out))
+
+
+def _check_out(out, nq: int, k: int, device):
+    """Raise unless ``out`` is (f32 [nq, k], int32 [nq, k]), contiguous, on
+    ``device``."""
+    out_d, out_i = out
+    for t, dtype in ((out_d, torch.float32), (out_i, torch.int32)):
+        if (tuple(t.shape) != (nq, k) or t.dtype != dtype or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"knn_cuda out= needs contiguous f32 and int32 [{nq}, {k}] on "
+                f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int, out=None,
+             done=None):
     """Launch the CUDA kernel on the current stream.  Raises on anything the
-    kernel does not take; never falls back to the plain version."""
+    kernel does not take; never falls back to the plain version.
+
+    ``out``: (f32 [nq, k], int32 [nq, k]) to write into, else allocated.
+    ``done``: an int32 device tensor; where its first element is non-zero
+    the kernel returns at once and leaves the outputs as they were.
+    Nothing is read back to the host."""
     global LAUNCHES
     _check_inputs(ref, query, k)
     if ref.device.type != "cuda" or query.device != ref.device:
@@ -112,10 +154,16 @@ def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int):
     nr, nq = ref.shape[0], query.shape[0]
     if max(nr, nq) * max(d, k) >= 2**31:
         raise ValueError("knn_cuda indexes with int32: input too large")
+    if done is not None and (done.dtype != torch.int32 or done.device != ref.device):
+        raise ValueError("knn_cuda needs done as an int32 tensor on the inputs' device")
     require_sm90(ref.device, "knn_cuda")
     lib = load_library()
-    out_d = torch.empty((nq, k), dtype=torch.float32, device=ref.device)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=ref.device)
+    if out is None:
+        out = (torch.empty((nq, k), dtype=torch.float32, device=ref.device),
+               torch.empty((nq, k), dtype=torch.int32, device=ref.device))
+    else:
+        _check_out(out, nq, k, ref.device)
+    out_d, out_i = out
     if nq == 0:
         return out_d, out_i
     # The launch is asynchronous.  Inputs a caller frees right after the
@@ -124,6 +172,7 @@ def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int):
     stream = torch.cuda.current_stream(ref.device).cuda_stream
     err = lib.pyfocusr_knn_f32(
         ref.data_ptr(), query.data_ptr(), nr, nq, d, k,
+        None if done is None else done.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), ref.device.index, stream,
     )
     if err != 0:

@@ -2,7 +2,9 @@
 """Issue rates of one SM on the card for the operations of the CPD E-step
 kernel: f32 FMA, f32 add and the `ex2.approx` exponential
 (``tools/sm_rate_probe.cu``), with the SM clock sampled by ``nvidia-smi``
-while they run.
+while they run; and the clocks of one dependent f64 FMA, division, square
+root and reciprocal square root in one thread (the chain of the Umeyama
+close kernel).
 
     python3 tools/sm_rate_probe.py
 
@@ -40,6 +42,7 @@ def main():
     lib = ctypes.CDLL(lib_path)
     lib.probe_run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int]
+    lib.probe_f64_chain.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks, threads = sms * 8, 256
     out = torch.empty(blocks * threads, device="cuda")
@@ -70,13 +73,24 @@ def main():
                      "lane_ops": blocks * threads * iters * 8}
     stop.set()
     sampler.join()
+    # Clocks of one dependent f64 operation: the difference of two chain
+    # lengths, so the loop's fixed cost and the clock reads cancel.
+    chain = torch.zeros(2, dtype=torch.int64, device="cuda")
+    f64_clocks = {}
+    for which, name in enumerate(("fma", "div", "sqrt", "rsqrt")):
+        cycles = []
+        for iters in (1000, 2000):
+            if lib.probe_f64_chain(chain.data_ptr(), which, iters) != 0:
+                raise RuntimeError(f"f64 chain probe {name} failed to launch")
+            cycles.append(int(chain[0]))
+        f64_clocks[name] = (cycles[1] - cycles[0]) / 1000
     mhz = max(clocks)
     for r in res.values():
         r["per_sm_per_clock"] = r["lane_ops"] / (r["ms"] / 1e3) / sms / (mhz * 1e6)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(json.dumps({"nvidia_smi": smi.strip(), "sm_clock_mhz_samples": clocks,
-                      "rates": res}), flush=True)
+                      "rates": res, "f64_dependent_clocks": f64_clocks}), flush=True)
     return 0
 
 
