@@ -27,7 +27,13 @@ after:
   the same call on CPU tensors with CPD capped at the same iteration count;
 * the reference's raw ``Focusr`` defaults (``pyfocusr_tpu/pipeline.py:
   78-89``): a 5000-point CPD subsample (streamed), the affine pre-pass,
-  weighted spectral coordinates, alpha 0.5, beta 3, 1000 iterations.
+  weighted spectral coordinates, alpha 0.5, beta 3, 1000 iterations;
+* template serving at the bench configuration: ``prepare_target`` on the
+  target once, then ``register_pair_prepared`` for five sources (seeds 1,
+  3-6) beside their plain ``register_pair``; a never-seen pair (seeds 3, 4)
+  from the seed-2 class template's ``warm_block``, in memory and through a
+  save / load round trip; and the three feature flags with each mesh's
+  thickness scalar.  Their CUDA-vs-CPU checks run on the 2562-vertex pair.
 
 Every CPD EM loop and every ICP on the card runs as one captured iteration
 replayed as a CUDA graph, the host reading the stop flag every 8
@@ -54,6 +60,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -197,6 +204,25 @@ F64_CLOCKS = {"fma": 8.375, "div": 112.25, "sqrt": 80.25, "rsqrt": 55.25}
 # Warm register_pair calls of the 'kd' path and of the raw defaults, in this
 # one process after the first call.
 WARM_REPS = 5
+# Template serving: the sources served against the prepared seed-2 target,
+# and the never-seen pair registered from the seed-2 class template.
+SERVED_SEEDS = (1, 3, 4, 5, 6)
+CLASS_PAIR_SEEDS = (3, 4)
+# The synthetic bone's per-vertex scalar (tests/conftest.py:_synthetic_bone)
+# and the flags that use node features.
+FEATURE = "thickness_change_(mm)"
+FEATURE_FLAGS = ("use_features_as_coords", "use_features_in_graph",
+                 "include_features_in_adj_matrix")
+# The CPU side of the new phases' CUDA-vs-CPU checks runs on the 2562-vertex
+# pair: a 10242 CPU registration costs about as much as the phases' card work.
+CPU_CHECK_LEVELS = 4
+# CPD's stop tolerance of the feature flags' CUDA-vs-CPU runs, as in the
+# parity tests (tests/test_torch_pipeline.py): with the features appended
+# as a coordinate the stop test at the bench's 1e-8 sits in f32 noise.  On
+# the CPU alone, six thread counts stop that EM loop at 155-163 iterations
+# with 89.3-97.6% equal correspondences (tools/cpd_stop_noise.py; one H100
+# against the CPU read under 95%); at 1e-6 all stop at 104, 96.5-97.3%.
+FEATURE_CHECK_TOLERANCE = 1e-6
 
 
 def emit(obj):
@@ -227,7 +253,9 @@ def synthetic_bone(tp, seed: int, levels: int = 5):
     r = r + amp[2] * np.cos(2.5 * u[:, 1] + ph[3]) * u[:, 2]
     r = r + amp[3] * u[:, 0] * u[:, 1]
     pts = u * r[:, None] * np.array([[16.0, 13.0, 38.0]])  # mm, elongated
-    return tp.TriMesh(pts.astype(np.float32), np.asarray(mesh.triangles, np.int32))
+    thickness = 1.0 + np.sin(3.0 * u[:, 2] + ph[0]) * np.cos(u[:, 0] + ph[2])
+    return tp.TriMesh(pts.astype(np.float32), np.asarray(mesh.triangles, np.int32),
+                      {FEATURE: thickness.astype(np.float32)})
 
 
 def nvidia_smi_line() -> str:
@@ -1272,6 +1300,229 @@ def compare_runs(gpu, cpu):
     return out
 
 
+def agreement_checks(agree, what):
+    """The 'kd' CUDA-vs-CPU gates on a ``compare_runs`` result."""
+    check(agree["eigval_max_rel_diff"] <= EIGVAL_RTOL, f"eigenvalues {what}")
+    check(agree["eigvec_min_abs_cos"] >= COS_MIN, f"eigenvectors {what}")
+    check(agree["correspondence_agreement"] >= CORR_AGREE_MIN,
+          f"final correspondences {what}")
+    check(abs(agree["unique_fraction_gpu"] - agree["unique_fraction_cpu"])
+          <= UNIQUE_DIFF_MAX, f"unique fraction {what}")
+
+
+def to_cpu(res):
+    return {k: v.cpu() for k, v in res.items()}
+
+
+def outputs_differ(torch, a, b):
+    """The output keys whose tensors are not equal bit for bit, each with
+    its largest absolute difference."""
+    out = {}
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        if not torch.equal(x, y):
+            out[k] = float((x.double() - y.double()).abs().max())
+    return out
+
+
+def timed(torch, fn):
+    """(fn(), its wall seconds fenced by torch.cuda.synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_serving(torch, tp, kernels, cfg, meshes, graphs, smi, device="cuda"):
+    """One prepared target (seed 2) serving the sources of ``SERVED_SEEDS``
+    through ``register_pair_prepared``, each with ``make_draws(0, ...)``,
+    beside the plain ``register_pair`` of the same pairs.  Gates: the seed-1
+    served pair equals the plain call bit for bit when two plain calls do
+    (else the CUDA-vs-CPU gates); launches equal the plain pair's; the same
+    prepared pair at 2562 vertices on the card against the CPU.  Returns
+    the prepared state, whether two plain calls gave equal bits, and the
+    first served pair's launches."""
+    from pyfocusr_tpu_torch.ops import cpd as cpd_ops
+    from pyfocusr_tpu_torch.ops import icp as icp_ops
+
+    t_phase = time.perf_counter()
+    tg, n_t = graphs[2], graphs[2].n_points
+    draws = {seed: tp.make_draws(0, cfg, n_t, graphs[seed].n_points)
+             for seed in SERVED_SEEDS}
+    plain_a = tp.register_pair(tg, graphs[1], cfg, draws=draws[1])
+    plain_b = tp.register_pair(tg, graphs[1], cfg, draws=draws[1])
+    plain_diff = outputs_differ(torch, plain_a, plain_b)
+    deterministic = not plain_diff
+    prep, prepare_s = timed(torch, lambda: tp.prepare_target(
+        tg, cfg, draws[1]["eig_block_target"]))
+    served, plain = [], []
+    for seed in SERVED_SEEDS:
+        for rows, call in ((served, tp.register_pair_prepared),
+                           (plain, tp.register_pair)):
+            args = (prep,) if call is tp.register_pair_prepared else ()
+            for mod in kernels.values():
+                mod.LAUNCHES = 0
+            res, secs = timed(torch, lambda: call(*args, tg, graphs[seed], cfg,
+                                                  draws=draws[seed]))
+            rows.append({"seed": seed, "s": secs,
+                         "launches": {k: m.LAUNCHES for k, m in kernels.items()},
+                         "icp_iterations": icp_ops.ICP_STATS["iterations"],
+                         "cpd_iterations": cpd_ops.EM_STATS["iterations"]})
+            if call is tp.register_pair_prepared:
+                rows[-1]["quality"] = quality_and_checks(
+                    tp, meshes[2], meshes[seed], res, graphs[seed].n_points)
+                if seed == 1:
+                    served_1 = res
+    vs_plain = {"differing_keys": outputs_differ(torch, plain_a, served_1),
+                **compare_runs(plain_a, to_cpu(served_1))}
+
+    # The same prepared pair at 2562 vertices on the card and on the CPU.
+    small = {seed: synthetic_bone(tp, seed, levels=CPU_CHECK_LEVELS) for seed in (1, 2)}
+    small_g = {seed: tp.mesh_to_graph_arrays(m, device="cpu") for seed, m in small.items()}
+    sd = tp.make_draws(0, cfg, small[2].n_points, small[1].n_points)
+
+    def serve_small(dev):
+        t, s_ = small_g[2].to(dev), small_g[1].to(dev)
+        pre = tp.prepare_target(t, cfg, sd["eig_block_target"])
+        return tp.register_pair_prepared(pre, t, s_, cfg, draws=sd)
+
+    res_gpu = serve_small(device)
+    t0 = time.perf_counter()
+    res_cpu = serve_small("cpu")
+    cpu_s = time.perf_counter() - t0
+    vs_cpu = compare_runs(res_gpu, res_cpu)
+    emit({
+        "phase": "serving_prepared_target", "nvidia_smi": smi,
+        "n_target": n_t, "config": "bench.py:122-134", "target_seed": 2,
+        "prepare_s": prepare_s,
+        "served_s": [r["s"] for r in served],
+        "served": served,
+        **{f"served_{k}": v for k, v in warm_summary(
+            served[0]["s"], [r["s"] for r in served[1:]]).items()},
+        "served_median_s": statistics.median(r["s"] for r in served),
+        "plain_s": [r["s"] for r in plain],
+        "plain_median_s": statistics.median(r["s"] for r in plain),
+        "plain_launches": [r["launches"] for r in plain],
+        "two_plain_calls_equal_bits": deterministic,
+        "two_plain_calls_differ": plain_diff,
+        "served_vs_plain_gate": "bit for bit" if deterministic else "CUDA-vs-CPU gates",
+        "served_vs_plain": vs_plain,
+        "cpu_check_n": small[2].n_points,
+        "why_2562": "a 10242 CPU registration costs about as much as this phase",
+        "cpu_s": cpu_s, "served_cuda_vs_cpu": vs_cpu,
+        "phase_s": time.perf_counter() - t_phase,
+    })
+    for a, b in zip(served, plain):
+        check(a["launches"] == b["launches"] and a["launches"]["knn"] > 0
+              and a["launches"]["umeyama3"] > 0,
+              f"served pair {a['seed']} launched {a['launches']}, the plain "
+              f"pair {b['launches']}")
+    what = "served pair vs register_pair on the card"
+    if deterministic:
+        check(not vs_plain["differing_keys"],
+              f"{what}: not equal bit for bit: {vs_plain['differing_keys']}")
+    else:
+        agreement_checks(vs_plain, what)
+    agreement_checks(vs_cpu, "served pair CUDA vs CPU (2562)")
+    return prep, deterministic, served[0]["launches"]
+
+
+def phase_class_template(torch, tp, cfg, prep, meshes, graphs, smi, deterministic,
+                         device="cuda"):
+    """A never-seen pair (target seed 3, source seed 4) registered cold, and
+    from the seed-2 class template's block, in memory and through a save /
+    load round trip reloaded on the card.  Gates: quality within
+    ``UNIQUE_DIFF_MAX`` and eigenvalues within ``EIGVAL_RTOL`` of the cold
+    run; the reloaded template gives the in-memory one's output bits."""
+    from pyfocusr_tpu_torch.ops import eigen
+
+    t_phase = time.perf_counter()
+    ts, ss = CLASS_PAIR_SEEDS
+    tg, sg = graphs[ts], graphs[ss]
+    draws = tp.make_draws(0, cfg, tg.n_points, sg.n_points)
+    runs = {}
+
+    def run(name, **kw):
+        eigen.SOLVES.clear()
+        res, secs = timed(torch, lambda: tp.register_pair(tg, sg, cfg, draws=draws, **kw))
+        runs[name] = {"s": secs, "solves": list(eigen.SOLVES),
+                      "quality": quality_and_checks(tp, meshes[ts], meshes[ss], res,
+                                                    sg.n_points)}
+        return res
+
+    cold = run("cold")
+    warm = run("warm_block", warm_block=tp.warm_block_from_prepared(prep, graphs[2]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "template.npz")
+        tp.save_prepared_target(path, prep, cfg, graphs[2])
+        back = tp.load_prepared_target(path, cfg, graphs[2], device=device)
+    check(back["block"].device == graphs[2].device, "the template did not load on the card")
+    reloaded = run("warm_block_reloaded", warm_block=tp.warm_block_from_prepared(back))
+    vs_cold = compare_runs(cold, to_cpu(warm))
+    reload_diff = outputs_differ(torch, warm, reloaded)
+    emit({"phase": "serving_class_template", "nvidia_smi": smi,
+          "template_seed": 2, "pair_seeds": [ts, ss], "runs": runs,
+          "warm_vs_cold": vs_cold, "reloaded_differs": reload_diff,
+          "phase_s": time.perf_counter() - t_phase})
+    for name in ("warm_block", "warm_block_reloaded"):
+        check(all(sv["warm"] for sv in runs[name]["solves"]),
+              f"{name}: a solve started cold: {runs[name]['solves']}")
+    check(vs_cold["eigval_max_rel_diff"] <= EIGVAL_RTOL,
+          "class-template eigenvalues vs the cold run")
+    check(abs(runs["warm_block"]["quality"]["unique_fraction"]
+              - runs["cold"]["quality"]["unique_fraction"]) <= UNIQUE_DIFF_MAX,
+          "class-template unique fraction vs the cold run")
+    if deterministic:
+        check(not reload_diff, f"reloaded template changed the output: {reload_diff}")
+    else:
+        agreement_checks(compare_runs(warm, to_cpu(reloaded)),
+                         "reloaded template vs in-memory")
+
+
+def phase_features(torch, tp, meshes, smi, device="cuda"):
+    """``register_pair`` under each feature flag at the bench configuration,
+    each mesh's thickness scalar as its feature: the 10242 pair on the card
+    (wall time and quality), and the 2562 pair on the card against the CPU
+    under the 'kd' CUDA-vs-CPU gates, with CPD stopping at
+    ``FEATURE_CHECK_TOLERANCE``."""
+    from pyfocusr_tpu_torch.ops import cpd as cpd_ops
+
+    t_phase = time.perf_counter()
+    small = {seed: synthetic_bone(tp, seed, levels=CPU_CHECK_LEVELS) for seed in (1, 2)}
+    feat = {}
+    for name, ms in (("full", meshes), ("small", small)):
+        feat[name] = {seed: tp.mesh_to_graph_arrays(
+            ms[seed], node_features=ms[seed].point_data[FEATURE],
+            device=device if name == "full" else "cpu") for seed in (1, 2)}
+    rows = []
+    for flag in FEATURE_FLAGS:
+        cfg = tp.PipelineConfig(**dict(BENCH_CFG, **{flag: True}))
+        tg, sg = feat["full"][2], feat["full"][1]
+        draws = tp.make_draws(0, cfg, tg.n_points, sg.n_points)
+        res, secs = timed(torch, lambda: tp.register_pair(tg, sg, cfg, draws=draws))
+        row = {"flag": flag, "s": secs, "cpd_iterations": cpd_ops.EM_STATS["iterations"],
+               "quality": quality_and_checks(tp, meshes[2], meshes[1], res, sg.n_points)}
+        ccfg = tp.PipelineConfig(**dict(BENCH_CFG, non_rigid_tolerance=FEATURE_CHECK_TOLERANCE,
+                                        **{flag: True}))
+        st, ss = feat["small"][2], feat["small"][1]
+        sd = tp.make_draws(0, ccfg, st.n_points, ss.n_points)
+        res_gpu = tp.register_pair(st.to(device), ss.to(device), ccfg, draws=sd)
+        it_gpu = cpd_ops.EM_STATS["iterations"]
+        t0 = time.perf_counter()
+        res_cpu = tp.register_pair(st, ss, ccfg, draws=sd)
+        row.update(cpu_check_n=st.n_points, cpu_s=time.perf_counter() - t0,
+                   cpd_iterations_check=[it_gpu, cpd_ops.EM_STATS["iterations"]],
+                   cuda_vs_cpu=compare_runs(res_gpu, res_cpu))
+        rows.append(row)
+    emit({"phase": "features", "nvidia_smi": smi, "feature": FEATURE,
+          "config": "bench.py:122-134 plus each flag",
+          "cpu_check": f"the 2562 pair, non_rigid_tolerance {FEATURE_CHECK_TOLERANCE}",
+          "runs": rows, "phase_s": time.perf_counter() - t_phase})
+    for row in rows:
+        agreement_checks(row["cuda_vs_cpu"], f"{row['flag']} CUDA vs CPU (2562)")
+
+
 def _device_us(evt) -> float:
     if hasattr(evt, "device_time_total"):
         return float(evt.device_time_total)
@@ -1612,13 +1863,25 @@ def main():
           "icp_iterations_cuda": kd_icp["iterations"],
           "icp_iterations_cpu": cpu_icp["iterations"], **agree})
     check(kd_icp["iterations"] == cpu_icp["iterations"], "ICP iterations CUDA vs CPU")
-    check(agree["eigval_max_rel_diff"] <= EIGVAL_RTOL, "eigenvalues CUDA vs CPU")
-    check(agree["eigvec_min_abs_cos"] >= COS_MIN, "eigenvectors CUDA vs CPU")
-    check(agree["correspondence_agreement"] >= CORR_AGREE_MIN,
-          "final correspondences CUDA vs CPU")
-    check(abs(agree["unique_fraction_gpu"] - agree["unique_fraction_cpu"])
-          <= UNIQUE_DIFF_MAX, "unique fraction CUDA vs CPU")
+    agreement_checks(agree, "CUDA vs CPU")
     del res_cpu
+
+    # --- Template serving and the feature flags on the 'kd' configuration ---
+    t0 = time.perf_counter()
+    meshes = {1: source_mesh, 2: target_mesh}
+    meshes.update({seed: synthetic_bone(tp, seed) for seed in SERVED_SEEDS
+                   if seed not in meshes})
+    graphs = {1: sg, 2: tg}
+    graphs.update({seed: tp.mesh_to_graph_arrays(m) for seed, m in meshes.items()
+                   if seed not in graphs})
+    emit({"phase": "serving_meshes", "seeds": sorted(meshes),
+          "seconds": time.perf_counter() - t0})
+    prep, deterministic, served_launches = phase_serving(
+        torch, tp, kernels, cfg, meshes, graphs, smi)
+    phase_class_template(torch, tp, cfg, prep, meshes, graphs, smi, deterministic)
+    phase_features(torch, tp, meshes, smi)
+    del prep, graphs
+    torch.cuda.empty_cache()
 
     # --- The two 'hungarian' kernels at the costs that path gives them: the
     # spectral coordinates of the 10242 pair (computed before the
@@ -1760,6 +2023,7 @@ def main():
             "replaces": "pyfocusr_tpu/ops/pallas_kernels.py:647",
             "launches": kd_launches["knn"],
             "launches_icp_shape": kd_icp_knn,
+            "launches_served_pair": served_launches["knn"],
             "launches_hungarian_path": h_launches["knn"],
             "max_abs_err": max(r.get("max_abs_err", 0.0) for r in knn_results),
             "ms": knn_main["kernel_ms"],
@@ -1872,6 +2136,7 @@ def main():
             # torch cannot capture in a CUDA graph.
             "replaces": "pyfocusr_tpu/ops/icp.py:48",
             "launches": kd_launches["umeyama3"],
+            "launches_served_pair": served_launches["umeyama3"],
             "max_abs_err": max(r["max_abs_err"]["R"] for r in umeyama_results),
             "max_s_rel_err": max(r["max_abs_err"]["s_rel"] for r in umeyama_results),
             "ms": close_main["kernel_ms"],

@@ -12,9 +12,17 @@ Entry points:
   :func:`mesh_to_graph_arrays` and :func:`register_pair` — the
   ``register_pair`` path (``pyfocusr_tpu/pipeline.py:842``) with 'kd' or
   'hungarian' correspondences, CPD at any subsample size up to full
-  resolution, the affine pre-pass, landmarks and xyz-as-features;
+  resolution, the affine pre-pass, landmarks, xyz-as-features and the
+  three node-feature flags;
 * :func:`landmark_pairs_from_positions` — ``landmark_pairs`` from picked
   landmark coordinates;
+* template serving (``pyfocusr_tpu/pipeline.py:915-1376``):
+  :func:`prepare_target` / :func:`register_pair_prepared` (one template as
+  the target of many pairs), :func:`prepare_source` /
+  :func:`register_pair_prepared_source` (one template as the source),
+  :func:`warm_block_from_prepared` (a class-template seed for
+  ``register_pair(warm_block=...)``) and :func:`save_prepared_target` /
+  :func:`load_prepared_target` (``.npz`` files either package loads);
 * :func:`make_draws` — the random inputs of ``register_pair``, from a seed;
 * :func:`graph_arrays_from_numpy` / :func:`config_from_dict` — build the
   inputs from the JAX package's ``GraphArrays`` fields and config dict;
@@ -30,9 +38,17 @@ from .pipeline import (
     config_from_dict,
     graph_arrays_from_numpy,
     landmark_pairs_from_positions,
+    load_prepared_target,
     make_draws,
     mesh_to_graph_arrays,
+    prepare_source,
+    prepare_target,
     register_pair,
+    register_pair_prepared,
+    register_pair_prepared_source,
+    save_prepared_target,
+    source_spectrum_hoistable,
+    warm_block_from_prepared,
 )
 
 __all__ = [
@@ -44,10 +60,18 @@ __all__ = [
     "config_from_dict",
     "graph_arrays_from_numpy",
     "landmark_pairs_from_positions",
+    "load_prepared_target",
     "make_draws",
     "mesh_to_graph_arrays",
+    "prepare_source",
+    "prepare_target",
     "register_pair",
+    "register_pair_prepared",
+    "register_pair_prepared_source",
     "registration_quality",
+    "save_prepared_target",
+    "source_spectrum_hoistable",
     "subdivide",
     "surface_distance",
+    "warm_block_from_prepared",
 ]

@@ -23,11 +23,17 @@ block below the rank floor, comes from ``generator``.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..utils.precision import f32_matmuls
 
-__all__ = ["chebyshev_eigpairs_wide"]
+__all__ = ["chebyshev_eigpairs_wide", "SOLVES"]
+
+# The last solves' schedules, newest last: rows, whether the block started
+# warm, the chunks run and the top-up chunks among them.
+SOLVES = collections.deque(maxlen=16)
 
 
 def _project_out(v0, x):
@@ -167,8 +173,8 @@ def chebyshev_eigpairs_wide(
         th = (V * Av).sum(dim=0)
         return (Av - V * th[None, :]).norm(dim=0).max()
 
+    done = 0
     if extra_chunks > 0:
-        done = 0
         while done < extra_chunks and bool(
             wanted_resid(X) > extra_resid_tol * lam_max
         ):
@@ -177,6 +183,8 @@ def chebyshev_eigpairs_wide(
             a = next_cut(theta)
             done += 1
 
+    SOLVES.append({"n": n, "warm": x0 is not None, "chunks": chunks + done,
+                   "top_up_chunks": done})
     V = X[:, :k]
     V = V / V.norm(dim=0, keepdim=True)
     Av = matvec(V)

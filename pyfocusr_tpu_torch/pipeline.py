@@ -1,24 +1,32 @@
-"""The FOCUSR registration of one mesh pair, end to end on one device.
+"""The FOCUSR registration of one mesh pair, end to end on one device, and
+template serving.
 
 Counterpart of ``pyfocusr_tpu/pipeline.py``: ``PipelineConfig`` (:74),
 ``GraphArrays`` (:292), ``mesh_to_graph_arrays`` (:349, unpadded, no
 patch plan), ``_masked_minmax_norm`` (:483), ``_spectrum`` (:495, the wide
-Chebyshev path with the plain ELL filter operator of :590-605),
-``_normed`` (:702), ``landmark_pairs_from_positions`` (:709),
-``_warm_supported`` (:790), ``_warm_x0`` (:801), ``register_pair`` (:842)
-and the branches of ``_register_pair_jit`` (:1381-1764) listed below:
+Chebyshev path with the plain ELL filter operator of :590-605, and the
+feature branches of :511-541), ``_normed`` (:702),
+``landmark_pairs_from_positions`` (:709), ``_warm_supported`` (:790),
+``_warm_x0`` (:801), ``register_pair`` (:842), the serving entry points
+(:915-1376: ``warm_block_from_prepared``, ``prepare_target``,
+``register_pair_prepared``, ``source_spectrum_hoistable``,
+``prepare_source``, ``register_pair_prepared_source``, the fingerprints,
+``save_prepared_target`` and ``load_prepared_target``) and the branches of
+``_register_pair_jit`` (:1381-1764) listed below:
 
     ICP -> spectra (target cold, source warm-started from the target's
-    block) -> eigsort -> spectral coords (optionally weighted, optionally
-    with xyz appended, :1592-1613) -> CPD: landmark rows forced into the
+    block; or either side taken from prepared state, or both warm from a
+    class template's block, :1445-1512) -> eigsort -> spectral coords
+    (optionally weighted, optionally with smoothed features and xyz
+    appended, :1562-1613) -> CPD: landmark rows forced into the
     control subsample (:1619-1643), optional affine pre-pass (:1645-1651),
     low-rank deformable CPD with the dense E-step, or the streamed one
     when the subsample exceeds 3000^2 pairs (:1653-1671; the port streams
     the affine pre-pass's E-step above that size too, where JAX keeps the
     dense one) ->
     correspondences ('kd': nearest neighbour; 'hungarian': one-to-one
-    assignment, :1677-1733) -> Chebyshev graph smoothing -> k=3 IDW final
-    locations.
+    assignment, :1677-1733) -> Chebyshev graph smoothing (or the prepared
+    target's smoothed points) -> k=3 IDW final locations.
 
 PyTorch runs eagerly, so the JAX package's single jitted program is a
 sequence of tensor operations on the device the inputs lie on.  On a CUDA
@@ -30,18 +38,23 @@ through the CUDA E-step kernel (``ops/cpd_estep_kernel``).
 Randomness is an input.  ``jax.random`` cannot be reproduced in torch, so
 every random draw the JAX program makes internally is an entry of
 ``draws`` (see :func:`make_draws`): the ICP landmark subsample, the eigsort
-and CPD subsamples, the target eigensolve's initial block and the CPD
+and CPD subsamples, the eigensolves' initial blocks and the CPD
 Gram's ``omega``.  Feeding the same draws to both packages makes their runs
 comparable.
 
-Configurations that are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item: ``warm_block``, the feature flags, ``eig_method`` other
-than 'chebyshev', meshes under 2048 vertices and padded graphs.
+The JAX package's split-spectra path (``_want_split``, :822-840: above
+65000 vertices each eigensolve is compiled as its own program) works
+around XLA's schedule on a TPU and is not ported: without it every entry
+point computes the same values.  Configurations that are not ported yet
+raise ``NotImplementedError`` naming their ROADMAP item: ``eig_method``
+other than 'chebyshev', meshes under 2048 vertices and padded graphs.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -62,6 +75,7 @@ from .ops.knn import (
     pairwise_sq_dists,
 )
 from .spectral.eigsort_device import sort_eigenmaps
+from .utils.checkpoint import load_results, save_results
 from .utils.device import resolve_device
 from .utils.precision import f32_matmuls
 
@@ -74,6 +88,14 @@ __all__ = [
     "landmark_pairs_from_positions",
     "make_draws",
     "register_pair",
+    "warm_block_from_prepared",
+    "prepare_target",
+    "register_pair_prepared",
+    "source_spectrum_hoistable",
+    "prepare_source",
+    "register_pair_prepared_source",
+    "save_prepared_target",
+    "load_prepared_target",
 ]
 
 
@@ -261,16 +283,26 @@ def graph_arrays_from_numpy(d, device=None) -> GraphArrays:
     return GraphArrays(**kw)
 
 
-def mesh_to_graph_arrays(mesh: TriMesh, device=None) -> GraphArrays:
+def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
+                         device=None) -> GraphArrays:
     """Build the pipeline tensors of one mesh on ``device``, the CUDA card
     by default (see ``utils.device.resolve_device``); unpadded, ELL degree capped at
     24 with hub overflow edges.  ``null_indicators``
     holds one indicator column per connected component (the Laplacian
-    kernel the eigensolver deflates)."""
+    kernel the eigensolver deflates).  ``node_features``: optional per-vertex
+    features, [N], [N, K] or [K, N] (the JAX package's rules, :413-420)."""
     n = mesh.n_points
     topo = build_topology(np.asarray(mesh.triangles), n)
     indicators = np.zeros((n, max(topo.n_components, 1)), np.float32)
     indicators[np.arange(n), topo.component_labels] = 1.0
+    if node_features is None:
+        feats = np.zeros((n, 0), np.float32)
+    else:
+        feats = np.asarray(node_features, np.float32)
+        if feats.ndim == 1:
+            feats = feats[:, None]
+        if feats.shape[0] != n:  # [K, N]
+            feats = feats.T
     return graph_arrays_from_numpy(
         {
             "points": np.asarray(mesh.points, np.float32),
@@ -279,6 +311,7 @@ def mesh_to_graph_arrays(mesh: TriMesh, device=None) -> GraphArrays:
             "valid_mask": np.ones((n,), np.float32),
             "null_indicators": indicators,
             "overflow": topo.overflow_edges,
+            "node_features": feats,
         },
         device=device,
     )
@@ -298,15 +331,40 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
               extra_chunks: int = 0, degree: int = None, generator=None):
     """k smallest nonzero Laplacian eigenpairs of one mesh, eigvecs min-max
     normalized to [-0.5, 0.5], by the wide Chebyshev solver with the fused
-    ELL filter step.  Returns (lams, vecs, (w, overflow, ov_w)) and, with
-    ``return_block``, the final filtered block."""
+    ELL filter step.  ``include_features_in_adj_matrix`` builds the edge
+    weights on xyz and the node features, ``use_features_in_graph`` takes G
+    from the features (``graph_ops.g_vector``).  Returns
+    (lams, vecs, (w, overflow, ov_w)) and, with ``return_block``, the final
+    filtered block."""
     mask = graph.valid_mask
     nbrs = graph.neighbors
-    w = graph_ops.edge_weights(graph.points, nbrs, graph.nbr_mask)
+    feats = graph.node_features
+    has_feats = feats.shape[1] > 0
+    coords = graph.points
+    if cfg.include_features_in_adj_matrix and has_feats:
+        # Edge weights on xyz with the features, scaled by the mean axis
+        # range, appended as further coordinates.
+        mean_range = _normed_points(graph)[1]
+        coords = torch.cat([graph.points, feats * mean_range * mask[:, None]], dim=1)
+    w = graph_ops.edge_weights(coords, nbrs, graph.nbr_mask)
     ov = graph.overflow
-    ov_w = graph_ops.overflow_weights(graph.points, ov)
+    ov_w = graph_ops.overflow_weights(coords, ov)
     d = graph_ops.degree_vector(w, ov, ov_w)
-    g = torch.where(mask > 0, (d + graph_ops.DEGREE_EPS) ** -1, torch.ones_like(d))
+    if cfg.use_features_in_graph and has_feats:
+        # The feature G of L = G (D - W); the operator, its bound, the
+        # fused filter and the null basis below all take s = sqrt(g).
+        if cfg.feature_weights_diag:
+            fw = torch.diag(torch.tensor(cfg.feature_weights_diag,
+                                         dtype=torch.float32, device=d.device))
+        else:
+            fw = torch.eye(feats.shape[1], dtype=torch.float32, device=d.device)
+        g_feat = graph_ops.g_vector(
+            feats.T, d, fw, p_function=cfg.G_matrix_p_function,
+            include_features=True, valid_mask=mask,
+        )
+        g = torch.where(mask > 0, torch.clamp(g_feat, min=1e-30), torch.ones_like(d))
+    else:
+        g = torch.where(mask > 0, (d + graph_ops.DEGREE_EPS) ** -1, torch.ones_like(d))
     s = torch.sqrt(g)
 
     def matvec(X):
@@ -425,7 +483,7 @@ def _choice(rng, n: int, m: int) -> np.ndarray:
 
 
 def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
-               n_landmarks: int = 0):
+               n_landmarks: int = 0, source_block: bool = False):
     """Every random input of ``register_pair``, drawn with numpy on the host
     from ``seed`` (so CPU and CUDA runs can see identical inputs):
 
@@ -438,8 +496,17 @@ def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
                                      rows of ``landmark_pairs``
     eig_block_target f32 [N_t, eig_wide_block]  initial eigensolver block
     eig_block_source f32 [N_s, eig_wide_block]  only when the source solve
-                                                 is not warm-started
+                                                 is not warm-started, or
+                                                 with ``source_block``
     cpd_omega        f32 [n_reg, p]  Gram subspace-iteration start
+
+    The serving entry points read: :func:`prepare_target` the
+    ``eig_block_target`` draw, :func:`prepare_source` the
+    ``eig_block_source`` one (``source_block=True`` gives it when the pair's
+    warm start is on, drawn after every other entry, so those stay the
+    draws of the same seed without it); :func:`register_pair_prepared`
+    reads no ``eig_block_target`` and :func:`register_pair_prepared_source`
+    no ``eig_block_source``.
     """
     rng = np.random.default_rng(seed)
     draws = {}
@@ -460,16 +527,22 @@ def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
         ).astype(np.float32)
     p = min(min(cfg.non_rigid_n_eigens, n_reg) + 16, n_reg)
     draws["cpd_omega"] = rng.standard_normal((n_reg, p)).astype(np.float32)
+    if source_block and "eig_block_source" not in draws:
+        draws["eig_block_source"] = rng.standard_normal(
+            (n_source, cfg.eig_wide_block)
+        ).astype(np.float32)
     return draws
 
 
+def _tensor_to(v, device):
+    """A numpy array or tensor on ``device``: floats f32, integers int64."""
+    t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+    dtype = torch.float32 if t.is_floating_point() else torch.int64
+    return t.to(dtype=dtype, device=device)
+
+
 def _draws_to(draws, device):
-    out = {}
-    for name, v in draws.items():
-        t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
-        dtype = torch.float32 if t.is_floating_point() else torch.int64
-        out[name] = t.to(dtype=dtype, device=device)
-    return out
+    return {name: _tensor_to(v, device) for name, v in draws.items()}
 
 
 def _use_hungarian(cfg: PipelineConfig) -> bool:
@@ -498,8 +571,20 @@ def _n_reg(cfg: PipelineConfig, target: GraphArrays, source: GraphArrays) -> int
                source.n_points)
 
 
+def _check_graph(graph: GraphArrays, name: str, cfg: PipelineConfig):
+    """The configurations whose solver is not ported yet raise."""
+    if cfg.eig_method != "chebyshev":
+        raise _not_ported(f"eig_method={cfg.eig_method!r}", "3")
+    if graph.n_points < 2048:
+        raise _not_ported(
+            f"a {name} mesh under 2048 vertices (narrow Chebyshev solver)", "3"
+        )
+    if not bool((graph.valid_mask > 0).all()):
+        raise _not_ported(f"a padded {name} graph", "6")
+
+
 def _check_supported(target: GraphArrays, source: GraphArrays,
-                     cfg: PipelineConfig, landmark_pairs, warm_block):
+                     cfg: PipelineConfig, landmark_pairs):
     if landmark_pairs is not None and (
             landmark_pairs.dim() != 2 or landmark_pairs.shape[1] != 2):
         raise ValueError(
@@ -510,31 +595,43 @@ def _check_supported(target: GraphArrays, source: GraphArrays,
         raise ValueError(
             "landmark_pairs must be fewer than n_coords_spectral_registration"
         )
-    if warm_block is not None:
-        raise _not_ported("warm_block (class-template warm start)", "8")
     if _use_hungarian(cfg) and target.n_points != source.n_points:
         # The reference's guard: assignment is one-to-one over all rows.
         raise ValueError(
             "If number vertices between source & target don't match, "
             "correspondence type must be 'kd' and not 'hungarian'."
         )
-    for flag in ("use_features_as_coords", "use_features_in_graph",
-                 "include_features_in_adj_matrix"):
-        if getattr(cfg, flag):
-            raise _not_ported(flag, "8")
-    if cfg.eig_method != "chebyshev":
-        raise _not_ported(f"eig_method={cfg.eig_method!r}", "3 and 15")
+    n_ft, n_fs = target.node_features.shape[1], source.node_features.shape[1]
+    if cfg.use_features_as_coords and n_ft > 0 and n_ft != n_fs:
+        raise ValueError(
+            f"Number of extra features between target ({n_ft}) and source "
+            f"({n_fs}) dont match!"
+        )
     for graph, name in ((target, "target"), (source, "source")):
-        if graph.n_points < 2048:
-            raise _not_ported(
-                f"a {name} mesh under 2048 vertices (narrow Chebyshev solver)",
-                "3",
-            )
-        if not bool((graph.valid_mask > 0).all()):
-            raise _not_ported(f"a padded {name} graph", "13")
+        _check_graph(graph, name, cfg)
 
 
-@f32_matmuls
+def _warm_block_to(warm_block, device):
+    """A ``warm_block`` dict checked as the JAX package checks it
+    (:867-888), its tensors f32 on ``device``."""
+    missing = [k for k in ("points", "block", "valid_mask") if k not in warm_block]
+    if missing:
+        raise ValueError(
+            f"warm_block is missing key(s) {missing}: build it with "
+            "warm_block_from_prepared"
+        )
+    n_t, n_b = warm_block["points"].shape[0], warm_block["block"].shape[0]
+    if n_t != n_b or warm_block["valid_mask"].shape[0] != n_t:
+        raise ValueError(
+            f"warm_block is inconsistent: points has {n_t} rows, "
+            f"block {n_b}, valid_mask "
+            f"{warm_block['valid_mask'].shape[0]} — build it with "
+            "warm_block_from_prepared"
+        )
+    return {k: _tensor_to(warm_block[k], device)
+            for k in ("points", "block", "valid_mask")}
+
+
 def register_pair(target: GraphArrays, source: GraphArrays,
                   cfg: PipelineConfig, generator: torch.Generator = None,
                   draws=None, landmark_pairs=None, warm_block=None):
@@ -552,6 +649,15 @@ def register_pair(target: GraphArrays, source: GraphArrays,
     coordinates with weight ``cfg.landmark_weight`` (MAP CPD); ``draws``
     then holds n_reg - L ``cpd_target`` rows.
 
+    ``warm_block``: a class-template seed from
+    :func:`warm_block_from_prepared` (a prepared mesh of the same anatomy,
+    roughly aligned with this pair's frame).  The target eigensolve then
+    also starts from the template's filtered block, mapped through a
+    spatial nearest neighbour, and runs the warm schedule
+    (``eig_wide_chunks_warm`` chunks and the residual-gated top-up), so
+    neither solve of a never-seen pair runs cold.  Ignored when ICP moves
+    the target or the warm start does not apply.
+
     Returns a dict with the JAX package's keys:
     correspondences / initial_correspondences int64 [Ns],
     nearest_points / weighted_points / average_points f32 [Ns, 3],
@@ -559,6 +665,14 @@ def register_pair(target: GraphArrays, source: GraphArrays,
     spectral_coords_{target,source}, smoothed_target_coords,
     source_projected_on_target, Q, and mutual_consistency when asked.
     """
+    return _run(target, source, cfg, generator, draws, landmark_pairs,
+                warm_block=warm_block)
+
+
+@f32_matmuls
+def _run(target, source, cfg, generator, draws, landmark_pairs, pre=None,
+         pre_src=None, warm_block=None):
+    """The checks and inputs every registration entry point shares."""
     if target.device != source.device:
         raise ValueError(
             f"target on {target.device} but source on {source.device}"
@@ -567,7 +681,15 @@ def register_pair(target: GraphArrays, source: GraphArrays,
     if landmark_pairs is not None:
         landmark_pairs = torch.as_tensor(landmark_pairs).to(
             dtype=torch.int64, device=device)
-    _check_supported(target, source, cfg, landmark_pairs, warm_block)
+    _check_supported(target, source, cfg, landmark_pairs)
+    if warm_block is not None:
+        warm_block = _warm_block_to(warm_block, device)
+    for state, graph, name in ((pre, target, "target"), (pre_src, source, "source")):
+        if state is not None and state["vecs"].shape[0] != graph.n_points:
+            raise ValueError(
+                f"prepared {name} state has {state['vecs'].shape[0]} rows but "
+                f"the {name} mesh has {graph.n_points} vertices"
+            )
     n_lm = 0 if landmark_pairs is None else landmark_pairs.shape[0]
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -585,9 +707,365 @@ def register_pair(target: GraphArrays, source: GraphArrays,
     stage = _StageRanges()
     try:
         return _register_pair(target, source, cfg, generator, draws, stage,
-                              landmark_pairs)
+                              landmark_pairs, pre=pre, pre_src=pre_src,
+                              warm_block=warm_block)
     finally:
         stage.close()
+
+
+def warm_block_from_prepared(prep, template: GraphArrays = None):
+    """The ``register_pair(warm_block=...)`` seed from a prepared template
+    (``pyfocusr_tpu/pipeline.py:915-969``): the template's geometry and its
+    filtered eigensolver block (:func:`prepare_target` keeps it when
+    ``eig_warm_start`` is on; saves carry it).  ``template`` may be omitted
+    when ``prep`` was loaded from a save that embeds the template geometry
+    (:func:`save_prepared_target` with ``target=``).  A block whose rows do
+    not match the template raises, as in the JAX package."""
+    if prep.get("block") is None:
+        raise ValueError(
+            "prepared state carries no filtered block — re-run "
+            "prepare_target with eig_warm_start=True (wide-chebyshev path)"
+        )
+    if template is None:
+        if prep.get("warm_points") is None:
+            raise ValueError(
+                "prepared state does not embed the template geometry — "
+                "pass the template GraphArrays, or re-save with "
+                "save_prepared_target(..., target=template)"
+            )
+        if prep["block"].shape[0] != prep["warm_points"].shape[0]:
+            raise ValueError(
+                f"prepared block has {prep['block'].shape[0]} rows but the "
+                f"embedded template geometry has "
+                f"{prep['warm_points'].shape[0]} — corrupt or hand-edited "
+                "save"
+            )
+        return {
+            "points": prep["warm_points"],
+            "valid_mask": prep["warm_valid_mask"],
+            "block": prep["block"],
+        }
+    if prep["block"].shape[0] != template.points.shape[0]:
+        raise ValueError(
+            f"prepared block has {prep['block'].shape[0]} rows but the "
+            f"template mesh has {template.points.shape[0]} vertices — "
+            "the prepared state belongs to a different mesh"
+        )
+    return {
+        "points": template.points,
+        "valid_mask": template.valid_mask,
+        "block": prep["block"],
+    }
+
+
+def _init_block(init_block, graph: GraphArrays, cfg: PipelineConfig, generator):
+    """The eigensolve's initial block on the graph's device: the caller's
+    draw, or standard normals from ``generator``."""
+    if init_block is None:
+        init_block = torch.randn((graph.n_points, cfg.eig_wide_block),
+                                 generator=generator, device=generator.device)
+    return _tensor_to(init_block, graph.device)
+
+
+def _smooth_fn(cfg: PipelineConfig):
+    return (graph_ops.mean_filter_chebyshev if cfg.smoothing_method == "chebyshev"
+            else graph_ops.mean_filter)
+
+
+def _warm_schedule(cfg: PipelineConfig):
+    """The truncated schedule of a warm-started solve."""
+    return dict(chunks=cfg.eig_wide_chunks_warm,
+                extra_chunks=max(cfg.eig_wide_chunks - cfg.eig_wide_chunks_warm, 0),
+                degree=cfg.eig_wide_degree_warm)
+
+
+def prepare_target(target: GraphArrays, cfg: PipelineConfig, init_block=None,
+                   warm_block=None, generator: torch.Generator = None):
+    """The target-only state for template serving
+    (``pyfocusr_tpu/pipeline.py:974-1054``): the target's spectrum, graph
+    operators and smoothed points, and, when ``eig_warm_start`` is on, its
+    filtered eigensolver block (it seeds each served pair's source solve).
+    Pass it to :func:`register_pair_prepared`; persist it with
+    :func:`save_prepared_target`.
+
+    ``init_block``: the eigensolve's initial block, ``make_draws(...)
+    ["eig_block_target"]`` (standard normals from ``generator``, a fresh
+    one seeded 0, when None).  With the same draws,
+    ``register_pair_prepared(prepare_target(t, cfg, draws["eig_block_target"]),
+    t, s, cfg, draws=draws)`` equals ``register_pair(t, s, cfg,
+    draws=draws)`` bit for bit on the CPU.
+
+    ``warm_block``: a class-template seed from
+    :func:`warm_block_from_prepared`; this solve then starts warm and runs
+    the truncated schedule.  ``icp_reg_target_to_source=True`` moves the
+    target per pair and is rejected."""
+    if cfg.icp_register_first and cfg.icp_reg_target_to_source:
+        raise ValueError(
+            "prepare_target requires a fixed target; "
+            "icp_reg_target_to_source=True moves the target per pair"
+        )
+    _check_graph(target, "target", cfg)
+    if warm_block is not None:
+        warm_block = _warm_block_to(warm_block, target.device)
+    if generator is None:
+        generator = torch.Generator(device=target.device).manual_seed(0)
+    init_block = _init_block(init_block, target, cfg, generator)
+    return _prepare_target(target, cfg, init_block, warm_block, generator)
+
+
+@f32_matmuls
+def _prepare_target(target, cfg, init_block, warm_block, generator):
+    k_total = cfg.n_total
+    blk = None
+    with record_function("prepare_target/spectra"):
+        if cfg.eig_warm_start:
+            x0, sched = None, {}
+            if warm_block is not None:
+                x0 = _warm_x0(warm_block["block"], warm_block["points"],
+                              warm_block["valid_mask"], target.points)
+                sched = _warm_schedule(cfg)
+            lams, vecs, w, blk = _spectrum(
+                target, k_total, cfg, init_block, x0=x0, return_block=True,
+                generator=generator, **sched,
+            )
+        else:
+            lams, vecs, w = _spectrum(target, k_total, cfg, init_block,
+                                      generator=generator)
+    smoothed = target.points
+    if cfg.smooth_correspondences:
+        with record_function("prepare_target/smoothing"):
+            smoothed = _smooth_fn(cfg)(
+                target.neighbors, w[0], target.points,
+                cfg.graph_smoothing_iterations, w[1], w[2],
+            )
+    out = {"lams": lams, "vecs": vecs, "w": w, "smoothed_points": smoothed}
+    if blk is not None:
+        out["block"] = blk
+    return out
+
+
+def register_pair_prepared(prep, target: GraphArrays, source: GraphArrays,
+                           cfg: PipelineConfig, generator: torch.Generator = None,
+                           draws=None, landmark_pairs=None):
+    """Register ``source`` onto a target prepared by :func:`prepare_target`
+    (``pyfocusr_tpu/pipeline.py:1057-1093``): the contract of
+    :func:`register_pair` without the target's eigensolve and smoothing.
+    Reads no ``draws["eig_block_target"]``.  The JAX package's
+    split-spectra path for large meshes is not ported (see the module
+    docstring): the source solve always runs inline."""
+    if cfg.icp_register_first and cfg.icp_reg_target_to_source:
+        raise ValueError(
+            "register_pair_prepared requires a fixed target (prepared state "
+            "was computed from the unmoved target); "
+            "icp_reg_target_to_source=True moves it per pair"
+        )
+    return _run(target, source, cfg, generator, draws, landmark_pairs, pre=prep)
+
+
+def source_spectrum_hoistable(cfg: PipelineConfig) -> bool:
+    """Whether the source spectrum and operators are pair-independent under
+    ``cfg`` (``pyfocusr_tpu/pipeline.py:1125-1142``): rigid motion keeps
+    the edge weights, 'similarity' ICP moving the source rescales them and
+    so the smoothing operator."""
+    return not (
+        cfg.icp_register_first
+        and not cfg.icp_reg_target_to_source
+        and cfg.icp_registration_mode != "rigid"
+    )
+
+
+def prepare_source(source: GraphArrays, cfg: PipelineConfig, init_block=None,
+                   generator: torch.Generator = None):
+    """The source-only state (spectrum and graph operators) for the
+    cohort direction of template serving, one template as the source
+    (``pyfocusr_tpu/pipeline.py:1145-1173``).  The solve runs cold from
+    ``init_block`` (``make_draws(..., source_block=True)
+    ["eig_block_source"]``; standard normals from ``generator`` when None)
+    and keeps its filtered block when ``eig_warm_start`` is on.
+
+    With ``icp_register_first=False`` and ``eig_warm_start=False`` and the
+    same draws, :func:`register_pair_prepared_source` equals
+    :func:`register_pair` bit for bit on the CPU; with the warm start on,
+    the pair's own source solve would start from the target's block, so
+    the two agree to solver tolerance."""
+    if not source_spectrum_hoistable(cfg):
+        raise ValueError(
+            "prepare_source requires pair-independent source operators; "
+            "icp_registration_mode='similarity' with the source moving "
+            "per pair rescales the smoothing operator. Use rigid ICP, "
+            "icp_reg_target_to_source=True, or icp_register_first=False."
+        )
+    _check_graph(source, "source", cfg)
+    if generator is None:
+        generator = torch.Generator(device=source.device).manual_seed(0)
+    init_block = _init_block(init_block, source, cfg, generator)
+    return _prepare_source(source, cfg, init_block, generator)
+
+
+@f32_matmuls
+def _prepare_source(source, cfg, init_block, generator):
+    with record_function("prepare_source/spectra"):
+        if cfg.eig_warm_start:
+            lams, vecs, w, blk = _spectrum(source, cfg.n_total, cfg, init_block,
+                                           return_block=True, generator=generator)
+            return {"lams": lams, "vecs": vecs, "w": w, "block": blk}
+        lams, vecs, w = _spectrum(source, cfg.n_total, cfg, init_block,
+                                  generator=generator)
+        return {"lams": lams, "vecs": vecs, "w": w}
+
+
+def register_pair_prepared_source(prep_src, target: GraphArrays,
+                                  source: GraphArrays, cfg: PipelineConfig,
+                                  generator: torch.Generator = None, draws=None,
+                                  landmark_pairs=None):
+    """Register onto ``target`` with a source prepared by
+    :func:`prepare_source` (``pyfocusr_tpu/pipeline.py:1176-1202``): the
+    contract of :func:`register_pair` without the source's eigensolve; the
+    target solve starts from the prepared block when the warm start
+    applies.  Reads no ``draws["eig_block_source"]``.  The split-spectra
+    path is not ported (see the module docstring)."""
+    if not source_spectrum_hoistable(cfg):
+        raise ValueError(
+            "register_pair_prepared_source: cfg is not source-hoistable "
+            "(similarity ICP moving the source per pair); see prepare_source"
+        )
+    return _run(target, source, cfg, generator, draws, landmark_pairs,
+                pre_src=prep_src)
+
+
+def _jax_array(x) -> np.ndarray:
+    """A tensor or array as the JAX package holds it: floats f32,
+    integers int32."""
+    a = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    return a.astype(np.int32 if a.dtype.kind in "iu" else np.float32)
+
+
+def _graph_fingerprint(graph: GraphArrays) -> str:
+    """Content hash of a graph's geometry, topology and features
+    (``pyfocusr_tpu/pipeline.py:1205-1220``), over the arrays in the JAX
+    package's dtypes (the port's int64 neighbours and overflow edges as
+    int32), so a graph hashes the same in both packages."""
+    h = hashlib.sha256()
+    for arr in (graph.points, graph.neighbors, graph.nbr_mask,
+                graph.valid_mask, graph.overflow, graph.node_features):
+        a = _jax_array(arr)
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+# Knobs that never change the prepared state itself, kept out of the
+# fingerprint (``pyfocusr_tpu/pipeline.py:1223-1238``): the per-run CPD
+# landmark weight, and the warm-start knobs, which decide whether the block
+# is attached and how a pair's solve consumes it.
+_FP_SKIP = frozenset((
+    "landmark_weight", "eig_warm_start", "eig_wide_chunks_warm",
+    "eig_wide_degree_warm", "eig_warm_resid_tol",
+))
+
+
+def _cfg_fingerprint(cfg: PipelineConfig) -> str:
+    """Canonical config string (``pyfocusr_tpu/pipeline.py:1241-1259``):
+    the fields that differ from their defaults, sorted by name, without
+    ``_FP_SKIP``."""
+    fields = PipelineConfig.__dataclass_fields__
+    parts = [
+        f"{name}={getattr(cfg, name)!r}"
+        for name in sorted(fields)
+        if name not in _FP_SKIP and getattr(cfg, name) != fields[name].default
+    ]
+    return "PipelineConfig(" + ", ".join(parts) + ")"
+
+
+def _fingerprint_matches(stored: str, cfg: PipelineConfig) -> bool:
+    """Whether a stored fingerprint denotes the same prepared state as
+    ``cfg`` (``pyfocusr_tpu/pipeline.py:1262-1298``): the canonical form, or
+    an older full-``repr`` one reduced the same way."""
+    if stored == _cfg_fingerprint(cfg):
+        return True
+    fields = PipelineConfig.__dataclass_fields__
+    try:
+        call = ast.parse(stored.strip(), mode="eval").body
+        if not isinstance(call, ast.Call) or any(
+            kw.arg is None for kw in call.keywords
+        ):
+            return False
+        kept = {}
+        for kw in call.keywords:
+            val = ast.literal_eval(kw.value)
+            if kw.arg in _FP_SKIP:
+                continue
+            if kw.arg in fields and val == fields[kw.arg].default:
+                continue
+            kept[kw.arg] = val
+    except (SyntaxError, ValueError):
+        return False
+    current = {
+        name: getattr(cfg, name)
+        for name in fields
+        if name not in _FP_SKIP and getattr(cfg, name) != fields[name].default
+    }
+    return kept == current
+
+
+def _text(s: str) -> np.ndarray:
+    return np.frombuffer(s.encode(), dtype=np.uint8).copy()
+
+
+def save_prepared_target(path: str, prep, cfg: PipelineConfig = None,
+                         target: GraphArrays = None) -> None:
+    """Persist a :func:`prepare_target` state to ``.npz``
+    (``pyfocusr_tpu/pipeline.py:1301-1330``), in the JAX package's layout
+    and dtypes (the overflow edges ``w[1]`` as int32), so either package
+    loads it.  ``cfg`` embeds a config fingerprint, ``target`` a mesh
+    fingerprint and the template geometry (for
+    :func:`warm_block_from_prepared` without a template)."""
+    tree = {name: tuple(_jax_array(x) for x in v) if name == "w"
+            else _jax_array(v) for name, v in prep.items()}
+    if cfg is not None:
+        tree["cfg_fingerprint"] = _text(_cfg_fingerprint(cfg))
+    if target is not None:
+        tree["target_fingerprint"] = _text(_graph_fingerprint(target))
+        tree["warm_points"] = _jax_array(target.points)
+        tree["warm_valid_mask"] = _jax_array(target.valid_mask)
+    save_results(path, tree)
+
+
+def load_prepared_target(path: str, cfg: PipelineConfig = None,
+                         target: GraphArrays = None, device=None):
+    """Inverse of :func:`save_prepared_target`, for saves of either package
+    (``pyfocusr_tpu/pipeline.py:1333-1376``), on ``device``: the CUDA card
+    by default (see ``utils.device.resolve_device``); the overflow edges
+    come back int64.  With ``cfg`` (resp. ``target``), the stored config
+    (resp. mesh) fingerprint must match, when the file carries one."""
+    device = resolve_device(device)
+    flat = load_results(path)
+    if cfg is not None and "['cfg_fingerprint']" in flat:
+        stored = bytes(flat["['cfg_fingerprint']"]).decode()
+        if not _fingerprint_matches(stored, cfg):
+            raise ValueError(
+                "prepared-target state was saved under a different "
+                "PipelineConfig; re-run prepare_target (stored: "
+                f"{stored[:200]}...)"
+            )
+    if target is not None and "['target_fingerprint']" in flat:
+        stored = bytes(flat["['target_fingerprint']"]).decode()
+        if stored != _graph_fingerprint(target):
+            raise ValueError(
+                "prepared-target state does not match this target mesh "
+                "(geometry/topology/feature hash mismatch — a different "
+                "mesh, or a checkpoint saved under an older fingerprint "
+                "format). Re-run prepare_target on the current mesh."
+            )
+    w = []
+    while f"['w']/[{len(w)}]" in flat:
+        w.append(_tensor_to(flat[f"['w']/[{len(w)}]"], device))
+    out = {"w": tuple(w)}
+    for name in ("lams", "vecs", "smoothed_points", "block", "warm_points",
+                 "warm_valid_mask"):
+        if f"['{name}']" in flat:
+            out[name] = _tensor_to(flat[f"['{name}']"], device)
+    return out
 
 
 class _StageRanges:
@@ -609,20 +1087,25 @@ class _StageRanges:
             self._open = None
 
 
+def _masked_minmax(arr, mask):
+    """Column minima and maxima of ``arr`` over real vertices only."""
+    real = mask[:, None] > 0
+    inf = torch.tensor(float("inf"), device=arr.device)
+    return (torch.where(real, arr, inf).min(dim=0).values,
+            torch.where(real, arr, -inf).max(dim=0).values)
+
+
 def _normed_points(graph: GraphArrays):
     """xyz shifted to the per-axis minimum and divided by the mean axis
     range (real vertices only); returns (normalized points, mean range)."""
-    mask = graph.valid_mask[:, None] > 0
-    inf = torch.tensor(float("inf"), device=graph.device)
-    mn = torch.where(mask, graph.points, inf).min(dim=0).values
-    mx = torch.where(mask, graph.points, -inf).max(dim=0).values
+    mn, mx = _masked_minmax(graph.points, graph.valid_mask)
     mean_range = (mx - mn).mean()
     normed = (graph.points - mn[None, :]) / torch.clamp(mean_range, min=1e-30)
     return normed * graph.valid_mask[:, None], mean_range
 
 
 def _register_pair(target, source, cfg, generator, draws, stage,
-                   landmark_pairs=None):
+                   landmark_pairs=None, pre=None, pre_src=None, warm_block=None):
     device = target.device
     k_total = cfg.n_total
 
@@ -651,28 +1134,63 @@ def _register_pair(target, source, cfg, generator, draws, stage,
             source = moving
 
     stage("spectra")
-    # --- Spectra: target cold from its drawn block; the source solve is
-    # warm-started from the target's final block mapped through a spatial
-    # NN, with the residual-gated top-up. ---
-    if _warm_supported(cfg, target.n_points, source.n_points):
-        lams_t, vecs_t, w_t, blk_t = _spectrum(
-            target, k_total, cfg, draws["eig_block_target"],
-            return_block=True, generator=generator,
-        )
-        x0_s = _warm_x0(blk_t, target.points, target.valid_mask, source.points)
-        lams_s, vecs_s, w_s = _spectrum(
-            source, k_total, cfg, draws.get("eig_block_source"),
-            x0=x0_s, chunks=cfg.eig_wide_chunks_warm,
-            extra_chunks=max(cfg.eig_wide_chunks - cfg.eig_wide_chunks_warm, 0),
-            degree=cfg.eig_wide_degree_warm, generator=generator,
-        )
+    # --- Spectra (the branch table of pyfocusr_tpu/pipeline.py:1445-1512).
+    # A warm-started solve maps a filtered block onto its mesh through a
+    # spatial NN and runs the truncated schedule with the residual-gated
+    # top-up; ``pre`` / ``pre_src`` carry a prepared side's spectrum. ---
+    warm_ok = _warm_supported(cfg, target.n_points, source.n_points)
+    blk_t = None
+    if pre is None:
+        if warm_ok and pre_src is not None and pre_src.get("block") is not None:
+            # The prepared source (a template) seeds the target solve.
+            x0_t = _warm_x0(pre_src["block"], source.points, source.valid_mask,
+                            target.points)
+            lams_t, vecs_t, w_t = _spectrum(
+                target, k_total, cfg, draws.get("eig_block_target"), x0=x0_t,
+                generator=generator, **_warm_schedule(cfg),
+            )
+        elif (warm_ok and warm_block is not None
+              and not (cfg.icp_register_first and cfg.icp_reg_target_to_source)):
+            # A class template seeds the target solve, whose block then
+            # seeds the source's; off when ICP moves the target.
+            x0_t = _warm_x0(warm_block["block"], warm_block["points"],
+                            warm_block["valid_mask"], target.points)
+            lams_t, vecs_t, w_t, blk_t = _spectrum(
+                target, k_total, cfg, draws.get("eig_block_target"), x0=x0_t,
+                return_block=True, generator=generator, **_warm_schedule(cfg),
+            )
+        elif warm_ok and pre_src is None:
+            lams_t, vecs_t, w_t, blk_t = _spectrum(
+                target, k_total, cfg, draws["eig_block_target"],
+                return_block=True, generator=generator,
+            )
+        else:
+            lams_t, vecs_t, w_t = _spectrum(
+                target, k_total, cfg, draws["eig_block_target"], generator=generator
+            )
     else:
-        lams_t, vecs_t, w_t = _spectrum(
-            target, k_total, cfg, draws["eig_block_target"], generator=generator
-        )
-        lams_s, vecs_s, w_s = _spectrum(
-            source, k_total, cfg, draws["eig_block_source"], generator=generator
-        )
+        lams_t, vecs_t, w_t = pre["lams"], pre["vecs"], pre["w"]
+        if warm_ok:
+            blk_t = pre.get("block")
+    if pre_src is None:
+        if warm_ok and blk_t is not None:
+            x0_s = _warm_x0(blk_t, target.points, target.valid_mask, source.points)
+            lams_s, vecs_s, w_s = _spectrum(
+                source, k_total, cfg, draws.get("eig_block_source"), x0=x0_s,
+                generator=generator, **_warm_schedule(cfg),
+            )
+        else:
+            if "eig_block_source" not in draws:
+                raise ValueError(
+                    "the source eigensolve runs cold here (no target block to "
+                    "start from): draws need 'eig_block_source', see "
+                    "make_draws(..., source_block=True)"
+                )
+            lams_s, vecs_s, w_s = _spectrum(
+                source, k_total, cfg, draws["eig_block_source"], generator=generator
+            )
+    else:
+        lams_s, vecs_s, w_s = pre_src["lams"], pre_src["vecs"], pre_src["w"]
 
     # --- eigsort ---
     stage("eigsort")
@@ -699,11 +1217,26 @@ def _register_pair(target, source, cfg, generator, draws, stage,
         wspec = torch.exp(-(wspec**2) / (2.0 * sigma**2))
         src_coords = src_coords * wspec[None, :]
         tgt_coords = tgt_coords * wspec[None, :]
-    smooth_fn = (
-        graph_ops.mean_filter_chebyshev
-        if cfg.smoothing_method == "chebyshev"
-        else graph_ops.mean_filter
-    )
+    smooth_fn = _smooth_fn(cfg)
+
+    # --- Node features appended: each smoothed on its own mesh's graph,
+    # min-max scaled to [0, 1], times the ptp of that mesh's spectral
+    # coordinates (pyfocusr_tpu/pipeline.py:1563-1590). ---
+    if cfg.use_features_as_coords and target.node_features.shape[1] > 0:
+
+        def feature_cols(graph, w_arr, coords):
+            mn_c, mx_c = _masked_minmax(coords, graph.valid_mask)
+            ptp = mx_c.max() - mn_c.min()
+            sm = smooth_fn(graph.neighbors, w_arr[0], graph.node_features,
+                           cfg.feature_smoothing_iterations, w_arr[1], w_arr[2])
+            mn, mx = _masked_minmax(sm, graph.valid_mask)
+            sm = (sm - mn[None, :]) / torch.clamp(mx - mn, min=1e-30)[None, :]
+            return ptp * sm * graph.valid_mask[:, None]
+
+        src_coords = torch.cat([src_coords, feature_cols(source, w_s, src_coords)],
+                               dim=1)
+        tgt_coords = torch.cat([tgt_coords, feature_cols(target, w_t, tgt_coords)],
+                               dim=1)
 
     # --- xyz appended as features ---
     if cfg.include_points_as_features:
@@ -782,10 +1315,13 @@ def _register_pair(target, source, cfg, generator, draws, stage,
     smoothed_tgt = target.points
     projected = source.points
     if cfg.smooth_correspondences:
-        smoothed_tgt = smooth_fn(
-            target.neighbors, w_t[0], target.points,
-            cfg.graph_smoothing_iterations, w_t[1], w_t[2],
-        )
+        if pre is None:
+            smoothed_tgt = smooth_fn(
+                target.neighbors, w_t[0], target.points,
+                cfg.graph_smoothing_iterations, w_t[1], w_t[2],
+            )
+        else:
+            smoothed_tgt = pre["smoothed_points"]
         projected = smooth_fn(
             source.neighbors, w_s[0], smoothed_tgt[init_corr],
             cfg.projection_smooth_iterations, w_s[1], w_s[2],

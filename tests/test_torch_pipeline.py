@@ -96,10 +96,18 @@ HUNGARIAN = dict(FAST, initial_correspondence_type="hungarian",
                  final_correspondence_type="hungarian")
 
 
+def _eig_block(key, n, cfg):
+    """The initial block chebyshev_eigpairs_wide draws from ``key``
+    (eigen.py:404-405)."""
+    return np.asarray(jax.random.normal(
+        jax.random.split(key)[1], (n, cfg.eig_wide_block), jnp.float32))
+
+
 def _jax_draws(key, cfg, tg, sg, n_landmarks=0):
     """The random inputs JAX's register_pair draws from ``key``
     (pipeline.py:1407,1423,1520-1521,1619,1632,1642; eigen.py:404-405;
-    cpd.py:237); with landmarks the target subsample has n_reg - L rows."""
+    cpd.py:237); with landmarks the target subsample has n_reg - L rows.
+    The source's block only where its solve is not warm-started."""
     keys = jax.random.split(key, 8)
 
     def ri(k, g, m):
@@ -108,18 +116,18 @@ def _jax_draws(key, cfg, tg, sg, n_landmarks=0):
     moving = tg if cfg.icp_reg_target_to_source else sg
     n_reg = min(cfg.n_coords_spectral_registration, tg.n_points, sg.n_points)
     p = min(min(cfg.non_rigid_n_eigens, n_reg) + 16, n_reg)
-    assert JP._warm_supported(cfg, tg, sg)  # the source solve starts from x0
-    return {
+    draws = {
         "icp_landmarks": ri(keys[7], moving, cfg.icp_n_landmarks),
         "eigsort_target": ri(keys[2], tg, cfg.n_coords_spectral_ordering),
         "eigsort_source": ri(keys[3], sg, cfg.n_coords_spectral_ordering),
         "cpd_source": ri(keys[4], sg, n_reg),
         "cpd_target": ri(keys[5], tg, n_reg - n_landmarks),
-        "eig_block_target": np.asarray(jax.random.normal(
-            jax.random.split(keys[0])[1], (tg.n_points, cfg.eig_wide_block),
-            jnp.float32)),
+        "eig_block_target": _eig_block(keys[0], tg.n_points, cfg),
         "cpd_omega": np.asarray(jax.random.normal(keys[6], (n_reg, p), jnp.float32)),
     }
+    if not JP._warm_supported(cfg, tg, sg):
+        draws["eig_block_source"] = _eig_block(keys[1], sg.n_points, cfg)
+    return draws
 
 
 def _fields(ga):
@@ -411,10 +419,6 @@ def torch_pair(jax_pair):
 
 
 @pytest.mark.parametrize("cfg_kw,call_kw,item", [
-    ({}, dict(warm_block={}), "8"),
-    (dict(use_features_as_coords=True), {}, "8"),
-    (dict(use_features_in_graph=True), {}, "8"),
-    (dict(include_features_in_adj_matrix=True), {}, "8"),
     (dict(eig_method="lanczos"), {}, "3"),
     (dict(eig_method="chebyshev-narrow"), {}, "3"),
 ])
