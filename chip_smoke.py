@@ -33,7 +33,16 @@ after:
   3-6) beside their plain ``register_pair``; a never-seen pair (seeds 3, 4)
   from the seed-2 class template's ``warm_block``, in memory and through a
   save / load round trip; and the three feature flags with each mesh's
-  thickness scalar.  Their CUDA-vs-CPU checks run on the 2562-vertex pair.
+  thickness scalar.  Their CUDA-vs-CPU checks run on the 2562-vertex pair;
+* the class API (``class_api``): ``Focusr(target, source).align_maps()`` at
+  the class defaults on the 10242 pair (ICP of the full clouds, the narrow
+  eigensolver in each ``Graph``, curvature features, affine and deformable
+  CPD at 5000 points on the streamed E-step), first call and warm;
+  ``align_maps_pipeline`` against ``register_pair`` on its own inputs;
+  'hungarian' correspondences at 642 and 2562 (lse and JV; the objective
+  against ``lap_host``'s) and ``linear_sum_assignment`` on the card against
+  ``lap_host`` from 2 to 2048 rows; the narrow solver at 642 and 2562 and Lanczos at 2562
+  through ``register_pair``, each solve timed; CUDA against CPU at 2562.
 
 Every CPD EM loop and every ICP on the card runs as one captured iteration
 replayed as a CUDA graph, the host reading the stop flag every 8
@@ -54,6 +63,8 @@ script exits non-zero before printing anything.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import re
@@ -223,6 +234,10 @@ CPU_CHECK_LEVELS = 4
 # with 89.3-97.6% equal correspondences (tools/cpd_stop_noise.py; one H100
 # against the CPU read under 95%); at 1e-6 all stop at 104, 96.5-97.3%.
 FEATURE_CHECK_TOLERANCE = 1e-6
+# The sizes at which the class phase times ``linear_sum_assignment`` on the
+# card against ``lap_host`` (its default sends every square CUDA cost to
+# the card).
+LAP_DISPATCH_SIZES = (2, 4, 16, 64, 256, 642, 2048)
 
 
 def emit(obj):
@@ -1480,6 +1495,254 @@ def phase_class_template(torch, tp, cfg, prep, meshes, graphs, smi, deterministi
                          "reloaded template vs in-memory")
 
 
+class SpectrumRecorder:
+    """Records each ``pipeline._spectrum`` call's solver, rows and fenced
+    seconds while installed (the pipeline calls it through the module
+    attribute)."""
+
+    def __init__(self, torch, pipeline):
+        self.torch, self.mod, self.real = torch, pipeline, pipeline._spectrum
+        self.solves = []
+
+    def __enter__(self):
+        def recorded(graph, k, cfg, *args, **kwargs):
+            sync(self.torch, graph.device)
+            t0 = time.perf_counter()
+            out = self.real(graph, k, cfg, *args, **kwargs)
+            sync(self.torch, graph.device)
+            self.solves.append({"solver": self.mod._solver(cfg, graph.n_points),
+                                "n": graph.n_points, "s": time.perf_counter() - t0})
+            return out
+
+        self.mod._spectrum = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._spectrum = self.real
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def focusr_run(torch, tp, kernels, target, source, device, entry="align_maps", **kw):
+    """One ``Focusr`` construction and ``entry`` call on ``device`` with the
+    kernels' launch counts set to 0 just before and read just after (the
+    eigsort's printed report is swallowed).  Returns (the object, its
+    seconds, the launches, the ICP and CPD loops it ran)."""
+    from pyfocusr_tpu_torch.ops import cpd as cpd_ops
+    from pyfocusr_tpu_torch.ops import icp as icp_ops
+
+    sync(torch, device)
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with CpdRecorder(cpd_ops) as rec, contextlib.redirect_stdout(io.StringIO()):
+        reg = tp.Focusr(target, source, device=device, **kw)
+        getattr(reg, entry)()
+    sync(torch, device)
+    secs = time.perf_counter() - t0
+    loops = {"icp_iterations": icp_ops.ICP_STATS["iterations"],
+             "cpd_affine": rec.affine_runs, "cpd_deformable": rec.runs}
+    return reg, secs, {k: m.LAUNCHES for k, m in kernels.items()}, loops
+
+
+def focusr_result(torch, reg):
+    """A ``Focusr``'s results under ``register_pair``'s keys (for
+    ``compare_runs``)."""
+    return {
+        "eig_vals_target": reg.graph_target.eig_vals,
+        "eig_vals_source": reg.graph_source.eig_vals,
+        "eig_vecs_target": reg.graph_target.eig_vecs,
+        "eig_vecs_source_sorted": reg.graph_source.eig_vecs,
+        "correspondences": torch.as_tensor(reg.corresponding_target_idx_for_each_source_pt),
+        "initial_correspondences": torch.as_tensor(reg.initial_correspondences),
+        "weighted_points": reg.weighted_avg_transformed_points,
+    }
+
+
+def lap_dispatch(torch, TA, sizes=LAP_DISPATCH_SIZES, reps=3):
+    """``linear_sum_assignment`` on a CUDA cost (the card's Sinkhorn and JV
+    solve) against ``lap_host`` on the same cost, at each of ``sizes``:
+    uniform [0, 1) costs from a seed, the card's fenced median of ``reps``
+    warm calls, the host's one call; the objectives must agree."""
+    rows = {}
+    for n in sizes:
+        c64 = np.random.default_rng(n).uniform(0.0, 1.0, (n, n))
+        cost = torch.tensor(c64.astype(np.float32), device="cuda")
+        c64 = cost.double().cpu().numpy()
+        TA.linear_sum_assignment(cost)
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, col = TA.linear_sum_assignment(cost)
+            secs.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        _, host_col = TA.lap_host(c64)
+        host_s = time.perf_counter() - t0
+        r = np.arange(n)
+        obj, obj_host = float(c64[r, col].sum()), float(c64[r, host_col].sum())
+        rows[str(n)] = {"card_s": float(np.median(secs)), "lap_host_s": host_s,
+                        "objective_rel_diff": abs(obj - obj_host) / obj_host}
+        check(len(np.unique(col)) == n
+              and abs(obj - obj_host) <= SAME_COST_OBJ_RTOL * obj_host,
+              f"linear_sum_assignment on the card at n = {n}: {rows[str(n)]}")
+    return rows
+
+
+def phase_class_api(torch, tp, kernels, smi, deterministic, device="cuda",
+                    levels=5, cpu_levels=CPU_CHECK_LEVELS):
+    """The class API on ``device``: ``Focusr`` at the class defaults on the
+    ``levels`` pair (10242 vertices), first call and warm, stage seconds
+    from its ``StageTimer``; ``align_maps_pipeline`` against the port's
+    ``register_pair`` on its config and draws (bit for bit where two plain
+    calls are, else the CUDA-vs-CPU gates); 'hungarian' correspondences at
+    642 and 2562 (the assignment's objective against ``lap_host``'s on the
+    same cost) and, on the card, the ``lap_dispatch`` sweep; the narrow
+    solver on a 642 pair and 'lanczos' and 'chebyshev-narrow' at 2562
+    through ``register_pair``, each solve timed; and the CUDA-vs-CPU gates
+    at 2562 on those two and on ``Focusr`` at the drive recipe.  Returns
+    the class-defaults warm pair's launches and the 2562 'hungarian'
+    pair's."""
+    from pyfocusr_tpu_torch.ops import assignment as TA
+    from pyfocusr_tpu_torch.ops.knn import pairwise_sq_dists
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    target, source = synthetic_bone(tp, 2, levels), synthetic_bone(tp, 1, levels)
+    n_s = source.n_points
+    out = {"phase": "class_api", "nvidia_smi": smi, "n": n_s,
+           "config": "Focusr class defaults (pyfocusr_tpu/focusr.py:48-94)"}
+
+    # --- Focusr at the class defaults: first call, then a warm one ---
+    runs = []
+    for _ in range(2):
+        reg, secs, launches, loops = focusr_run(torch, tp, kernels, target, source, device)
+        runs.append({"s": secs, "stages_s": reg.timer.totals(), "launches": launches,
+                     **loops, "quality": reg.registration_quality()})
+    out["defaults"] = {"first": runs[0], "warm": runs[1]}
+    warm = runs[1]
+    if on_card:
+        for name in ("knn", "umeyama3", "cpd_estep"):
+            check(warm["launches"][name] > 0,
+                  f"Focusr at the class defaults launched no {name} kernel")
+    n_cpd = min(5000, n_s)
+    route = "streamed" if n_cpd * n_cpd > 3000 * 3000 else "dense"
+    check(warm["cpd_affine"][-1]["estep_impl"] == route
+          and warm["cpd_deformable"][-1]["estep_impl"] == route
+          and warm["cpd_deformable"][-1]["n_control"] == n_cpd,
+          f"the class path's CPD did not take the {route} E-step at {n_cpd} points: {warm}")
+    check(warm["quality"]["unique_fraction"] > 0.5,
+          f"class defaults unique fraction {warm['quality']}")
+
+    # --- align_maps_pipeline against register_pair on its inputs ---
+    reg_p, p_s, p_launches, _ = focusr_run(torch, tp, kernels, target, source, device,
+                                           entry="align_maps_pipeline")
+    cfg, tg, sg, draws = reg_p._pipeline_inputs()
+    plain = tp.register_pair(tg, sg, cfg, draws=draws)
+    got = focusr_result(torch, reg_p)
+    same = {"correspondences": np.array_equal(
+                reg_p.corresponding_target_idx_for_each_source_pt,
+                plain["correspondences"].cpu().numpy()),
+            **{k: bool(torch.equal(got[k], plain[k])) for k in (
+                "eig_vals_target", "eig_vals_source", "eig_vecs_source_sorted",
+                "weighted_points")}}
+    vs_plain = compare_runs(plain, {k: v.cpu() for k, v in got.items()})
+    out["pipeline"] = {"s": p_s, "launches": p_launches, "equal_bits": same,
+                       "gate": "bit for bit" if deterministic else "CUDA-vs-CPU gates",
+                       "vs_register_pair": vs_plain}
+    if deterministic:
+        check(all(same.values()), f"align_maps_pipeline vs register_pair: {same}")
+    else:
+        agreement_checks(vs_plain, "align_maps_pipeline vs register_pair")
+
+    # --- 'hungarian' initial and final correspondences at 642 and 2562 ---
+    small_t = synthetic_bone(tp, 2, cpu_levels)
+    small_s = synthetic_bone(tp, 1, cpu_levels)
+    tiny = [synthetic_bone(tp, seed, 3) for seed in (2, 1)]
+    out["hungarian"] = {}
+    for meshes in (tiny, (small_t, small_s)):
+        reg_h, h_s, launches, _ = focusr_run(
+            torch, tp, kernels, *meshes, device,
+            initial_correspondence_type="hungarian", final_correspondence_type="hungarian")
+        n_h = meshes[1].n_points
+        cost = torch.sqrt(pairwise_sq_dists(reg_h.source_spectral_coords,
+                                            reg_h.target_spectral_coords)).cpu().numpy()
+        rows = np.arange(cost.shape[0])
+        obj_class = float(cost.astype(np.float64)[rows, reg_h.initial_correspondences].sum())
+        t0 = time.perf_counter()
+        _, host_cols = TA.lap_host(cost)
+        host_s = time.perf_counter() - t0
+        obj_host = float(cost.astype(np.float64)[rows, host_cols].sum())
+        unique = len(np.unique(reg_h.corresponding_target_idx_for_each_source_pt)) / n_h
+        out["hungarian"][str(n_h)] = {
+            "s": h_s, "launches": launches,
+            "objective_class": obj_class, "objective_lap_host": obj_host,
+            "objective_rel_diff": abs(obj_class - obj_host) / obj_host,
+            "lap_host_s": host_s, "unique_fraction": unique}
+        if on_card:
+            check(launches["lse_rows"] > 0 and launches["jv"] == 2,
+                  f"the class 'hungarian' pair at {n_h} launched {launches}")
+        check(abs(obj_class - obj_host) <= SAME_COST_OBJ_RTOL * obj_host,
+              f"class 'hungarian' objective at {n_h}: {obj_class} against "
+              f"lap_host's {obj_host}")
+        check(unique == 1.0, f"class 'hungarian' at {n_h} not one-to-one")
+    h_launches = launches
+    if on_card:
+        out["lap_dispatch"] = lap_dispatch(torch, TA)
+
+    # --- The narrow solver and Lanczos through register_pair, timed ---
+    solves = {}
+    for name, meshes, kw in (("narrow_642", tiny, {}),
+                             ("narrow_2562", (small_t, small_s),
+                              dict(eig_method="chebyshev-narrow")),
+                             ("lanczos_2562", (small_t, small_s),
+                              dict(eig_method="lanczos"))):
+        cfg_e = tp.PipelineConfig(**dict(BENCH_CFG, **kw))
+        graphs = [tp.mesh_to_graph_arrays(m, device="cpu") for m in meshes]
+        d = tp.make_draws(0, cfg_e, graphs[0].n_points, graphs[1].n_points)
+        rec_runs = {}
+        for dev in (device, "cpu") if name != "narrow_642" else (device,):
+            with SpectrumRecorder(torch, tp.pipeline) as srec:
+                sync(torch, dev)
+                t0 = time.perf_counter()
+                res = tp.register_pair(graphs[0].to(dev), graphs[1].to(dev), cfg_e, draws=d)
+                sync(torch, dev)
+            rec_runs[dev] = {"s": time.perf_counter() - t0, "solves": srec.solves,
+                             "res": res}
+        entry = {f"{dev}_s": r["s"] for dev, r in rec_runs.items()}
+        entry.update({f"{dev}_solves": r["solves"] for dev, r in rec_runs.items()})
+        entry["quality"] = quality_and_checks(tp, meshes[0], meshes[1],
+                                              rec_runs[device]["res"], meshes[1].n_points)
+        if "cpu" in rec_runs and device != "cpu":
+            entry["cuda_vs_cpu"] = compare_runs(rec_runs[device]["res"],
+                                                rec_runs["cpu"]["res"])
+        solves[name] = entry
+    out["register_pair_solvers"] = solves
+
+    # --- Focusr CUDA vs CPU at the drive recipe (no weighting) ---
+    recipe = dict(n_spectral_features=3, n_extra_spectral=3,
+                  get_weighted_spectral_coords=False, list_features_to_calc=[],
+                  non_rigid_alpha=0.01, non_rigid_beta=50, non_rigid_max_iterations=100,
+                  rigid_before_non_rigid_reg=False, projection_smooth_iterations=1,
+                  graph_smoothing_iterations=100, n_coords_spectral_registration=1000)
+    rr = {dev: focusr_run(torch, tp, kernels, small_t, small_s, dev, **recipe)
+          for dev in (device, "cpu")}
+    out["recipe"] = {f"{dev}_s": r[1] for dev, r in rr.items()}
+    if device != "cpu":
+        out["recipe"]["cuda_vs_cpu"] = compare_runs(
+            focusr_result(torch, rr[device][0]), focusr_result(torch, rr["cpu"][0]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if device != "cpu":
+        for name in ("narrow_2562", "lanczos_2562"):
+            agreement_checks(solves[name]["cuda_vs_cpu"], f"register_pair {name} CUDA vs CPU")
+        agreement_checks(out["recipe"]["cuda_vs_cpu"], "Focusr recipe CUDA vs CPU (2562)")
+    return warm["launches"], h_launches
+
+
 def phase_features(torch, tp, meshes, smi, device="cuda"):
     """``register_pair`` under each feature flag at the bench configuration,
     each mesh's thickness scalar as its feature: the 10242 pair on the card
@@ -1881,6 +2144,8 @@ def main():
     phase_class_template(torch, tp, cfg, prep, meshes, graphs, smi, deterministic)
     phase_features(torch, tp, meshes, smi)
     del prep, graphs
+    class_launches, class_h_launches = phase_class_api(torch, tp, kernels, smi,
+                                                       deterministic)
     torch.cuda.empty_cache()
 
     # --- The two 'hungarian' kernels at the costs that path gives them: the
@@ -2019,6 +2284,8 @@ def main():
         {
             "name": "knn",
             "route": "cuda",
+            "launches_class_api": class_launches["knn"],
+            "launches_class_api_hungarian": class_h_launches["knn"],
             "source": "pyfocusr_tpu_torch/csrc/knn.cu",
             "replaces": "pyfocusr_tpu/ops/pallas_kernels.py:647",
             "launches": kd_launches["knn"],
@@ -2044,6 +2311,8 @@ def main():
         {
             "name": "lse_rows",
             "route": "cuda",
+            "launches_class_api": class_launches["lse_rows"],
+            "launches_class_api_hungarian": class_h_launches["lse_rows"],
             "source": "pyfocusr_tpu_torch/csrc/lse_rows.cu",
             "replaces": "pyfocusr_tpu/ops/pallas_kernels.py:265",
             "launches": h_launches["lse_rows"],
@@ -2061,6 +2330,8 @@ def main():
         {
             "name": "jv",
             "route": "cuda",
+            "launches_class_api": class_launches["jv"],
+            "launches_class_api_hungarian": class_h_launches["jv"],
             "source": "pyfocusr_tpu_torch/csrc/jv.cu",
             "replaces": "pyfocusr_tpu/ops/pallas_kernels.py:422",
             "launches": h_launches["jv"],
@@ -2097,6 +2368,8 @@ def main():
         {
             "name": "cpd_estep",
             "route": "cuda",
+            "launches_class_api": class_launches["cpd_estep"],
+            "launches_class_api_hungarian": class_h_launches["cpd_estep"],
             "source": "pyfocusr_tpu_torch/csrc/cpd_estep.cu",
             "replaces": "pyfocusr_tpu/ops/pallas_kernels.py:105,131,159",
             "launches": fr_launches["cpd_estep"],
@@ -2131,6 +2404,8 @@ def main():
         {
             "name": "umeyama3",
             "route": "cuda",
+            "launches_class_api": class_launches["umeyama3"],
+            "launches_class_api_hungarian": class_h_launches["umeyama3"],
             "source": "pyfocusr_tpu_torch/csrc/umeyama3.cu",
             # No Pallas kernel: the SVD and det of the JAX umeyama, which
             # torch cannot capture in a CUDA graph.

@@ -26,12 +26,20 @@ Entry points:
 * :func:`make_draws` — the random inputs of ``register_pair``, from a seed;
 * :func:`graph_arrays_from_numpy` / :func:`config_from_dict` — build the
   inputs from the JAX package's ``GraphArrays`` fields and config dict;
-* :func:`registration_quality` / :func:`surface_distance`.
+* :func:`registration_quality` / :func:`surface_distance`;
+* the class API (``pyfocusr_tpu/focusr.py`` and the modules it drives):
+  :class:`Focusr` (``Focusr(target, source, ...).align_maps()``, or
+  ``.align_maps_pipeline()`` over ``register_pair``), :class:`Graph`,
+  :class:`eigsort`, the cycpd-compatible :class:`affine_registration` and
+  :class:`deformable_registration`, and :func:`linear_sum_assignment`.
 """
 
-from .mesh import MeshTopology, TriMesh, build_topology
+from .focusr import Focusr
+from .mesh import MeshTopology, TriMesh, as_trimesh, build_topology
 from .metrics import registration_quality, surface_distance
 from .multires import subdivide
+from .ops.assignment import linear_sum_assignment
+from .ops.cpd import affine_registration, deformable_registration
 from .pipeline import (
     GraphArrays,
     PipelineConfig,
@@ -50,16 +58,25 @@ from .pipeline import (
     source_spectrum_hoistable,
     warm_block_from_prepared,
 )
+from .spectral.eigsort import eigsort
+from .spectral.graph import Graph
 
 __all__ = [
+    "Focusr",
+    "Graph",
     "GraphArrays",
     "MeshTopology",
     "PipelineConfig",
     "TriMesh",
+    "affine_registration",
+    "as_trimesh",
     "build_topology",
     "config_from_dict",
+    "deformable_registration",
+    "eigsort",
     "graph_arrays_from_numpy",
     "landmark_pairs_from_positions",
+    "linear_sum_assignment",
     "load_prepared_target",
     "make_draws",
     "mesh_to_graph_arrays",

@@ -1,7 +1,9 @@
 """Triangle-mesh container and host-side topology (numpy).
 
-Counterpart of ``pyfocusr_tpu/mesh.py``: ``TriMesh`` (:36), ``MeshTopology``
-(:84) and the numpy path of ``build_topology`` (:115, :178-264).  Topology
+Counterpart of ``pyfocusr_tpu/mesh.py``: ``TriMesh`` (:36, with
+``with_points`` and ``with_point_data``), ``MeshTopology`` (:84), the numpy
+path of ``build_topology`` (:115, :178-264) and ``as_trimesh`` (:267-360,
+with the duck-typed ``vtkPolyData`` branch, which imports no vtk).  Topology
 is one vectorized numpy pass at load; the tensors the pipeline iterates on
 are made from it by ``pipeline.mesh_to_graph_arrays``.
 
@@ -16,13 +18,20 @@ import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["TriMesh", "MeshTopology", "build_topology"]
+__all__ = ["TriMesh", "MeshTopology", "as_trimesh", "build_topology"]
+
+
+def _array(values):
+    """Tensors stay tensors (on their device); anything else becomes numpy."""
+    return values if torch.is_tensor(values) else np.asarray(values)
 
 
 @dataclasses.dataclass(frozen=True)
 class TriMesh:
-    """Triangle mesh as numpy arrays.
+    """Triangle mesh as numpy arrays (``with_points`` / ``with_point_data``
+    keep tensors as they are given, on their device).
 
     points:     f32 [N, 3] vertex positions
     triangles:  i32 [F, 3] vertex indices per face
@@ -40,6 +49,15 @@ class TriMesh:
     @property
     def n_triangles(self) -> int:
         return self.triangles.shape[0]
+
+    def with_points(self, new_points) -> "TriMesh":
+        """Copy of this mesh with replaced vertex positions."""
+        return TriMesh(_array(new_points), self.triangles, dict(self.point_data))
+
+    def with_point_data(self, name: str, values) -> "TriMesh":
+        pd = dict(self.point_data)
+        pd[name] = _array(values)
+        return TriMesh(self.points, self.triangles, pd)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,4 +185,85 @@ def build_topology(
         component_labels=labels.astype(np.int32),
         n_components=int(labels.max()) + 1 if n_points else 0,
         overflow_edges=overflow,
+    )
+
+
+def _as_trimesh_vtk_bulk(obj):
+    """Bulk vtkPolyData -> TriMesh through ``vtk.util.numpy_support`` when
+    the real vtk module is importable (it is whenever the caller holds a
+    live vtkPolyData): one array copy instead of per-point calls.  None
+    falls back to the duck-typed loops (stand-in objects, polygonal cells
+    that need the fan path, exotic builds)."""
+    try:
+        from vtk.util.numpy_support import vtk_to_numpy  # type: ignore
+
+        n = int(obj.GetNumberOfPoints())
+        points = np.asarray(vtk_to_numpy(obj.GetPoints().GetData()),
+                            np.float32).reshape(n, 3)
+        cells = vtk_to_numpy(obj.GetPolys().GetData()).astype(np.int64)
+        # Legacy connectivity layout [k, v0..vk-1, k, ...]: uniform
+        # triangles reshape directly, anything else takes the fan loop.
+        if cells.size and cells.size % 4 == 0:
+            quads = cells.reshape(-1, 4)
+            if not np.all(quads[:, 0] == 3):
+                return None
+            triangles = quads[:, 1:].astype(np.int32)
+        elif cells.size == 0:
+            triangles = np.zeros((0, 3), np.int32)
+        else:
+            return None
+        point_data = {}
+        pdo = obj.GetPointData()
+        for a in range(int(pdo.GetNumberOfArrays())):
+            arr = pdo.GetArray(a)
+            if arr is None:
+                continue
+            name = pdo.GetArrayName(a) or f"array_{a}"
+            point_data[name] = np.asarray(vtk_to_numpy(arr), np.float32)
+        return TriMesh(points=points, triangles=triangles, point_data=point_data)
+    except Exception:
+        return None
+
+
+def as_trimesh(obj) -> TriMesh:
+    """A :class:`TriMesh` from a mesh-like object: a ``TriMesh`` unchanged,
+    or a live ``vtkPolyData`` (duck-typed on the VTK API, so nothing here
+    imports vtk), its polygons fan-triangulated and its named point-data
+    arrays carried over."""
+    if isinstance(obj, TriMesh):
+        return obj
+    if hasattr(obj, "GetNumberOfPoints") and hasattr(obj, "GetNumberOfCells"):
+        converted = _as_trimesh_vtk_bulk(obj)
+        if converted is not None:
+            return converted
+        n = int(obj.GetNumberOfPoints())
+        points = np.empty((n, 3), np.float32)
+        for i in range(n):
+            points[i] = obj.GetPoint(i)
+        tris = []
+        for c in range(int(obj.GetNumberOfCells())):
+            ids = obj.GetCell(c).GetPointIds()
+            k = int(ids.GetNumberOfIds())
+            for t in range(1, k - 1):  # fan triangulation; k == 3 -> one
+                tris.append((ids.GetId(0), ids.GetId(t), ids.GetId(t + 1)))
+        triangles = np.asarray(tris, np.int32) if tris else np.zeros((0, 3), np.int32)
+        point_data = {}
+        pdo = obj.GetPointData() if hasattr(obj, "GetPointData") else None
+        if pdo is not None:
+            for a in range(int(pdo.GetNumberOfArrays())):
+                arr = pdo.GetArray(a)
+                if arr is None:
+                    continue
+                name = pdo.GetArrayName(a) or f"array_{a}"
+                nt = int(arr.GetNumberOfTuples())
+                nc = int(arr.GetNumberOfComponents())
+                vals = np.empty((nt, nc), np.float32)
+                for t in range(nt):
+                    for cidx in range(nc):
+                        vals[t, cidx] = arr.GetComponent(t, cidx)
+                point_data[name] = vals[:, 0] if nc == 1 else vals
+        return TriMesh(points=points, triangles=triangles, point_data=point_data)
+    raise TypeError(
+        f"cannot interpret {type(obj).__name__!r} as a mesh: expected a "
+        "TriMesh or a vtkPolyData-like object"
     )

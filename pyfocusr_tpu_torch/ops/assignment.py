@@ -1,12 +1,14 @@
-"""Linear assignment on the device.
+"""Linear assignment, on the device and on the host.
 
-Counterpart of ``pyfocusr_tpu/ops/assignment.py``: ``exact_lap_small``
+Counterpart of ``pyfocusr_tpu/ops/assignment.py``: ``lap_host`` (:43, the
+numpy Jonker-Volgenant loop), ``exact_lap_small``
 (:509, the k x k eigsort matching for k <= 8), ``_sinkhorn_duals`` (:214),
 ``_greedy_complete`` (:242), ``_bulk_match`` (:263), ``_jv_device`` (:284)
 and ``sinkhorn_jv_lap`` (:406), the exact solver behind 'hungarian'
 correspondences: annealed-Sinkhorn duals warm-start a Jonker-Volgenant
 solve (tight-edge bulk matching, then one Dijkstra augmentation per row
-still free).
+still free), and the ``linear_sum_assignment`` dispatcher (:540) between
+that solver and ``lap_host``.
 
 The two TPU kernels on that path are CUDA kernels here:
 ``ops/sinkhorn_kernel.py`` (the Sinkhorn dual updates) and
@@ -15,8 +17,8 @@ The two TPU kernels on that path are CUDA kernels here:
 the kernels' plain versions (each wrapper dispatches on where its tensors
 lie; nothing here looks at the device).
 
-Not ported: ``auction_lap`` / ``sinkhorn_auction_lap`` (superseded by JV),
-``lap_host`` and the ``linear_sum_assignment`` dispatcher (class API).
+Not ported: ``auction_lap`` / ``sinkhorn_auction_lap`` (superseded by JV)
+and ``lap_host``'s native C++ fast path (``pyfocusr_tpu/native.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,87 @@ from torch.profiler import record_function
 
 from . import jv_kernel, sinkhorn_kernel
 
-__all__ = ["exact_lap_small", "sinkhorn_jv_lap"]
+__all__ = ["exact_lap_small", "lap_host", "linear_sum_assignment", "sinkhorn_jv_lap"]
+
+
+def lap_host(cost):
+    """Jonker-Volgenant shortest-augmenting-path LAP on the host (numpy,
+    f64).  Returns (row_ind, col_ind) minimizing cost[row_ind,
+    col_ind].sum(), rows in order: the scipy contract.  A cost with more
+    rows than columns is solved transposed."""
+    cost = np.asarray(cost, dtype=np.float64)
+    if not np.isfinite(cost).all():
+        # scipy's contract; a NaN row would never select an augmenting column.
+        raise ValueError("cost matrix contains non-finite entries")
+    n_rows, n_cols = cost.shape
+    if n_rows > n_cols:
+        rows, cols = lap_host(cost.T)
+        order = np.argsort(cols)
+        return cols[order], rows[order]
+
+    u = np.zeros(n_rows + 1)
+    v = np.zeros(n_cols + 1)
+    # p[j]: the row (1-based) matched to column j (1-based); column 0 is virtual.
+    p = np.zeros(n_cols + 1, dtype=np.int64)
+    way = np.zeros(n_cols + 1, dtype=np.int64)
+    for i in range(1, n_rows + 1):
+        p[0] = i
+        j0 = 0
+        minv = np.full(n_cols + 1, np.inf)
+        used = np.zeros(n_cols + 1, dtype=bool)
+        while True:
+            used[j0] = True
+            i0 = p[j0]
+            # Relaxation over the free columns at once.
+            free = ~used[1:]
+            cur = cost[i0 - 1, :] - u[i0] - v[1:]
+            sub = minv[1:]
+            upd = free & (cur < sub)
+            sub[upd] = cur[upd]
+            way[1:][upd] = j0
+            masked = np.where(free, sub, np.inf)
+            j1 = int(np.argmin(masked)) + 1
+            delta = masked[j1 - 1]
+            used_cols = np.where(used)[0]
+            u[p[used_cols]] += delta
+            v[used_cols] -= delta
+            minv[1:][free] -= delta
+            j0 = j1
+            if p[j0] == 0:
+                break
+        while j0 != 0:  # augment along the alternating path
+            j1 = way[j0]
+            p[j0] = p[j1]
+            j0 = j1
+
+    col_ind = np.zeros(n_rows, dtype=np.int64)
+    for j in range(1, n_cols + 1):
+        if p[j] > 0:
+            col_ind[p[j] - 1] = j - 1
+    return np.arange(n_rows), col_ind
+
+
+def linear_sum_assignment(cost, device_threshold: int | None = 0):
+    """(row_ind, col_ind) as numpy arrays, the scipy contract.  A square
+    CUDA tensor of more than ``device_threshold`` rows is solved on the card
+    by :func:`sinkhorn_jv_lap` (the Sinkhorn and JV kernels); numpy arrays,
+    CPU tensors and rectangular costs go to :func:`lap_host`, the
+    counterpart of the JAX package's CPU-backend gate.  The default 0 keeps
+    every square cost that lies on the card there: on an H100 the card's
+    solve takes 1.0-1.2 ms from 2 to 64 rows, so ``lap_host`` is faster
+    only below 64 rows and by under 1 ms, and the card is 5-90x faster
+    from 64 to 2048 rows (``chip_smoke.py``'s ``lap_dispatch`` sweep); the
+    JAX package's 2048, set on a TPU against a native C++ host solver, does
+    not carry over.  ``device_threshold=None`` takes the host at every
+    size."""
+    n_rows, n_cols = cost.shape
+    on_card = torch.is_tensor(cost) and cost.device.type == "cuda"
+    if (device_threshold is None or not on_card or n_rows != n_cols
+            or n_rows <= device_threshold):
+        if torch.is_tensor(cost):
+            cost = cost.detach().cpu().numpy()
+        return lap_host(cost)
+    return np.arange(n_rows), sinkhorn_jv_lap(cost).cpu().numpy()
 
 
 def exact_lap_small(cost: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,10 @@ deformable registration.
 Counterpart of ``pyfocusr_tpu/ops/cpd.py``: ``gaussian_kernel`` (:64),
 ``_estep`` (:69), ``_init_sigma2`` (:93), ``_affine_cpd_run`` (:120),
 ``low_rank_gaussian`` (:198), ``_deformable_cpd_run`` (:266, with
-``estep_impl`` and ``landmarks``) and ``lowrank_transform`` (:387); and of
-``gaussian_matvec_tiled`` (``pyfocusr_tpu/ops/pallas_kernels.py:236``).
-The cycpd-compatible classes (``affine_registration``,
-``deformable_registration``) belong to the class API and are not ported.
+``estep_impl`` and ``landmarks``), ``lowrank_transform`` (:387) and the
+cycpd-compatible classes ``affine_registration`` (:156) and
+``deformable_registration`` (:439); and of ``gaussian_matvec_tiled``
+(``pyfocusr_tpu/ops/pallas_kernels.py:236``).
 
 Kept from the JAX version for f32 reasons:
 
@@ -20,8 +20,9 @@ Two E-steps.  The dense one (``estep_impl="dense"``) materializes P [M, N]
 and leaves the product to ``torch.matmul``; the streamed one
 (``estep_impl="streamed"``) is ``cpd_estep_kernel.estep_for``, the
 hand-written CUDA kernel on a CUDA device and its plain tiled version on
-the CPU, which never forms P.  The pipeline takes the streamed one when
-M N > 3000^2.  Above 8192 control points the Gram of ``low_rank_gaussian``
+the CPU, which never forms P.  The pipeline and the classes take the
+streamed one when M N > 3000^2, the affine run included (the JAX affine
+class is dense at every size).  Above 8192 control points the Gram of ``low_rank_gaussian``
 is applied in row tiles and never formed either.
 
 Both EM loops run on one driver, ``_em_loop``, whose state (the warp, sigma2,
@@ -37,15 +38,20 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..utils import device_loop
+from ..utils.device import resolve_device
 from ..utils.precision import f32_matmuls
 from . import cpd_estep_kernel
 from .cpd_estep_kernel import outlier_constant
 from .knn import pairwise_sq_dists
 
 __all__ = [
+    "affine_registration",
+    "deformable_registration",
+    "omega_draw",
     "gaussian_kernel",
     "gaussian_matvec_tiled",
     "low_rank_gaussian",
@@ -358,3 +364,155 @@ def lowrank_transform(points, Y0, Q, lam, z, beta):
     return torch.cat(
         [move(points[s : s + _TRANSFORM_TILE]) for s in range(0, n, _TRANSFORM_TILE)]
     )
+
+
+# Above this many E-step pairs the classes and the pipeline stream the E-step.
+_STREAM_PAIRS = 3000 * 3000
+
+
+def _estep_route(n_x: int, n_y: int, estep_impl) -> str:
+    """The E-step a class run takes: ``estep_impl`` None picks 'streamed'
+    (the CUDA kernel on the card, its plain tiled version on the CPU) above
+    3000^2 pairs and 'dense' below."""
+    if estep_impl is None:
+        return "streamed" if n_x * n_y > _STREAM_PAIRS else "dense"
+    return estep_impl
+
+
+def _cloud(x, device=None, dtype=torch.float32) -> torch.Tensor:
+    """``x`` as a tensor on ``device``: when None, a tensor's own device,
+    and the CUDA card for arrays (``utils.device.resolve_device``)."""
+    if torch.is_tensor(x):
+        return x.to(device=x.device if device is None else device, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype,
+                        device=resolve_device(None) if device is None else device)
+
+
+def omega_draw(seed: int, M: int, p: int) -> np.ndarray:
+    """The Gram subspace-iteration start of a ``deformable_registration``
+    seeded ``seed``: f32 [M, p] standard normals (the JAX class draws them
+    from ``PRNGKey(seed)``)."""
+    return np.random.default_rng(seed).standard_normal((M, p)).astype(np.float32)
+
+
+class affine_registration:
+    """cycpd-compatible affine CPD moving Y onto X, on the device of X (see
+    ``_cloud``)."""
+
+    def __init__(self, X, Y, max_iterations=100, tolerance=1e-8, w=0.0, **_ignored):
+        self.X = _cloud(X)
+        self.Y = _cloud(Y, self.X.device)
+        self.max_iterations = int(max_iterations)
+        self.tolerance = float(tolerance)
+        self.w = float(w)
+        self.B = None
+        self.t = None
+        self.sigma2 = None
+        self.iterations_run = None
+        self.TY = None
+
+    def register(self):
+        TY, B, t, sigma2, it = _affine_cpd_run(
+            self.X, self.Y, self.max_iterations, self.tolerance, self.w,
+            estep_impl=_estep_route(self.X.shape[0], self.Y.shape[0], None),
+        )
+        self.TY, self.B, self.t = TY, B, t
+        self.sigma2 = float(sigma2)
+        self.iterations_run = int(it)
+        return TY, self.get_registration_parameters()
+
+    def get_registration_parameters(self):
+        """pycpd's convention: the returned B right-multiplies Y (TY = Y B +
+        t); the class keeps its transpose."""
+        return {"B": self.B.T.cpu().numpy(), "t": self.t.cpu().numpy()}
+
+    def transform_point_cloud(self, points):
+        points = _cloud(points, self.X.device)
+        return points @ self.B.T + self.t[None, :]
+
+
+class deformable_registration:
+    """cycpd-compatible low-rank deformable CPD moving Y onto X, on the
+    device of X (see ``_cloud``).  The Gram's ``num_eig`` eigenpairs start
+    from ``omega_draw(seed, M, num_eig + 16)``."""
+
+    def __init__(
+        self,
+        X,
+        Y,
+        num_eig=100,
+        max_iterations=1000,
+        tolerance=1e-8,
+        alpha=0.5,
+        beta=3.0,
+        w=0.0,
+        verbose=False,
+        seed=0,
+        estep_impl=None,  # None: streamed above 3000^2 pairs, else dense
+        landmarks=None,  # (Y_indices [L], fixed_positions [L, D], weights [L])
+        **_ignored,
+    ):
+        self.X = _cloud(X)
+        self.Y = _cloud(Y, self.X.device)
+        self.num_eig = int(min(num_eig, self.Y.shape[0]))
+        self.max_iterations = int(max_iterations)
+        self.tolerance = float(tolerance)
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+        self.w = float(w)
+        self.verbose = verbose
+        self.seed = seed
+        self.estep_impl = _estep_route(self.X.shape[0], self.Y.shape[0], estep_impl)
+        if landmarks is not None:
+            li, lp, lw = landmarks
+            dev = self.X.device
+            landmarks = (_cloud(li, dev, torch.int64), _cloud(lp, dev), _cloud(lw, dev))
+        self.landmarks = landmarks
+        self.z = None
+        self.sigma2 = None
+        self.iterations_run = None
+        self.TY = None
+
+    def register(self):
+        M = self.Y.shape[0]
+        p = min(self.num_eig + 16, M)
+        omega = torch.tensor(omega_draw(self.seed, M, p), device=self.Y.device)
+        self._Q, self._lam = low_rank_gaussian(self.Y, self.beta, self.num_eig, omega)
+        TY, z, sigma2, it = _deformable_cpd_run(
+            self.X, self.Y, self._Q, self._lam, self.alpha, self.max_iterations,
+            self.tolerance, self.w, estep_impl=self.estep_impl,
+            landmarks=self.landmarks,
+        )
+        self.TY, self.z = TY, z
+        self.sigma2 = float(sigma2)
+        self.iterations_run = int(it)
+        if self.verbose:
+            print(f"CPD deformable: {self.iterations_run} iterations, "
+                  f"sigma2={self.sigma2:.3e}")
+        return TY, self.get_registration_parameters()
+
+    @property
+    def W(self):
+        """cycpd's kernel weights (displacement = G(., Y0) @ W), rebuilt from
+        the balanced coefficients z; large for near-singular kernels, where
+        ``transform_point_cloud`` is the stable evaluation."""
+        if self.z is None:
+            return None
+        sqrt_lam = torch.sqrt(self._lam)
+        safe = torch.clamp(sqrt_lam, min=torch.finfo(torch.float32).tiny)
+        wt = torch.where(sqrt_lam[:, None] > 0, self.z / safe[:, None],
+                         torch.zeros_like(self.z))
+        return self._Q @ wt
+
+    def get_registration_parameters(self):
+        return {
+            "W": self.W.cpu().numpy(),
+            "z": self.z.cpu().numpy(),
+            "beta": self.beta,
+            "Y0": self.Y.cpu().numpy(),
+        }
+
+    def transform_point_cloud(self, points):
+        """The fitted field applied out of sample (``lowrank_transform``)."""
+        return lowrank_transform(_cloud(points, self.X.device), self.Y, self._Q,
+                                 self._lam, self.z, self.beta)

@@ -2,8 +2,8 @@
 
 Counterpart of ``pyfocusr_tpu/ops/graph_ops.py``: ``edge_weights`` (:49),
 ``overflow_weights`` (:68), ``degree_vector`` (:80), ``spmv`` (:88),
-``mean_filter`` (:109), ``g_vector`` (:131), ``sym_laplacian_matvec``
-(:215), ``sym_laplacian_quad_form`` (:237), ``_chebyshev_power_coeffs``
+``mean_filter`` (:109), ``g_vector`` (:131), ``laplacian_matvec`` (:197),
+``sym_laplacian_matvec`` (:215), ``sym_laplacian_quad_form`` (:237), ``_chebyshev_power_coeffs``
 (:261) and ``mean_filter_chebyshev`` (:279).
 
 The graph is (neighbors int64 [N, D], weights f32 [N, D]) with padding
@@ -30,6 +30,7 @@ __all__ = [
     "mean_filter",
     "mean_filter_chebyshev",
     "g_vector",
+    "laplacian_matvec",
     "sym_laplacian_matvec",
     "sym_laplacian_quad_form",
 ]
@@ -138,6 +139,16 @@ def g_vector(node_features, degrees, feature_weights, p_function: str = "exp",
         g = g + gk * scaling
     g = g / k_features
     return g * d_inv
+
+
+def laplacian_matvec(neighbors, weights, g, x, overflow=None, ov_w=None,
+                     degrees=None):
+    """L x = g * (d * x - W x), the non-symmetric L = G (D - W), for x of
+    shape [N] or [N, C]."""
+    d = degrees if degrees is not None else degree_vector(weights, overflow, ov_w)
+    if x.dim() == 1:
+        return g * (d * x - spmv(neighbors, weights, x, overflow, ov_w))
+    return g[:, None] * (d[:, None] * x - spmv(neighbors, weights, x, overflow, ov_w))
 
 
 def sym_laplacian_matvec(neighbors, weights, g, x, overflow=None, ov_w=None,

@@ -3,9 +3,10 @@ template serving.
 
 Counterpart of ``pyfocusr_tpu/pipeline.py``: ``PipelineConfig`` (:74),
 ``GraphArrays`` (:292), ``mesh_to_graph_arrays`` (:349, unpadded, no
-patch plan), ``_masked_minmax_norm`` (:483), ``_spectrum`` (:495, the wide
-Chebyshev path with the plain ELL filter operator of :590-605, and the
-feature branches of :511-541), ``_normed`` (:702),
+patch plan), ``_masked_minmax_norm`` (:483), ``_spectrum`` (:495: the wide
+Chebyshev path with the plain ELL filter operator of :590-605, the narrow
+Chebyshev and shift-invert Lanczos paths of :623-650, and the feature
+branches of :511-541), ``_normed`` (:702),
 ``landmark_pairs_from_positions`` (:709), ``_warm_supported`` (:790),
 ``_warm_x0`` (:801), ``register_pair`` (:842), the serving entry points
 (:915-1376: ``warm_block_from_prepared``, ``prepare_target``,
@@ -45,9 +46,8 @@ comparable.
 The JAX package's split-spectra path (``_want_split``, :822-840: above
 65000 vertices each eigensolve is compiled as its own program) works
 around XLA's schedule on a TPU and is not ported: without it every entry
-point computes the same values.  Configurations that are not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item: ``eig_method``
-other than 'chebyshev', meshes under 2048 vertices and padded graphs.
+point computes the same values.  Padded graphs are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ from .mesh import TriMesh, build_topology
 from .ops import cpd as cpd_ops
 from .ops import graph_ops
 from .ops.assignment import sinkhorn_jv_lap
-from .ops.eigen import chebyshev_eigpairs_wide
+from .ops.eigen import chebyshev_eigpairs_wide, narrow_or_lanczos
 from .ops.icp import apply_rigid
 from .ops.icp import icp as icp_fit
 from .ops.knn import (
@@ -284,15 +284,21 @@ def graph_arrays_from_numpy(d, device=None) -> GraphArrays:
 
 
 def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
-                         device=None) -> GraphArrays:
+                         device=None, topology=None) -> GraphArrays:
     """Build the pipeline tensors of one mesh on ``device``, the CUDA card
     by default (see ``utils.device.resolve_device``); unpadded, ELL degree capped at
     24 with hub overflow edges.  ``null_indicators``
     holds one indicator column per connected component (the Laplacian
     kernel the eigensolver deflates).  ``node_features``: optional per-vertex
-    features, [N], [N, K] or [K, N] (the JAX package's rules, :413-420)."""
+    features, [N], [N, K] or [K, N] (the JAX package's rules, :413-420).
+    ``topology``: the mesh's ``build_topology`` result, when the caller
+    already has it."""
     n = mesh.n_points
-    topo = build_topology(np.asarray(mesh.triangles), n)
+    topo = topology if topology is not None else build_topology(
+        np.asarray(mesh.triangles), n)
+    points = mesh.points
+    if torch.is_tensor(points):
+        points = points.detach().cpu().numpy()
     indicators = np.zeros((n, max(topo.n_components, 1)), np.float32)
     indicators[np.arange(n), topo.component_labels] = 1.0
     if node_features is None:
@@ -305,7 +311,7 @@ def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
             feats = feats.T
     return graph_arrays_from_numpy(
         {
-            "points": np.asarray(mesh.points, np.float32),
+            "points": np.asarray(points, np.float32),
             "neighbors": topo.neighbors,
             "nbr_mask": topo.nbr_mask,
             "valid_mask": np.ones((n,), np.float32),
@@ -326,16 +332,49 @@ def _masked_minmax_norm(vecs, mask):
     return out * mask[:, None]
 
 
+# Columns the narrow solver adds to the k wanted ones (the JAX default).
+_NARROW_EXTRA = 8
+
+
+def _solver(cfg: PipelineConfig, n_points: int) -> str:
+    """The eigensolver a mesh of ``n_points`` vertices takes: 'wide' (the
+    default 'chebyshev' from 2048 vertices), 'narrow' ('chebyshev-narrow',
+    or 'chebyshev' below 2048) or 'lanczos'."""
+    if cfg.eig_method == "lanczos":
+        return "lanczos"
+    if cfg.eig_method == "chebyshev" and n_points >= 2048:
+        return "wide"
+    return "narrow"
+
+
+def _start_width(cfg: PipelineConfig, n_points: int) -> int:
+    """Columns of a solve's random start: the wide block, the narrow block
+    (k + 8), or Lanczos's power-iteration and start vectors (2)."""
+    return {"wide": cfg.eig_wide_block, "narrow": cfg.n_total + _NARROW_EXTRA,
+            "lanczos": 2}[_solver(cfg, n_points)]
+
+
 def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
               x0=None, return_block: bool = False, chunks: int = None,
               extra_chunks: int = 0, degree: int = None, generator=None):
     """k smallest nonzero Laplacian eigenpairs of one mesh, eigvecs min-max
-    normalized to [-0.5, 0.5], by the wide Chebyshev solver with the fused
-    ELL filter step.  ``include_features_in_adj_matrix`` builds the edge
-    weights on xyz and the node features, ``use_features_in_graph`` takes G
-    from the features (``graph_ops.g_vector``).  Returns
-    (lams, vecs, (w, overflow, ov_w)) and, with ``return_block``, the final
-    filtered block."""
+    normalized to [-0.5, 0.5], by the solver :func:`_solver` picks: the wide
+    Chebyshev solver with the fused ELL filter step, the narrow one, or
+    shift-invert Lanczos.  ``init_block``: the solve's random start, [N,
+    :func:`_start_width`] (for Lanczos the power-iteration vector, then the
+    start vector).  ``x0``, ``return_block``, ``chunks`` and ``degree``
+    exist on the wide path only, as in the JAX package.
+    ``include_features_in_adj_matrix`` builds the edge weights on xyz and
+    the node features, ``use_features_in_graph`` takes G from the features
+    (``graph_ops.g_vector``).  Returns (lams, vecs, (w, overflow, ov_w))
+    and, with ``return_block``, the final filtered block."""
+    solver = _solver(cfg, graph.n_points)
+    if solver != "wide" and (return_block or x0 is not None or chunks is not None
+                             or degree is not None):
+        raise ValueError(
+            "return_block/x0/chunks/degree need the wide Chebyshev "
+            "path (eig_method='chebyshev', n_points >= 2048)"
+        )
     mask = graph.valid_mask
     nbrs = graph.neighbors
     feats = graph.node_features
@@ -382,6 +421,16 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
     # Gershgorin bound of A = S(D-W)S: max_i s_i (s_i d_i + (W s)_i).
     ws = graph_ops.spmv(nbrs, w, s, ov, ov_w)
     lam_bound = (mask * s * (s * d + ws)).max()
+    if solver in ("narrow", "lanczos"):
+        solver_kw = (dict(cg_iters=cfg.eig_cg_iters, lanczos_iters=cfg.eig_lanczos_iters)
+                     if solver == "lanczos" else
+                     dict(block_extra=_NARROW_EXTRA, degree=cfg.eig_cheb_degree,
+                          sweeps=cfg.eig_cheb_sweeps, refine_cg_iters=cfg.eig_cheb_refine_cg))
+        lams, vecs = narrow_or_lanczos(
+            solver, matvec, quad_form, s, null_basis, k,
+            _tensor_to(init_block, graph.device), lam_bound, subspace_mask=mask,
+            **solver_kw)
+        return lams, _masked_minmax_norm(vecs, mask), (w, ov, ov_w)
     # Fused filter operator: sw_ij = s_i w_ij s_j and s_i^2 d_i precomputed,
     # so a step is one gather-einsum, one elementwise op and the overflow add.
     sw = s[:, None] * w * s[nbrs]
@@ -494,11 +543,19 @@ def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
     cpd_target       int64 [n_reg - n_landmarks]  rows of the target
                                      spectral cloud (Y) after the landmark
                                      rows of ``landmark_pairs``
-    eig_block_target f32 [N_t, eig_wide_block]  initial eigensolver block
-    eig_block_source f32 [N_s, eig_wide_block]  only when the source solve
-                                                 is not warm-started, or
-                                                 with ``source_block``
+    eig_block_target f32 [N_t, eig_wide_block]  initial block of a wide
+                                                 eigensolve
+    eig_block_source f32 [N_s, eig_wide_block]  only when the source's wide
+                                                 solve is not warm-started,
+                                                 or with ``source_block``
     cpd_omega        f32 [n_reg, p]  Gram subspace-iteration start
+    eig_start_target f32 [N_t, w]  start of a narrow (w = k + 8) or
+    eig_start_source f32 [N_s, w]  Lanczos (w = 2: the power-iteration
+                                   vector, then the Lanczos start) solve
+
+Each ``eig_*`` draw is made only for a mesh whose solve reads it; the
+narrow and Lanczos starts come after every other draw, so a wide-path
+configuration draws the same values as before they existed.
 
     The serving entry points read: :func:`prepare_target` the
     ``eig_block_target`` draw, :func:`prepare_source` the
@@ -518,19 +575,27 @@ def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
     n_reg = min(cfg.n_coords_spectral_registration, n_target, n_source)
     draws["cpd_source"] = _choice(rng, n_source, n_reg)
     draws["cpd_target"] = _choice(rng, n_target, n_reg - n_landmarks)
-    draws["eig_block_target"] = rng.standard_normal(
-        (n_target, cfg.eig_wide_block)
-    ).astype(np.float32)
-    if not _warm_supported(cfg, n_target, n_source):
+    wide_t = _solver(cfg, n_target) == "wide"
+    wide_s = _solver(cfg, n_source) == "wide"
+    if wide_t:
+        draws["eig_block_target"] = rng.standard_normal(
+            (n_target, cfg.eig_wide_block)
+        ).astype(np.float32)
+    if wide_s and not _warm_supported(cfg, n_target, n_source):
         draws["eig_block_source"] = rng.standard_normal(
             (n_source, cfg.eig_wide_block)
         ).astype(np.float32)
     p = min(min(cfg.non_rigid_n_eigens, n_reg) + 16, n_reg)
     draws["cpd_omega"] = rng.standard_normal((n_reg, p)).astype(np.float32)
-    if source_block and "eig_block_source" not in draws:
+    if source_block and wide_s and "eig_block_source" not in draws:
         draws["eig_block_source"] = rng.standard_normal(
             (n_source, cfg.eig_wide_block)
         ).astype(np.float32)
+    for side, n, wide in (("target", n_target, wide_t), ("source", n_source, wide_s)):
+        if not wide:
+            draws[f"eig_start_{side}"] = rng.standard_normal(
+                (n, _start_width(cfg, n))
+            ).astype(np.float32)
     return draws
 
 
@@ -571,14 +636,8 @@ def _n_reg(cfg: PipelineConfig, target: GraphArrays, source: GraphArrays) -> int
                source.n_points)
 
 
-def _check_graph(graph: GraphArrays, name: str, cfg: PipelineConfig):
-    """The configurations whose solver is not ported yet raise."""
-    if cfg.eig_method != "chebyshev":
-        raise _not_ported(f"eig_method={cfg.eig_method!r}", "3")
-    if graph.n_points < 2048:
-        raise _not_ported(
-            f"a {name} mesh under 2048 vertices (narrow Chebyshev solver)", "3"
-        )
+def _check_graph(graph: GraphArrays, name: str):
+    """Padded graphs are not ported yet and raise."""
     if not bool((graph.valid_mask > 0).all()):
         raise _not_ported(f"a padded {name} graph", "6")
 
@@ -608,7 +667,7 @@ def _check_supported(target: GraphArrays, source: GraphArrays,
             f"({n_fs}) dont match!"
         )
     for graph, name in ((target, "target"), (source, "source")):
-        _check_graph(graph, name, cfg)
+        _check_graph(graph, name)
 
 
 def _warm_block_to(warm_block, device):
@@ -759,12 +818,32 @@ def warm_block_from_prepared(prep, template: GraphArrays = None):
 
 
 def _init_block(init_block, graph: GraphArrays, cfg: PipelineConfig, generator):
-    """The eigensolve's initial block on the graph's device: the caller's
+    """The eigensolve's random start on the graph's device: the caller's
     draw, or standard normals from ``generator``."""
     if init_block is None:
-        init_block = torch.randn((graph.n_points, cfg.eig_wide_block),
-                                 generator=generator, device=generator.device)
+        init_block = torch.randn(
+            (graph.n_points, _start_width(cfg, graph.n_points)),
+            generator=generator, device=generator.device)
     return _tensor_to(init_block, graph.device)
+
+
+def _keeps_block(cfg: PipelineConfig, graph: GraphArrays) -> bool:
+    """Whether a prepared solve keeps its filtered block (the JAX gates of
+    ``pipeline.py:977, 1099-1102``): the warm start on, on the wide path."""
+    return cfg.eig_warm_start and _solver(cfg, graph.n_points) == "wide"
+
+
+def _start(draws, side: str, cfg: PipelineConfig, graph: GraphArrays):
+    """A side's cold-solve start from ``draws``: ``eig_block_<side>`` on the
+    wide path, ``eig_start_<side>`` on the others."""
+    name = ("eig_block_" if _solver(cfg, graph.n_points) == "wide"
+            else "eig_start_") + side
+    if name not in draws:
+        raise ValueError(
+            f"the {side} eigensolve runs cold here: draws need {name!r}, see "
+            "make_draws (with source_block=True for a wide source block)"
+        )
+    return draws[name]
 
 
 def _smooth_fn(cfg: PipelineConfig):
@@ -788,8 +867,9 @@ def prepare_target(target: GraphArrays, cfg: PipelineConfig, init_block=None,
     Pass it to :func:`register_pair_prepared`; persist it with
     :func:`save_prepared_target`.
 
-    ``init_block``: the eigensolve's initial block, ``make_draws(...)
-    ["eig_block_target"]`` (standard normals from ``generator``, a fresh
+    ``init_block``: the eigensolve's random start, ``make_draws(...)
+    ["eig_block_target"]`` on the wide path, ``["eig_start_target"]`` on
+    the narrow or Lanczos one (standard normals from ``generator``, a fresh
     one seeded 0, when None).  With the same draws,
     ``register_pair_prepared(prepare_target(t, cfg, draws["eig_block_target"]),
     t, s, cfg, draws=draws)`` equals ``register_pair(t, s, cfg,
@@ -797,14 +877,14 @@ def prepare_target(target: GraphArrays, cfg: PipelineConfig, init_block=None,
 
     ``warm_block``: a class-template seed from
     :func:`warm_block_from_prepared`; this solve then starts warm and runs
-    the truncated schedule.  ``icp_reg_target_to_source=True`` moves the
-    target per pair and is rejected."""
+    the truncated schedule (wide path only).  ``icp_reg_target_to_source=True``
+    moves the target per pair and is rejected."""
     if cfg.icp_register_first and cfg.icp_reg_target_to_source:
         raise ValueError(
             "prepare_target requires a fixed target; "
             "icp_reg_target_to_source=True moves the target per pair"
         )
-    _check_graph(target, "target", cfg)
+    _check_graph(target, "target")
     if warm_block is not None:
         warm_block = _warm_block_to(warm_block, target.device)
     if generator is None:
@@ -818,7 +898,7 @@ def _prepare_target(target, cfg, init_block, warm_block, generator):
     k_total = cfg.n_total
     blk = None
     with record_function("prepare_target/spectra"):
-        if cfg.eig_warm_start:
+        if _keeps_block(cfg, target):
             x0, sched = None, {}
             if warm_block is not None:
                 x0 = _warm_x0(warm_block["block"], warm_block["points"],
@@ -880,8 +960,9 @@ def prepare_source(source: GraphArrays, cfg: PipelineConfig, init_block=None,
     cohort direction of template serving, one template as the source
     (``pyfocusr_tpu/pipeline.py:1145-1173``).  The solve runs cold from
     ``init_block`` (``make_draws(..., source_block=True)
-    ["eig_block_source"]``; standard normals from ``generator`` when None)
-    and keeps its filtered block when ``eig_warm_start`` is on.
+    ["eig_block_source"]`` on the wide path, ``["eig_start_source"]`` on the
+    others; standard normals from ``generator`` when None) and keeps its
+    filtered block when ``eig_warm_start`` is on and the solve is wide.
 
     With ``icp_register_first=False`` and ``eig_warm_start=False`` and the
     same draws, :func:`register_pair_prepared_source` equals
@@ -895,7 +976,7 @@ def prepare_source(source: GraphArrays, cfg: PipelineConfig, init_block=None,
             "per pair rescales the smoothing operator. Use rigid ICP, "
             "icp_reg_target_to_source=True, or icp_register_first=False."
         )
-    _check_graph(source, "source", cfg)
+    _check_graph(source, "source")
     if generator is None:
         generator = torch.Generator(device=source.device).manual_seed(0)
     init_block = _init_block(init_block, source, cfg, generator)
@@ -905,7 +986,7 @@ def prepare_source(source: GraphArrays, cfg: PipelineConfig, init_block=None,
 @f32_matmuls
 def _prepare_source(source, cfg, init_block, generator):
     with record_function("prepare_source/spectra"):
-        if cfg.eig_warm_start:
+        if _keeps_block(cfg, source):
             lams, vecs, w, blk = _spectrum(source, cfg.n_total, cfg, init_block,
                                            return_block=True, generator=generator)
             return {"lams": lams, "vecs": vecs, "w": w, "block": blk}
@@ -1166,7 +1247,8 @@ def _register_pair(target, source, cfg, generator, draws, stage,
             )
         else:
             lams_t, vecs_t, w_t = _spectrum(
-                target, k_total, cfg, draws["eig_block_target"], generator=generator
+                target, k_total, cfg, _start(draws, "target", cfg, target),
+                generator=generator,
             )
     else:
         lams_t, vecs_t, w_t = pre["lams"], pre["vecs"], pre["w"]
@@ -1180,14 +1262,9 @@ def _register_pair(target, source, cfg, generator, draws, stage,
                 generator=generator, **_warm_schedule(cfg),
             )
         else:
-            if "eig_block_source" not in draws:
-                raise ValueError(
-                    "the source eigensolve runs cold here (no target block to "
-                    "start from): draws need 'eig_block_source', see "
-                    "make_draws(..., source_block=True)"
-                )
             lams_s, vecs_s, w_s = _spectrum(
-                source, k_total, cfg, draws["eig_block_source"], generator=generator
+                source, k_total, cfg, _start(draws, "source", cfg, source),
+                generator=generator,
             )
     else:
         lams_s, vecs_s, w_s = pre_src["lams"], pre_src["vecs"], pre_src["w"]
@@ -1268,7 +1345,7 @@ def _register_pair(target, source, cfg, generator, draws, stage,
     else:
         Y = tgt_coords[draws["cpd_target"]]
     # Above 3000^2 pairs the responsibilities are streamed, never formed.
-    estep_impl = "streamed" if n_reg * n_reg > 3000 * 3000 else "dense"
+    estep_impl = cpd_ops._estep_route(n_reg, n_reg, None)
     if cfg.rigid_before_non_rigid_reg:
         _, B, t_vec, _, _ = cpd_ops._affine_cpd_run(
             X, Y, cfg.rigid_reg_max_iterations, cfg.rigid_tolerance,
