@@ -42,7 +42,14 @@ after:
   'hungarian' correspondences at 642 and 2562 (lse and JV; the objective
   against ``lap_host``'s) and ``linear_sum_assignment`` on the card against
   ``lap_host`` from 2 to 2048 rows; the narrow solver at 642 and 2562 and Lanczos at 2562
-  through ``register_pair``, each solve timed; CUDA against CPU at 2562.
+  through ``register_pair``, each solve timed; CUDA against CPU at 2562;
+* multi-resolution registration (``multires``): ``register_pair_multires``
+  on the pair subdivided to 655362 vertices (coarse_n 12000, one jump) with
+  stage checkpoints, resumed from them bit for bit, and split by stage;
+  both routes of its refine's k=3 query (the voxel grid and the k-NN
+  kernel) on the refine's own inputs, bit-equal and timed, as at 40962 (a
+  pair registered through intermediate levels, level_ratio 4) and 163842;
+  CUDA against CPU at 10242 with the same coarse draws.
 
 Every CPD EM loop and every ICP on the card runs as one captured iteration
 replayed as a CUDA graph, the host reading the stop flag every 8
@@ -238,6 +245,18 @@ FEATURE_CHECK_TOLERANCE = 1e-6
 # card against ``lap_host`` (its default sends every square CUDA cost to
 # the card).
 LAP_DISPATCH_SIZES = (2, 4, 16, 64, 256, 642, 2048)
+# The multires phase: the synthetic pair subdivided 8 times (655362
+# vertices) with JAX's default coarse_n; a 40962 pair (6) whose coarse_n and
+# level_ratio 4 insert intermediate levels; both k-NN routes at 163842 (7);
+# CUDA against CPU at 10242 (5) with coarse_n 2562, CPD stopping at 1e-6 as
+# in the feature flags' check.
+MULTIRES_LEVELS = 8
+MULTIRES_COARSE_N = 12000
+MULTIRES_MULTI_LEVELS = 6
+MULTIRES_MULTI_COARSE_N = 2500
+MULTIRES_ROUTE_LEVELS = 7
+MULTIRES_CHECK_COARSE_N = 2562
+MULTIRES_CHECK_TOLERANCE = FEATURE_CHECK_TOLERANCE
 
 
 def emit(obj):
@@ -2023,6 +2042,354 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
     return fr_launches, rd_launches, est_results, loop_results
 
 
+class MultiresSplit:
+    """Times the stages of ``register_pair_multires`` while installed, by
+    wrapping the names ``multires.py`` calls.  Each call is fenced by
+    ``sync`` before and after: its host seconds run to the call's return,
+    its wall seconds to the fence after it (the difference is the device's
+    tail).  Also keeps the decimations' sizes (mesh vertices, target,
+    result) and the k=3 query's inputs and route."""
+
+    STAGES = {"build_topology": "topology", "decimate": "decimation",
+              "register_pair": "coarse_register_pair",
+              "mesh_to_graph_arrays": "graph_build", "_smooth": "smoothing",
+              "knn3_masked": "knn3", "idw_from_knn": "idw"}
+
+    def __init__(self, torch, tp, device):
+        from pyfocusr_tpu_torch import multires
+
+        self.torch, self.tp, self.device, self.mod = torch, tp, device, multires
+        self.real = {name: getattr(multires, name) for name in self.STAGES}
+        self.calls = []  # (stage, host_s, wall_s)
+        self.decimations = []  # (mesh vertices, target_n, coarse vertices)
+        self.knn3 = None
+        self.coarse = None  # the coarsest register_pair's (target, source, result)
+        self.refine_args = None  # the last _refine_fine_level's arguments
+
+    def _wrap(self, name):
+        real = self.real[name]
+
+        def timed_call(*args, **kwargs):
+            sync(self.torch, self.device)
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            t1 = time.perf_counter()
+            sync(self.torch, self.device)
+            self.calls.append((self.STAGES[name], t1 - t0, time.perf_counter() - t0))
+            if name == "decimate":
+                self.decimations.append((args[0].n_points, args[1], out[0].n_points))
+            if name == "knn3_masked":
+                self.knn3 = {"inputs": args, "route": knn3_route(self.torch, args[0],
+                                                                 args[2])}
+            if name == "register_pair":
+                self.coarse = (args[0], args[1], out)
+            return out
+
+        return timed_call
+
+    def __enter__(self):
+        for name in self.STAGES:
+            setattr(self.mod, name, self._wrap(name))
+        real_refine = self.real_refine = self.mod._refine_fine_level
+
+        def refine(*args, **kwargs):
+            self.refine_args = args
+            return real_refine(*args, **kwargs)
+
+        self.mod._refine_fine_level = refine
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.mod, name, real)
+        self.mod._refine_fine_level = self.real_refine
+
+    def coarse_quality(self):
+        """``registration_quality`` of the coarsest ``register_pair`` on its
+        own graphs."""
+        tg, sg, res = self.coarse
+        return self.tp.registration_quality(tg.points, sg.points, res)
+
+    def summary(self, total_s):
+        """Seconds by stage (the two smoothings apart), their sum and the
+        unattributed rest of ``total_s``."""
+        out, smooth = {}, 0
+        for stage, host_s, wall_s in self.calls:
+            if stage == "smoothing":
+                stage = ("smoothing_target", "smoothing_projection")[smooth % 2]
+                smooth += 1
+            rec = out.setdefault(stage, {"host_s": 0.0, "wall_s": 0.0, "calls": 0})
+            rec["host_s"] += host_s
+            rec["wall_s"] += wall_s
+            rec["calls"] += 1
+        attributed = sum(r["wall_s"] for r in out.values())
+        return {"stages": out, "total_s": total_s,
+                "unattributed_s": total_s - attributed}
+
+
+def knn3_route(torch, ref, query):
+    """The route the k=3 query of ``ref`` x ``query`` takes: the decision of
+    ``ops/knn.py`` and, in the race band, the recorded winner (None before
+    the first race of its bucket)."""
+    from pyfocusr_tpu_torch.ops import knn as knn_ops
+    from pyfocusr_tpu_torch.ops import knn_routing
+
+    decision = knn_ops._grid_decision(ref, query, 3)
+    out = {"decision": decision, "pairs": float(ref.shape[0]) * query.shape[0]}
+    if decision == "race":
+        bucket = knn_routing.bucket_key(query.shape[0], ref.shape[0], 3)
+        out["bucket"] = bucket
+        out["recorded"] = knn_routing._load(knn_routing.cache_file(ref.device)).get(bucket)
+    return out
+
+
+def knn3_routes(torch, ref_positions, ref_mask, query, reps=3):
+    """Both routes of ``knn3_masked`` on the same inputs: the grid
+    (``grid_knn.knn_grid``) and the brute-force kernel, each called once to
+    warm up and then ``reps`` times, wall seconds fenced by
+    ``torch.cuda.synchronize``; bit-equal distances and indices; the grid's
+    ``last_stats``."""
+    from pyfocusr_tpu_torch.ops import grid_knn, knn_kernel
+    from pyfocusr_tpu_torch.ops.knn import SENTINEL
+
+    device = query.device
+    ref = torch.where(ref_mask[:, None] > 0, ref_positions,
+                      torch.full_like(ref_positions, SENTINEL)).float().contiguous()
+    query = query.float().contiguous()
+    routes = {"grid": lambda: grid_knn.knn_grid(ref, query, 3),
+              "brute": lambda: knn_kernel.knn(ref, query, 3)}
+    out, results = {"n_ref": ref.shape[0], "n_query": query.shape[0],
+                    "pairs": float(ref.shape[0]) * query.shape[0]}, {}
+    for name, fn in routes.items():
+        fn()
+        times = []
+        for _ in range(reps):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            results[name] = fn()
+            sync(torch, device)
+            times.append(time.perf_counter() - t0)
+        out[f"{name}_s"] = statistics.median(times)
+        out[f"{name}_s_all"] = times
+        if name == "grid":
+            out["grid_stats"] = dict(grid_knn.last_stats)
+    (gd, gi), (bd, bi) = results["grid"], results["brute"]
+    out["bit_equal"] = bool(torch.equal(gd, bd) and torch.equal(gi, bi))
+    out["brute_over_grid"] = out["brute_s"] / out["grid_s"]
+    return out
+
+
+def outputs_equal(torch, a, b):
+    """Whether two result dicts hold the same keys and equal tensors."""
+    return set(a) == set(b) and not outputs_differ(torch, a, b)
+
+
+def phase_multires(torch, tp, kernels, smi, device="cuda", levels=MULTIRES_LEVELS,
+                   coarse_n=MULTIRES_COARSE_N, multi_levels=MULTIRES_MULTI_LEVELS,
+                   route_levels=MULTIRES_ROUTE_LEVELS, check_levels=CPU_CHECK_LEVELS + 1,
+                   cpu_check=True):
+    """``register_pair_multires`` on the synthetic pair at ``levels`` (655362
+    vertices at 8) under the 'kd' configuration: a first call writing
+    checkpoints (a fresh checkpoint directory and routing record), a second
+    call resuming from them (bit-equal; the stages served observed through
+    ``StageCheckpointer.load``), a third without checkpoints split by stage;
+    both routes of the refine's k=3 query on its own inputs, bit-equal and
+    timed.  Then a multi-level run (``multi_levels``, level_ratio 4), both
+    routes at ``route_levels`` (the refine's inputs and the source's points
+    against the target's), and CUDA against CPU at ``check_levels`` with the
+    same coarse draws.  The phase's line is printed before its gates are
+    read.  Returns the first call's launches."""
+    from pyfocusr_tpu_torch import multires
+    from pyfocusr_tpu_torch.utils.checkpoint import StageCheckpointer
+
+    t_phase = time.perf_counter()
+    gates = []  # (ok, what), read after the line is printed
+    cfg = tp.PipelineConfig(**BENCH_CFG)
+    target = synthetic_bone(tp, 2, levels)
+    source = synthetic_bone(tp, 1, levels)
+    n_s = source.n_points
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(0)
+
+    served = []
+    real_load = StageCheckpointer.load
+
+    def spy_load(self, stage):
+        val = real_load(self, stage)
+        if val is not None:
+            served.append(stage)
+        return val
+
+    saved_cal = os.environ.get("PYFOCUSR_TPU_CAL_DIR")
+    with tempfile.TemporaryDirectory() as ck, tempfile.TemporaryDirectory() as cal:
+        os.environ["PYFOCUSR_TPU_CAL_DIR"] = cal
+        try:
+            sync(torch, device)
+            for mod in kernels.values():
+                mod.LAUNCHES = 0
+            t0 = time.perf_counter()
+            with MultiresSplit(torch, tp, device) as first_split:
+                fine, coarse = tp.register_pair_multires(
+                    target, source, cfg, gen(), coarse_n=coarse_n,
+                    checkpoint_dir=ck, device=device)
+            sync(torch, device)
+            first_s = time.perf_counter() - t0
+            launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+            stage_files = sorted(os.listdir(ck))
+            StageCheckpointer.load = spy_load
+            try:
+                t0 = time.perf_counter()
+                fine2, coarse2 = tp.register_pair_multires(
+                    target, source, cfg, gen(), coarse_n=coarse_n,
+                    checkpoint_dir=ck, device=device)
+                sync(torch, device)
+                resume_s = time.perf_counter() - t0
+            finally:
+                StageCheckpointer.load = real_load
+            t0 = time.perf_counter()
+            with MultiresSplit(torch, tp, device) as split:
+                fine3, _ = tp.register_pair_multires(
+                    target, source, cfg, gen(), coarse_n=coarse_n, device=device)
+            sync(torch, device)
+            third = split.summary(time.perf_counter() - t0)
+            routes = knn3_routes(torch, *split.knn3["inputs"])
+            q = quality_and_checks(tp, target, source, fine, n_s, min_unique=None)
+        finally:
+            if saved_cal is None:
+                os.environ.pop("PYFOCUSR_TPU_CAL_DIR", None)
+            else:
+                os.environ["PYFOCUSR_TPU_CAL_DIR"] = saved_cal
+    if torch.device(device).type == "cuda":
+        gates.append((launches["knn"] > 0 and launches["umeyama3"] > 0,
+                      f"register_pair_multires launched no k-NN or close kernel: {launches}"))
+    staged = 0 < multires._STAGED_REFINE_N <= max(target.n_points, n_s)
+    want = ["coarse"] + (["refine_projected", "refine_smoothed_target"] if staged else [])
+    gates += [
+        (q["unique_fraction"] > 0.6, f"unique fraction {q['unique_fraction']}"),
+        (sorted(served) == want, f"stages served on resume: {served}, expected {want}"),
+        (outputs_equal(torch, fine, fine2) and outputs_equal(torch, coarse, coarse2),
+         "the resumed call differs from the first"),
+        (outputs_equal(torch, fine, fine3), "the call without checkpoints differs"),
+        (routes["bit_equal"], "knn3 grid and brute routes differ on the refine's inputs"),
+    ]
+    main = {
+        "n_target": target.n_points, "n_source": n_s, "coarse_n": coarse_n,
+        "levels": first_split.decimations, "first_call_s": first_s,
+        "first_call_split": first_split.summary(first_s),
+        "knn3_route_first_call": first_split.knn3["route"],
+        "stage_files": stage_files, "resume_s": resume_s, "served": served,
+        "third_call": third, "knn3_route": split.knn3["route"],
+        "knn3_routes_refine_inputs": routes, "launches": launches, "quality": q,
+        "coarse_quality": split.coarse_quality(),
+    }
+    del fine, fine2, fine3, coarse, coarse2, split, first_split
+
+    # --- Multi-level: level_ratio 4 inserts intermediate levels.
+    mt = synthetic_bone(tp, 2, multi_levels)
+    ms = synthetic_bone(tp, 1, multi_levels)
+    t0 = time.perf_counter()
+    with MultiresSplit(torch, tp, device) as ml_split:
+        ml_fine, _ = tp.register_pair_multires(
+            mt, ms, cfg, gen(), coarse_n=MULTIRES_MULTI_COARSE_N, level_ratio=4.0,
+            device=device)
+    ml_s = time.perf_counter() - t0
+    ml_q = quality_and_checks(tp, mt, ms, ml_fine, ms.n_points, min_unique=None)
+    solves = [c for c in ml_split.calls if c[0] == "coarse_register_pair"]
+    # Two decimations a level (target, then source): the target's sizes.
+    ml_levels = [mt.n_points] + [d[2] for d in ml_split.decimations[0::2]]
+    gates += [
+        (len(solves) == 1 and len(ml_split.decimations) >= 4,
+         f"level_ratio 4 inserted no intermediate level: {ml_split.decimations}"),
+        (ml_q["unique_fraction"] > 0.6, f"multi-level unique fraction {ml_q['unique_fraction']}"),
+    ]
+    ml_routes = knn3_routes(torch, *ml_split.knn3["inputs"])
+    gates.append((ml_routes["bit_equal"],
+                  f"knn3 grid and brute routes differ at {mt.n_points}"))
+    multi = {"n": mt.n_points, "decimations": ml_split.decimations,
+             "target_levels": ml_levels, "seconds": ml_s, "quality": ml_q,
+             "knn3_route": ml_split.knn3["route"], "knn3_routes_refine_inputs": ml_routes}
+    del ml_fine
+
+    # --- Both routes at route_levels: the refine's own inputs, and the
+    # source's points against the target's.
+    rt = synthetic_bone(tp, 2, route_levels)
+    rs = synthetic_bone(tp, 1, route_levels)
+    with MultiresSplit(torch, tp, device) as r_split:
+        r_fine, _ = tp.register_pair_multires(rt, rs, cfg, gen(), coarse_n=coarse_n,
+                                              device=device)
+    route_refine = knn3_routes(torch, *r_split.knn3["inputs"])
+    pts_t = torch.as_tensor(np.asarray(rt.points), device=device)
+    pts_s = torch.as_tensor(np.asarray(rs.points), device=device)
+    route_pair = knn3_routes(torch, pts_t, torch.ones(rt.n_points, device=device), pts_s)
+    r_q = quality_and_checks(tp, rt, rs, r_fine, rs.n_points, min_unique=None)
+    gates += [(route_refine["bit_equal"] and route_pair["bit_equal"],
+               f"knn3 grid and brute routes differ at {rt.n_points}"),
+              (r_q["unique_fraction"] > 0.6, f"unique fraction {r_q['unique_fraction']}")]
+    routes_small = {"n": rt.n_points, "refine_inputs": route_refine,
+                    "source_vs_target": route_pair, "route": r_split.knn3["route"],
+                    "quality": r_q}
+    del r_fine
+
+    # --- CUDA against CPU with the same coarse draws.
+    cpu = None
+    if cpu_check and torch.device(device).type == "cuda":
+        ct = synthetic_bone(tp, 2, check_levels)
+        cs = synthetic_bone(tp, 1, check_levels)
+
+        # CPD stops at 1e-6 here, as in the feature flags' check: at the
+        # bench's 1e-8 the stop test is f32 noise, the coarse solves ended
+        # 97.6% equal and the refine's smoothing spread that to 94.5% of the
+        # fine correspondences, while the refine alone, from one set of
+        # initial correspondences, agreed on 99.99% (PERF.md section 6).
+        ccfg = tp.PipelineConfig(**dict(BENCH_CFG,
+                                        non_rigid_tolerance=MULTIRES_CHECK_TOLERANCE))
+
+        def draws(cg, sg, n_lm):
+            return tp.make_draws(0, ccfg, cg.n_points, sg.n_points, n_lm)
+
+        runs = {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            with MultiresSplit(torch, tp, dev) as c_split:
+                runs[dev] = tp.register_pair_multires(
+                    ct, cs, ccfg, coarse_n=MULTIRES_CHECK_COARSE_N, draws=draws, device=dev)
+            sync(torch, dev)
+            runs[dev] = runs[dev] + (time.perf_counter() - t0, c_split.refine_args)
+        (g_fine, g_coarse, g_s, g_args), (c_fine, c_coarse, c_s, _) = runs[device], runs["cpu"]
+        agree = compare_runs(g_coarse, to_cpu(c_coarse))
+        # The CPU's refine from the card's refine inputs (the same initial
+        # correspondences): what the refine alone changes between devices.
+        tg_, sg_, init_, fcfg_ = g_args[:4]
+        same_init = multires._refine_fine_level(tg_.to("cpu"), sg_.to("cpu"),
+                                                init_.cpu(), fcfg_)
+
+        def equal_share(key, a=g_fine, b=c_fine):
+            return float((a[key].cpu() == b[key].cpu()).float().mean())
+
+        cpu = {"n": ct.n_points, "coarse": agree,
+               "initial_correspondence_agreement": equal_share("initial_correspondences"),
+               "fine_correspondence_agreement": equal_share("correspondences"),
+               "fine_agreement_from_the_same_initial": equal_share(
+                   "correspondences", g_fine, same_init),
+               "smoothed_target_max_diff_same_initial": float(
+                   (g_fine["smoothed_target_coords"].cpu()
+                    - same_init["smoothed_target_coords"]).abs().max()),
+               "cuda_s": g_s, "cpu_s": c_s}
+        gates += [(cpu["fine_correspondence_agreement"] >= CORR_AGREE_MIN,
+                   "multires fine correspondences CUDA vs CPU"),
+                  (cpu["fine_agreement_from_the_same_initial"] >= SAME_COST_AGREE_MIN,
+                   "multires refine CUDA vs CPU from the same initial correspondences")]
+    emit({"phase": "multires", "config": "bench.py:122-134", "nvidia_smi": smi,
+          **main, "multi_level": multi, "routes": routes_small,
+          "cuda_vs_cpu": cpu, "phase_s": time.perf_counter() - t_phase})
+    if cpu is not None:
+        agreement_checks(cpu["coarse"], "multires coarse CUDA vs CPU")
+    for ok, what in gates:
+        check(ok, what)
+    return launches
+
+
 def main():
     import torch
 
@@ -2265,6 +2632,9 @@ def main():
     torch.cuda.empty_cache()
     fr_launches, rd_launches, est_results, loop_results = cpd_paths(
         torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi)
+    torch.cuda.empty_cache()
+    mr_launches = phase_multires(torch, tp, kernels, smi)
+    torch.cuda.empty_cache()
 
     knn_by_case = {r["case"]: r for r in knn_results}
     knn_main, knn_icp = knn_by_case["xyz_k1"], knn_by_case["icp_k1"]
@@ -2292,6 +2662,7 @@ def main():
             "launches_icp_shape": kd_icp_knn,
             "launches_served_pair": served_launches["knn"],
             "launches_hungarian_path": h_launches["knn"],
+            "launches_multires": mr_launches["knn"],
             "max_abs_err": max(r.get("max_abs_err", 0.0) for r in knn_results),
             "ms": knn_main["kernel_ms"],
             "plain_ms": knn_main["plain_ms"],
@@ -2412,6 +2783,7 @@ def main():
             "replaces": "pyfocusr_tpu/ops/icp.py:48",
             "launches": kd_launches["umeyama3"],
             "launches_served_pair": served_launches["umeyama3"],
+            "launches_multires": mr_launches["umeyama3"],
             "max_abs_err": max(r["max_abs_err"]["R"] for r in umeyama_results),
             "max_s_rel_err": max(r["max_abs_err"]["s_rel"] for r in umeyama_results),
             "ms": close_main["kernel_ms"],

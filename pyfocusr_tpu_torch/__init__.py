@@ -27,6 +27,11 @@ Entry points:
 * :func:`graph_arrays_from_numpy` / :func:`config_from_dict` — build the
   inputs from the JAX package's ``GraphArrays`` fields and config dict;
 * :func:`registration_quality` / :func:`surface_distance`;
+* multi-resolution registration (``pyfocusr_tpu/multires.py``):
+  :func:`decimate` and :func:`register_pair_multires` (decimate, register
+  the coarse pair, prolong, refine at full resolution; stage checkpoints);
+  the refine's k=3 query takes the exact voxel-grid route of
+  ``ops/grid_knn.py`` where ``ops/knn.py``'s measured planner sends it;
 * the class API (``pyfocusr_tpu/focusr.py`` and the modules it drives):
   :class:`Focusr` (``Focusr(target, source, ...).align_maps()``, or
   ``.align_maps_pipeline()`` over ``register_pair``), :class:`Graph`,
@@ -37,7 +42,7 @@ Entry points:
 from .focusr import Focusr
 from .mesh import MeshTopology, TriMesh, as_trimesh, build_topology
 from .metrics import registration_quality, surface_distance
-from .multires import subdivide
+from .multires import decimate, register_pair_multires, subdivide
 from .ops.assignment import linear_sum_assignment
 from .ops.cpd import affine_registration, deformable_registration
 from .pipeline import (
@@ -72,6 +77,7 @@ __all__ = [
     "as_trimesh",
     "build_topology",
     "config_from_dict",
+    "decimate",
     "deformable_registration",
     "eigsort",
     "graph_arrays_from_numpy",
@@ -83,6 +89,7 @@ __all__ = [
     "prepare_source",
     "prepare_target",
     "register_pair",
+    "register_pair_multires",
     "register_pair_prepared",
     "register_pair_prepared_source",
     "registration_quality",

@@ -163,18 +163,22 @@ def build_topology(
         else np.zeros((0, 2), np.int32)
     )
 
-    # Connected components by label propagation with pointer jumping.
+    # Connected components, numbered in the order of their lowest vertex
+    # (the JAX package's label propagation converges to each component's
+    # lowest vertex id; its ~diameter rounds took 15 s at 655362 vertices).
     labels64 = np.arange(n_points, dtype=np.int64)
     if edges.shape[0]:
-        ea, eb = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
-        while True:
-            nxt = labels64.copy()
-            np.minimum.at(nxt, ea, labels64[eb])
-            np.minimum.at(nxt, eb, labels64[ea])
-            nxt = nxt[nxt]
-            if np.array_equal(nxt, labels64):
-                break
-            labels64 = nxt
+        from scipy.sparse import coo_matrix
+        from scipy.sparse.csgraph import connected_components
+
+        adj = coo_matrix(
+            (np.ones(edges.shape[0], np.int8), (edges[:, 0], edges[:, 1])),
+            shape=(n_points, n_points),
+        )
+        n_comp, comp = connected_components(adj, directed=False)
+        lowest = np.full(n_comp, n_points, np.int64)
+        np.minimum.at(lowest, comp, labels64)
+        labels64 = lowest[comp]
     _, labels = np.unique(labels64, return_inverse=True)
     return MeshTopology(
         edges=edges,

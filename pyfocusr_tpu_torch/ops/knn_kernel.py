@@ -45,6 +45,7 @@ from ._cuda_build import CudaLibrary, require_sm90
 __all__ = [
     "LAUNCHES",
     "MAX_D",
+    "MAX_QUERIES",
     "SUPPORTED_K",
     "knn",
     "knn_cuda",
@@ -59,6 +60,12 @@ LAUNCHES = 0
 
 SUPPORTED_K = (1, 2, 3)
 MAX_D = 16
+# A launch's grid is (splits, ceil(nq / QUERIES_PER_CTA)) (csrc/knn.cu:
+# kQueriesPerCta = kThreads / kGroup * kQ), and CUDA caps gridDim.y at
+# 65535: one launch takes at most MAX_QUERIES queries.
+QUERIES_PER_CTA = 128
+MAX_GRID_Y = 65535
+MAX_QUERIES = QUERIES_PER_CTA * MAX_GRID_Y
 
 _LIBRARY = CudaLibrary("knn.cu", "knn", "k-NN", {
     "pyfocusr_knn_f32": [
@@ -139,6 +146,13 @@ def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int, out=None,
     Nothing is read back to the host."""
     global LAUNCHES
     _check_inputs(ref, query, k)
+    nq = query.shape[0]
+    if -(-nq // QUERIES_PER_CTA) > MAX_GRID_Y:
+        raise ValueError(
+            f"knn_cuda takes at most {MAX_QUERIES} queries a launch "
+            f"(ceil(nq / {QUERIES_PER_CTA}) query tiles on a grid's y axis, "
+            f"which CUDA caps at {MAX_GRID_Y}); got {nq}"
+        )
     if ref.device.type != "cuda" or query.device != ref.device:
         raise ValueError(
             f"knn_cuda needs both tensors on one CUDA device, got {ref.device} "
