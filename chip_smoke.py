@@ -49,7 +49,16 @@ after:
   both routes of its refine's k=3 query (the voxel grid and the k-NN
   kernel) on the refine's own inputs, bit-equal and timed, as at 40962 (a
   pair registered through intermediate levels, level_ratio 4) and 163842;
-  CUDA against CPU at 10242 with the same coarse draws.
+  CUDA against CPU at 10242 with the same coarse draws;
+* cohort registration (``cohort``, ``bench.py:652-680``): the seed-2 bone
+  at 10242 vertices as the template of 8 copies of the seed-1 bone
+  jittered by 0.3 mm, ``register_cohort`` (the template's solve hoisted),
+  first call and three warm calls beside a plain pair, each lane equal to
+  its own ``register_pair_prepared_source``; a padded cohort (four of the
+  subjects beside four ~9.4k-vertex decimations, padded to 10242) against
+  its subjects registered unpadded, and one padded lane on the CPU;
+  ``iterate_template`` for three rounds with Procrustes, the SSM of its
+  last round, and ``all_pairs_surface_errors`` on the decimations.
 
 Every CPD EM loop and every ICP on the card runs as one captured iteration
 replayed as a CUDA graph, the host reading the stop flag every 8
@@ -257,6 +266,28 @@ MULTIRES_MULTI_COARSE_N = 2500
 MULTIRES_ROUTE_LEVELS = 7
 MULTIRES_CHECK_COARSE_N = 2562
 MULTIRES_CHECK_TOLERANCE = FEATURE_CHECK_TOLERANCE
+
+# The cohort (bench.py:652-680, cohort_8x5k_1chip): 8 copies of one subject
+# jittered by 0.3 mm, registered to one template, under bench.py's ccfg.
+COHORT_CFG = dict(
+    non_rigid_max_iterations=100,
+    n_coords_spectral_ordering=5000,
+    n_coords_spectral_registration=1000,
+    graph_smoothing_iterations=300,
+    projection_smooth_iterations=1,
+)
+COHORT_SUBJECTS = 8
+COHORT_JITTER_MM = 0.3
+COHORT_WARM_REPS = 3
+# The padded cohort's four smaller subjects: the subject's next subdivision
+# decimated by one aggregation round (``decimate`` contracts ~4.3x a round
+# and stops within 1.5x of its target, so these land at ~9.4k vertices; the
+# 10242 mesh itself would stay whole for targets from 6900 up).
+COHORT_DECIMATE_TARGETS = (9000, 8000, 7000, 6500)
+COHORT_ROUNDS = 3
+COHORT_CHECK_TOLERANCE = FEATURE_CHECK_TOLERANCE
+SSM_RECON_RMS_MAX_MM = 1e-3
+COHORT_MIN_UNIQUE = 0.6
 
 
 def emit(obj):
@@ -1348,6 +1379,23 @@ def to_cpu(res):
     return {k: v.cpu() for k, v in res.items()}
 
 
+# The result keys with one row per target vertex; every other key with rows
+# has one per source vertex ("Q" and the eigenvalues have none).
+TARGET_ROW_KEYS = ("eig_vecs_target", "spectral_coords_target", "smoothed_target_coords")
+
+
+def real_rows(res, n_t: int, n_s: int):
+    """A registration result of padded graphs cut to the first ``n_t``
+    target and ``n_s`` source rows (the real vertices)."""
+    out = {}
+    for k, v in res.items():
+        if k == "Q" or k.startswith("eig_vals"):
+            out[k] = v
+        else:
+            out[k] = v[:n_t] if k in TARGET_ROW_KEYS else v[:n_s]
+    return out
+
+
 def outputs_differ(torch, a, b):
     """The output keys whose tensors are not equal bit for bit, each with
     its largest absolute difference."""
@@ -1359,12 +1407,12 @@ def outputs_differ(torch, a, b):
     return out
 
 
-def timed(torch, fn):
-    """(fn(), its wall seconds fenced by torch.cuda.synchronize)."""
-    torch.cuda.synchronize()
+def timed(torch, fn, device="cuda"):
+    """(fn(), its wall seconds, fenced on ``device``)."""
+    sync(torch, device)
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync(torch, device)
     return out, time.perf_counter() - t0
 
 
@@ -1812,17 +1860,23 @@ def _device_us(evt) -> float:
 
 
 def profile_run(torch, tp, tg, sg, cfg, draws, smi, phase, table_name):
-    """One more register_pair under torch.profiler: wall time, device busy
-    time (sum of kernel and copy durations on the card), and each stage's
-    host time and the device time of the torch operators it launched (the
-    ``lap_*`` ranges lie inside the correspondence stage).  The full table goes to
-    build/<table_name>."""
+    """One more register_pair under torch.profiler (see :func:`profile_call`)."""
+    return profile_call(torch, lambda: tp.register_pair(tg, sg, cfg, draws=draws),
+                        smi, phase, table_name)
+
+
+def profile_call(torch, fn, smi, phase, table_name):
+    """``fn()`` under torch.profiler: wall time, device busy time (sum of
+    kernel and copy durations on the card), and each ``register_pair``
+    stage's host time and the device time of the torch operators it
+    launched (the ``lap_*`` ranges lie inside the correspondence stage),
+    once per stage and pair.  The full table goes to build/<table_name>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tp.register_pair(tg, sg, cfg, draws=draws)
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     events = prof.events()
@@ -2390,6 +2444,237 @@ def phase_multires(torch, tp, kernels, smi, device="cuda", levels=MULTIRES_LEVEL
     return launches
 
 
+def jittered_cohort(tp, mesh, n: int, scale: float):
+    """``n`` copies of ``mesh``, each point moved by normal noise of
+    ``scale`` mm from one ``default_rng(0)`` stream (bench.py:661-667)."""
+    rng = np.random.default_rng(0)
+    base = np.asarray(mesh.points, np.float32)
+    return [mesh.with_points(base + rng.normal(scale=scale, size=base.shape)
+                             .astype(np.float32)) for _ in range(n)]
+
+
+def unpadded_draws(draws, n_real: int):
+    """A padded pair's draws as the unpadded pair's: the index draws and
+    ``cpd_omega`` as they are (they index real rows), each per-vertex
+    target draw cut to the real rows."""
+    out = dict(draws)
+    for name in ("eig_block_target", "eig_start_target"):
+        if name in out:
+            out[name] = out[name][:n_real]
+    return out
+
+
+def stage_totals(stages):
+    """Host and device ms of each ``register_pair`` stage, summed over
+    the pairs of a profiled call."""
+    out = {}
+    for st in stages:
+        acc = out.setdefault(st["stage"], {"host_ms": 0.0, "device_ms": 0.0, "count": 0})
+        acc["host_ms"] += st["host_ms"]
+        acc["device_ms"] += st["device_ms"]
+        acc["count"] += 1
+    return out
+
+
+def phase_cohort(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
+                 n_subjects=COHORT_SUBJECTS, warm_reps=COHORT_WARM_REPS,
+                 rounds=COHORT_ROUNDS, decimate_targets=COHORT_DECIMATE_TARGETS,
+                 cfg_kw=COHORT_CFG, cpu_check=True, profile=True):
+    """Cohort registration (``parallel.cohort``) at bench.py's cohort size:
+    the seed-2 bone at 10242 vertices as the template, ``n_subjects``
+    copies of the seed-1 bone jittered by 0.3 mm as subjects, ``ccfg``.
+    ``register_cohort`` hoists the template's solve and registers each
+    subject: the first call, ``warm_reps`` warm calls with the kernels'
+    launch counts set to 0 just before each and read just after, a plain
+    'kd' pair of the same process, peak memory, one warm call under the
+    profiler (device idle share).  Gates: every lane equals
+    ``register_pair_prepared_source`` on its subject and draws bit for bit
+    when two plain calls do (else the CUDA-vs-CPU gates); the unique
+    fraction of every lane >= 0.6.  Then a padded cohort (four of the
+    subjects and four decimations of the subject's next subdivision, padded
+    to 10242): each padded lane against the same subject unpadded on its
+    real rows, and one padded lane on the CPU at CPD stop 1e-6, under the
+    CUDA-vs-CPU gates; ``iterate_template`` for ``rounds`` rounds with
+    Procrustes (the last round's motion below the first's, the round files
+    load with numpy); the SSM of its last round (an in-sample shape
+    reconstructed within 1e-3 mm RMS); ``all_pairs_surface_errors`` on
+    the four decimated subjects.  Returns the warm call's launches.
+
+    Rehearsed on the CPU at 642 vertices (``device="cpu", levels=3``, a
+    ``cfg_kw`` with subsamples of at most 600 points and
+    ``decimate_targets`` of 300-450, ``cpu_check=False,
+    profile=False``), where no kernel launches."""
+    t_phase = time.perf_counter()
+    cfg = tp.PipelineConfig(**cfg_kw)
+    template_mesh = synthetic_bone(tp, 2, levels)
+    subject = synthetic_bone(tp, 1, levels)
+    subjects = jittered_cohort(tp, subject, n_subjects, COHORT_JITTER_MM)
+    template = tp.mesh_to_graph_arrays(template_mesh, device=device)
+    graphs = [tp.mesh_to_graph_arrays(m, device=device) for m in subjects]
+    targets = tp.stack_graph_arrays(graphs)
+    n_s = template.n_points
+    draws = tp.make_cohort_draws(0, cfg, template, targets)
+
+    def cohort():
+        return tp.register_cohort(template, targets, cfg, draws=draws)
+
+    (res, mean), first_s = timed(torch, cohort, device)
+    peak = None
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    warm = []
+    for _ in range(warm_reps):
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+        (res, mean), secs = timed(torch, cohort, device)
+        warm.append(secs)
+        launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    if device == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+    check(device != "cuda" or (launches["knn"] > 0 and launches["umeyama3"] > 0),
+          f"register_cohort launched {launches}")
+    check(tuple(mean.shape) == (n_s, 3) and bool(mean.isfinite().all()),
+          "cohort mean shape")
+    warm_s = statistics.median(warm)
+
+    # A plain 'kd' pair of the same process, warm, beside the per-pair time.
+    plain = lambda: tp.register_pair(graphs[0], template, cfg, draws=draws["pairs"][0])
+    plain()
+    _, plain_s = timed(torch, plain, device)
+
+    # Every lane against register_pair_prepared_source on its own draws.
+    prep = tp.prepare_source(template, cfg, draws["template_block"])
+    lane_diffs = []
+    for i, g in enumerate(graphs):
+        one = tp.register_pair_prepared_source(prep, g, template, cfg,
+                                               draws=draws["pairs"][i])
+        lane = {k: v[i] for k, v in res.items()}
+        diff = outputs_differ(torch, one, lane)
+        if diff and not deterministic:
+            agreement_checks(compare_runs(one, to_cpu(lane)), f"cohort lane {i}")
+        lane_diffs.append(diff)
+    if deterministic:
+        check(not any(lane_diffs), f"cohort lanes differ from their pairs: {lane_diffs}")
+    quality = [quality_and_checks(tp, subjects[i], template_mesh,
+                                  {k: v[i] for k, v in res.items()}, n_s,
+                                  min_unique=None) for i in range(n_subjects)]
+    min_unique = min(q["unique_fraction"] for q in quality)
+    check(min_unique >= COHORT_MIN_UNIQUE, f"cohort unique fraction {min_unique}")
+    prof = None
+    if profile and device == "cuda":
+        prof = profile_call(torch, cohort, smi, "profile_cohort", "profile_cohort.txt")
+        prof["stage_totals"] = stage_totals(prof.pop("stages"))
+    del res, prep
+
+    # --- The padded cohort: four of the subjects and four decimations.
+    fine = synthetic_bone(tp, 1, levels + 1)
+    small = [tp.decimate(fine, tn, seed=k + 1)[0] for k, tn in enumerate(decimate_targets)]
+    p_meshes = subjects[:len(subjects) - len(small)] + small
+    p_graphs = tp.pad_cohort(p_meshes, device=device)
+    p_targets = tp.stack_graph_arrays(p_graphs)
+    n_pad = p_targets.points.shape[1]
+    reals = [m.n_points for m in p_meshes]
+    check(n_pad == max(reals) and min(reals) < n_pad, f"padded cohort sizes {reals}")
+    p_draws = tp.make_cohort_draws(1, cfg, template, p_targets)
+    (p_res, _), p_s = timed(torch, lambda: tp.register_cohort(
+        template, p_targets, cfg, draws=p_draws), device)
+    p_prep = tp.prepare_source(template, cfg, p_draws["template_block"])
+    padded_vs_unpadded = []
+    for i, (m, real) in enumerate(zip(p_meshes, reals)):
+        if real == n_pad:
+            continue
+        alone = tp.register_pair_prepared_source(
+            p_prep, tp.mesh_to_graph_arrays(m, device=device), template, cfg,
+            draws=unpadded_draws(p_draws["pairs"][i], real))
+        lane = real_rows({k: v[i] for k, v in p_res.items()}, real, n_s)
+        check(int(lane["correspondences"].max()) < real,
+              f"padded lane {i} corresponds to a padding row")
+        agree = compare_runs(lane, to_cpu(alone))
+        agree.update(lane=i, n_real=real,
+                     quality=quality_and_checks(tp, m, template_mesh, lane, n_s,
+                                                min_unique=None))
+        padded_vs_unpadded.append(agree)
+        agreement_checks(agree, f"padded cohort lane {i} vs unpadded")
+    p_min_unique = min(a["quality"]["unique_fraction"] for a in padded_vs_unpadded)
+    check(p_min_unique >= COHORT_MIN_UNIQUE, f"padded unique fraction {p_min_unique}")
+
+    cuda_vs_cpu = None
+    if cpu_check:
+        i = reals.index(min(reals))
+        ccfg = tp.PipelineConfig(**dict(cfg_kw, non_rigid_tolerance=COHORT_CHECK_TOLERANCE))
+
+        def padded_lane(dev):
+            t = template.to(dev)
+            pre = tp.prepare_source(t, ccfg, p_draws["template_block"])
+            return tp.register_pair_prepared_source(
+                pre, p_graphs[i].to(dev), t, ccfg, draws=p_draws["pairs"][i])
+
+        gpu = padded_lane(device)
+        t0 = time.perf_counter()
+        cpu = padded_lane("cpu")
+        cuda_vs_cpu = compare_runs(gpu, cpu)
+        cuda_vs_cpu.update(lane=i, n_real=reals[i], cpu_s=time.perf_counter() - t0)
+        agreement_checks(cuda_vs_cpu, f"padded lane {i} CUDA vs CPU")
+    del p_res, p_prep
+
+    # --- iterate_template with Procrustes, its round files, and the SSM.
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        (_, it_res, motions), it_s = timed(torch, lambda: tp.iterate_template(
+            template, targets, cfg, generator=torch.Generator().manual_seed(0),
+            n_iterations=rounds, checkpoint_dir=tmp), device)
+        files = sorted(os.listdir(tmp))
+        loaded = []
+        for name in files:
+            with np.load(os.path.join(tmp, name)) as z:
+                loaded.append({"file": name, "keys": sorted(z.files),
+                               "points": list(z["points"].shape),
+                               "motion": z["motion"].tolist()})
+    check(files == [f"template_round_{r + 1:03d}.npz" for r in range(len(motions))]
+          and all(f["keys"] == ["motion", "points"] for f in loaded),
+          f"template round files {loaded}")
+    check(len(motions) == rounds and motions[-1] < motions[0],
+          f"iterate_template motions {motions}")
+    mean_ssm, modes, variances = tp.cohort_shape_modes(it_res["weighted_points"])
+    coeffs, recon, rms = tp.ssm_project(it_res["weighted_points"][0], mean_ssm, modes,
+                                        variances)
+    rms = float(rms)
+    check(rms <= SSM_RECON_RMS_MAX_MM, f"SSM in-sample reconstruction RMS {rms} mm")
+    sample = tp.ssm_sample(mean_ssm, modes, variances, b=coeffs)
+    sample_rms = float(((sample - recon) ** 2).sum(dim=1).mean().sqrt())
+    errs, ap_s = timed(torch, lambda: tp.all_pairs_surface_errors(
+        small, device=device), device)
+    off = errs[~np.eye(len(small), dtype=bool)]
+    check(bool(np.all(np.isfinite(off)) and np.all(off > 0) and np.all(np.diag(errs) == 0)),
+          f"all_pairs_surface_errors {errs.tolist()}")
+    emit({
+        "phase": "cohort", "nvidia_smi": smi, "config": "bench.py:670-676 (ccfg)",
+        "n_template": n_s, "n_subjects": n_subjects, "jitter_mm": COHORT_JITTER_MM,
+        **warm_summary(first_s, warm),
+        "pairs_per_s": n_subjects / warm_s, "per_pair_s": warm_s / n_subjects,
+        "plain_pair_s": plain_s, "launches": launches,
+        "knn_per_pair": launches["knn"] / n_subjects,
+        "umeyama3_per_pair": launches["umeyama3"] / n_subjects,
+        "peak_device_bytes": peak,
+        "lanes_equal_pairs": "bit for bit" if deterministic else "CUDA-vs-CPU gates",
+        "lane_differing_keys": lane_diffs,
+        "quality_min_unique": min_unique,
+        "quality": quality[:2],
+        "profile": prof,
+        "padded": {"sizes": reals, "n_pad": n_pad, "seconds": p_s,
+                   "vs_unpadded": padded_vs_unpadded},
+        "padded_cuda_vs_cpu": cuda_vs_cpu,
+        "iterate_template": {"rounds": rounds, "seconds": it_s, "motions": motions,
+                             "files": loaded},
+        "ssm": {"variances": variances.tolist(), "recon_rms_mm": rms,
+                "sample_vs_recon_rms_mm": sample_rms},
+        "all_pairs_surface_errors": {"sizes": [m.n_points for m in small],
+                                     "seconds": ap_s, "mm": errs.tolist()},
+        "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
 def main():
     import torch
 
@@ -2635,6 +2920,8 @@ def main():
     torch.cuda.empty_cache()
     mr_launches = phase_multires(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
+    co_launches = phase_cohort(torch, tp, kernels, smi, deterministic)
+    torch.cuda.empty_cache()
 
     knn_by_case = {r["case"]: r for r in knn_results}
     knn_main, knn_icp = knn_by_case["xyz_k1"], knn_by_case["icp_k1"]
@@ -2663,6 +2950,7 @@ def main():
             "launches_served_pair": served_launches["knn"],
             "launches_hungarian_path": h_launches["knn"],
             "launches_multires": mr_launches["knn"],
+            "launches_cohort": co_launches["knn"],
             "max_abs_err": max(r.get("max_abs_err", 0.0) for r in knn_results),
             "ms": knn_main["kernel_ms"],
             "plain_ms": knn_main["plain_ms"],
@@ -2784,6 +3072,7 @@ def main():
             "launches": kd_launches["umeyama3"],
             "launches_served_pair": served_launches["umeyama3"],
             "launches_multires": mr_launches["umeyama3"],
+            "launches_cohort": co_launches["umeyama3"],
             "max_abs_err": max(r["max_abs_err"]["R"] for r in umeyama_results),
             "max_s_rel_err": max(r["max_abs_err"]["s_rel"] for r in umeyama_results),
             "ms": close_main["kernel_ms"],

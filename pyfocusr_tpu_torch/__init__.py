@@ -36,7 +36,16 @@ Entry points:
   :class:`Focusr` (``Focusr(target, source, ...).align_maps()``, or
   ``.align_maps_pipeline()`` over ``register_pair``), :class:`Graph`,
   :class:`eigsort`, the cycpd-compatible :class:`affine_registration` and
-  :class:`deformable_registration`, and :func:`linear_sum_assignment`.
+  :class:`deformable_registration`, and :func:`linear_sum_assignment`;
+* cohort registration and the statistical shape model
+  (``pyfocusr_tpu/parallel/cohort.py``, on one card): :func:`pad_cohort`
+  and :func:`stack_graph_arrays` (padded graphs, ``mesh_to_graph_arrays
+  (pad_n_points=...)``), :func:`register_cohort` (the template's solve
+  hoisted, one pair per subject), :func:`make_cohort_draws`,
+  :func:`iterate_template` / :func:`build_ssm_template` (the groupwise
+  loop with its Procrustes close), :func:`cohort_shape_modes`,
+  :func:`ssm_project`, :func:`ssm_sample`, :func:`fit_subject_to_ssm`,
+  :func:`cohort_mean_shape` and :func:`all_pairs_surface_errors`.
 """
 
 from .focusr import Focusr
@@ -45,6 +54,21 @@ from .metrics import registration_quality, surface_distance
 from .multires import decimate, register_pair_multires, subdivide
 from .ops.assignment import linear_sum_assignment
 from .ops.cpd import affine_registration, deformable_registration
+from .parallel.cohort import (
+    all_pairs_surface_errors,
+    build_ssm_template,
+    check_cohort_config,
+    cohort_mean_shape,
+    cohort_shape_modes,
+    fit_subject_to_ssm,
+    iterate_template,
+    make_cohort_draws,
+    pad_cohort,
+    register_cohort,
+    ssm_project,
+    ssm_sample,
+    stack_graph_arrays,
+)
 from .pipeline import (
     GraphArrays,
     PipelineConfig,
@@ -74,20 +98,30 @@ __all__ = [
     "PipelineConfig",
     "TriMesh",
     "affine_registration",
+    "all_pairs_surface_errors",
     "as_trimesh",
+    "build_ssm_template",
     "build_topology",
+    "check_cohort_config",
+    "cohort_mean_shape",
+    "cohort_shape_modes",
     "config_from_dict",
     "decimate",
     "deformable_registration",
     "eigsort",
+    "fit_subject_to_ssm",
     "graph_arrays_from_numpy",
+    "iterate_template",
     "landmark_pairs_from_positions",
     "linear_sum_assignment",
     "load_prepared_target",
+    "make_cohort_draws",
     "make_draws",
     "mesh_to_graph_arrays",
+    "pad_cohort",
     "prepare_source",
     "prepare_target",
+    "register_cohort",
     "register_pair",
     "register_pair_multires",
     "register_pair_prepared",
@@ -95,6 +129,9 @@ __all__ = [
     "registration_quality",
     "save_prepared_target",
     "source_spectrum_hoistable",
+    "ssm_project",
+    "ssm_sample",
+    "stack_graph_arrays",
     "subdivide",
     "surface_distance",
     "warm_block_from_prepared",

@@ -2,12 +2,14 @@
 template serving.
 
 Counterpart of ``pyfocusr_tpu/pipeline.py``: ``PipelineConfig`` (:74),
-``GraphArrays`` (:292), ``mesh_to_graph_arrays`` (:349, unpadded, no
-patch plan), ``_masked_minmax_norm`` (:483), ``_spectrum`` (:495: the wide
+``GraphArrays`` (:292), ``mesh_to_graph_arrays`` (:349, with its
+padding, without the patch plan), ``_masked_minmax_norm`` (:483),
+``_spectrum`` (:495: the wide
 Chebyshev path with the plain ELL filter operator of :590-605, the narrow
 Chebyshev and shift-invert Lanczos paths of :623-650, and the feature
 branches of :511-541), ``_normed`` (:702),
-``landmark_pairs_from_positions`` (:709), ``_warm_supported`` (:790),
+``landmark_pairs_from_positions`` (:709), ``_n_real_vertices`` and
+``_check_padding_hazards`` (:737-787), ``_warm_supported`` (:790),
 ``_warm_x0`` (:801), ``register_pair`` (:842), the serving entry points
 (:915-1376: ``warm_block_from_prepared``, ``prepare_target``,
 ``register_pair_prepared``, ``source_spectrum_hoistable``,
@@ -46,8 +48,14 @@ comparable.
 The JAX package's split-spectra path (``_want_split``, :822-840: above
 65000 vertices each eigensolve is compiled as its own program) works
 around XLA's schedule on a TPU and is not ported: without it every entry
-point computes the same values.  Padded graphs are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+point computes the same values.
+
+Padded graphs (``mesh_to_graph_arrays(pad_n_points=...)``, the cohort's
+``parallel.cohort.pad_cohort``) carry their padding rows at the tail with
+``valid_mask`` 0: the spectra, the subsamples, the nearest-neighbour
+queries and the outputs all leave those rows out, and the draws index real
+rows only.  'hungarian' correspondences and subsamples larger than a
+graph's real vertex count raise on a padded graph, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -283,23 +291,64 @@ def graph_arrays_from_numpy(d, device=None) -> GraphArrays:
     return GraphArrays(**kw)
 
 
+def _widen(topo, pad_degree: int):
+    """A given topology's ELL table widened to ``pad_degree`` columns by
+    self-loop slots of mask 0 (``pyfocusr_tpu/pipeline.py:366-397``)."""
+    cur_d = topo.neighbors.shape[1]
+    if pad_degree is None or pad_degree == cur_d:
+        return topo
+    if pad_degree < cur_d:
+        raise ValueError(
+            f"pad_degree={pad_degree} narrower than the provided "
+            f"topology's ELL width {cur_d}"
+        )
+    n, extra = topo.neighbors.shape[0], pad_degree - cur_d
+    own = np.tile(np.arange(n, dtype=topo.neighbors.dtype)[:, None], (1, extra))
+    return dataclasses.replace(
+        topo,
+        neighbors=np.concatenate([topo.neighbors, own], axis=1),
+        nbr_mask=np.concatenate(
+            [topo.nbr_mask, np.zeros((n, extra), topo.nbr_mask.dtype)], axis=1),
+        max_degree=pad_degree,
+    )
+
+
 def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
-                         device=None, topology=None) -> GraphArrays:
+                         device=None, topology=None, pad_n_points: int = None,
+                         pad_degree: int = None, pad_components: int = None,
+                         pad_overflow: int = None) -> GraphArrays:
     """Build the pipeline tensors of one mesh on ``device``, the CUDA card
-    by default (see ``utils.device.resolve_device``); unpadded, ELL degree capped at
+    by default (see ``utils.device.resolve_device``): ELL degree capped at
     24 with hub overflow edges.  ``null_indicators``
     holds one indicator column per connected component (the Laplacian
     kernel the eigensolver deflates).  ``node_features``: optional per-vertex
     features, [N], [N, K] or [K, N] (the JAX package's rules, :413-420).
     ``topology``: the mesh's ``build_topology`` result, when the caller
-    already has it."""
+    already has it (its ELL table is widened to ``pad_degree`` if needed).
+
+    ``pad_*``: pad to a fixed size for stacking, as the JAX package does
+    (:349-476): rows up to ``pad_n_points`` are self-loops with mask 0 and
+    zero points, features and indicator columns (``valid_mask`` 0), the
+    ELL table is ``pad_degree`` wide, there are ``pad_components``
+    indicator columns and ``pad_overflow`` overflow edges (the added ones
+    ``src == dst``, so their weight is 0)."""
     n = mesh.n_points
-    topo = topology if topology is not None else build_topology(
-        np.asarray(mesh.triangles), n)
+    if topology is not None:
+        topo = _widen(topology, pad_degree)
+    else:
+        topo = build_topology(np.asarray(mesh.triangles), n, pad_degree)
     points = mesh.points
     if torch.is_tensor(points):
         points = points.detach().cpu().numpy()
-    indicators = np.zeros((n, max(topo.n_components, 1)), np.float32)
+    points = np.asarray(points, np.float32)
+    neighbors, nbr_mask = topo.neighbors, topo.nbr_mask
+    overflow = topo.overflow_edges
+    if pad_overflow is not None and pad_overflow > overflow.shape[0]:
+        overflow = np.concatenate([overflow, np.zeros(
+            (pad_overflow - overflow.shape[0], 2), overflow.dtype)])
+    valid = np.ones((n,), np.float32)
+    n_comp = max(topo.n_components, 1)
+    indicators = np.zeros((n, n_comp), np.float32)
     indicators[np.arange(n), topo.component_labels] = 1.0
     if node_features is None:
         feats = np.zeros((n, 0), np.float32)
@@ -309,14 +358,28 @@ def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
             feats = feats[:, None]
         if feats.shape[0] != n:  # [K, N]
             feats = feats.T
+    if pad_n_points is not None and pad_n_points > n:
+        extra = pad_n_points - n
+        width = neighbors.shape[1]
+        points = np.concatenate([points, np.zeros((extra, 3), np.float32)])
+        feats = np.concatenate([feats, np.zeros((extra, feats.shape[1]), np.float32)])
+        neighbors = np.concatenate([neighbors, np.tile(
+            np.arange(n, pad_n_points, dtype=neighbors.dtype)[:, None], (1, width))])
+        nbr_mask = np.concatenate([nbr_mask, np.zeros((extra, width), np.float32)])
+        valid = np.concatenate([valid, np.zeros((extra,), np.float32)])
+        indicators = np.concatenate([indicators, np.zeros((extra, n_comp), np.float32)])
+    if pad_components is not None and pad_components > indicators.shape[1]:
+        indicators = np.concatenate([indicators, np.zeros(
+            (indicators.shape[0], pad_components - indicators.shape[1]), np.float32)],
+            axis=1)
     return graph_arrays_from_numpy(
         {
-            "points": np.asarray(points, np.float32),
-            "neighbors": topo.neighbors,
-            "nbr_mask": topo.nbr_mask,
-            "valid_mask": np.ones((n,), np.float32),
+            "points": points,
+            "neighbors": neighbors,
+            "nbr_mask": nbr_mask,
+            "valid_mask": valid,
             "null_indicators": indicators,
-            "overflow": topo.overflow_edges,
+            "overflow": overflow,
             "node_features": feats,
         },
         device=device,
@@ -515,7 +578,10 @@ def _warm_supported(cfg: PipelineConfig, n_a: int, n_b: int) -> bool:
 
 def _warm_x0(block, from_points, from_mask, to_points):
     """Map a filtered eigensolver block between meshes: each ``to`` vertex
-    takes the block row of its spatially nearest ``from`` vertex."""
+    takes the block row of its spatially nearest ``from`` vertex.  Padded
+    ``from`` rows are pushed to ``SENTINEL`` so no real vertex seeds from
+    a dead row at the origin; padded ``to`` rows take whatever real row is
+    nearest, which the solver's ``subspace_mask`` zeroes."""
     ref = torch.where(
         from_mask[:, None] > 0, from_points, torch.full_like(from_points, SENTINEL)
     )
@@ -523,16 +589,19 @@ def _warm_x0(block, from_points, from_mask, to_points):
     return block[idx]
 
 
-def _choice(rng, n: int, m: int) -> np.ndarray:
-    """m of n indices uniformly without replacement; all of them, in
-    order, when m >= n (the JAX package's ``_rand_idxs`` rule)."""
+def _choice(rng, n: int, m: int, n_real: int = None) -> np.ndarray:
+    """m of the first ``n_real`` (the real rows; all n when None) of n
+    indices, uniformly without replacement; all n, in order, when m >= n
+    (the JAX package's ``_rand_idxs`` rule, :685-700)."""
     if m >= n:
         return np.arange(n, dtype=np.int64)
-    return rng.choice(n, size=m, replace=False).astype(np.int64)
+    return rng.choice(n if n_real is None else n_real, size=m,
+                      replace=False).astype(np.int64)
 
 
 def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
-               n_landmarks: int = 0, source_block: bool = False):
+               n_landmarks: int = 0, source_block: bool = False,
+               real_target: int = None, real_source: int = None):
     """Every random input of ``register_pair``, drawn with numpy on the host
     from ``seed`` (so CPU and CUDA runs can see identical inputs):
 
@@ -564,17 +633,26 @@ configuration draws the same values as before they existed.
     draws of the same seed without it); :func:`register_pair_prepared`
     reads no ``eig_block_target`` and :func:`register_pair_prepared_source`
     no ``eig_block_source``.
+
+    ``real_target`` / ``real_source``: a padded side's real vertex count
+    (its first rows); the index draws then take real rows only, while the
+    ``eig_*`` draws keep the padded row count (the solver masks those
+    rows).  Unpadded sides draw the same values as without them.
     """
     rng = np.random.default_rng(seed)
     draws = {}
     if cfg.icp_register_first:
-        n_moving = n_target if cfg.icp_reg_target_to_source else n_source
-        draws["icp_landmarks"] = _choice(rng, n_moving, cfg.icp_n_landmarks)
-    draws["eigsort_target"] = _choice(rng, n_target, cfg.n_coords_spectral_ordering)
-    draws["eigsort_source"] = _choice(rng, n_source, cfg.n_coords_spectral_ordering)
+        n_moving, real_moving = ((n_target, real_target) if cfg.icp_reg_target_to_source
+                                 else (n_source, real_source))
+        draws["icp_landmarks"] = _choice(rng, n_moving, cfg.icp_n_landmarks,
+                                         real_moving)
+    draws["eigsort_target"] = _choice(rng, n_target, cfg.n_coords_spectral_ordering,
+                                      real_target)
+    draws["eigsort_source"] = _choice(rng, n_source, cfg.n_coords_spectral_ordering,
+                                      real_source)
     n_reg = min(cfg.n_coords_spectral_registration, n_target, n_source)
-    draws["cpd_source"] = _choice(rng, n_source, n_reg)
-    draws["cpd_target"] = _choice(rng, n_target, n_reg - n_landmarks)
+    draws["cpd_source"] = _choice(rng, n_source, n_reg, real_source)
+    draws["cpd_target"] = _choice(rng, n_target, n_reg - n_landmarks, real_target)
     wide_t = _solver(cfg, n_target) == "wide"
     wide_s = _solver(cfg, n_source) == "wide"
     if wide_t:
@@ -597,6 +675,12 @@ configuration draws the same values as before they existed.
                 (n, _start_width(cfg, n))
             ).astype(np.float32)
     return draws
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """The seed of the draws an entry point makes from ``generator``."""
+    return int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device))
 
 
 def _tensor_to(v, device):
@@ -636,14 +720,49 @@ def _n_reg(cfg: PipelineConfig, target: GraphArrays, source: GraphArrays) -> int
                source.n_points)
 
 
-def _check_graph(graph: GraphArrays, name: str):
-    """Padded graphs are not ported yet and raise."""
-    if not bool((graph.valid_mask > 0).all()):
-        raise _not_ported(f"a padded {name} graph", "6")
+def _n_real_vertices(*graphs) -> list:
+    """Each graph's real vertex count (rows with ``valid_mask`` > 0), read
+    from the device in one transfer."""
+    return [int(n) for n in torch.stack(
+        [(g.valid_mask > 0).sum() for g in graphs]).tolist()]
+
+
+def _check_padding_hazards(target: GraphArrays, source: GraphArrays,
+                           cfg: PipelineConfig, n_real):
+    """The JAX package's guards against padding rows entering a
+    registration (``pyfocusr_tpu/pipeline.py:746-787``), with its messages:
+    'hungarian' on a padded graph (the assignment is one-to-one over all
+    rows), and a subsample larger than a padded graph's real vertex count
+    (the draw would take padding rows).  ``n_real``: the graphs' real
+    vertex counts (:func:`_n_real_vertices`)."""
+    for graph, name, real in ((target, "target", n_real[0]),
+                              (source, "source", n_real[1])):
+        if real == graph.n_points:
+            continue
+        if _use_hungarian(cfg):
+            raise ValueError(
+                f"'hungarian' correspondences need unpadded graphs: {name} "
+                f"graph has {real} real vertices padded to "
+                f"{graph.n_points}; assignment is one-to-one over ALL rows, "
+                "so padding would participate. Rebuild without padding or "
+                "use correspondence type 'kd'."
+            )
+        knobs = ["n_coords_spectral_ordering", "n_coords_spectral_registration"]
+        if cfg.icp_register_first:
+            knobs.append("icp_n_landmarks")
+        for knob in knobs:
+            if getattr(cfg, knob) > real:
+                raise ValueError(
+                    f"{knob}={getattr(cfg, knob)} exceeds the {name} graph's "
+                    f"real vertex count {real} (padded to {graph.n_points}); "
+                    "the subsample would draw padding rows. Lower it to "
+                    f"<= {real}."
+                )
 
 
 def _check_supported(target: GraphArrays, source: GraphArrays,
-                     cfg: PipelineConfig, landmark_pairs):
+                     cfg: PipelineConfig, landmark_pairs, n_real):
+    _check_padding_hazards(target, source, cfg, n_real)
     if landmark_pairs is not None and (
             landmark_pairs.dim() != 2 or landmark_pairs.shape[1] != 2):
         raise ValueError(
@@ -666,8 +785,6 @@ def _check_supported(target: GraphArrays, source: GraphArrays,
             f"Number of extra features between target ({n_ft}) and source "
             f"({n_fs}) dont match!"
         )
-    for graph, name in ((target, "target"), (source, "source")):
-        _check_graph(graph, name)
 
 
 def _warm_block_to(warm_block, device):
@@ -740,7 +857,8 @@ def _run(target, source, cfg, generator, draws, landmark_pairs, pre=None,
     if landmark_pairs is not None:
         landmark_pairs = torch.as_tensor(landmark_pairs).to(
             dtype=torch.int64, device=device)
-    _check_supported(target, source, cfg, landmark_pairs)
+    n_real = _n_real_vertices(target, source)
+    _check_supported(target, source, cfg, landmark_pairs, n_real)
     if warm_block is not None:
         warm_block = _warm_block_to(warm_block, device)
     for state, graph, name in ((pre, target, "target"), (pre_src, source, "source")):
@@ -753,9 +871,8 @@ def _run(target, source, cfg, generator, draws, landmark_pairs, pre=None,
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     if draws is None:
-        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
-                                 device=generator.device))
-        draws = make_draws(seed, cfg, target.n_points, source.n_points, n_lm)
+        draws = make_draws(draw_seed(generator), cfg, target.n_points, source.n_points, n_lm,
+                           real_target=n_real[0], real_source=n_real[1])
     draws = _draws_to(draws, device)
     n_cpd_target = _n_reg(cfg, target, source) - n_lm
     if draws["cpd_target"].shape[0] != n_cpd_target:
@@ -884,7 +1001,6 @@ def prepare_target(target: GraphArrays, cfg: PipelineConfig, init_block=None,
             "prepare_target requires a fixed target; "
             "icp_reg_target_to_source=True moves the target per pair"
         )
-    _check_graph(target, "target")
     if warm_block is not None:
         warm_block = _warm_block_to(warm_block, target.device)
     if generator is None:
@@ -976,7 +1092,6 @@ def prepare_source(source: GraphArrays, cfg: PipelineConfig, init_block=None,
             "per pair rescales the smoothing operator. Use rigid ICP, "
             "icp_reg_target_to_source=True, or icp_register_first=False."
         )
-    _check_graph(source, "source")
     if generator is None:
         generator = torch.Generator(device=source.device).manual_seed(0)
     init_block = _init_block(init_block, source, cfg, generator)

@@ -474,7 +474,9 @@ def test_register_pair_on_a_642_pair_matches_jax(jax_pair_642):
 
 def test_small_and_padded_meshes_raise(torch_pair):
     """A 2000-row source (narrow solver) beside the 2562 target (wide)
-    registers; a padded graph raises, naming its ROADMAP item."""
+    registers; on a padded graph the JAX package's padding guards raise:
+    'hungarian' correspondences, and a subsample above the real vertex
+    count (the default 5000-point eigsort subsample here)."""
     tg, sg = torch_pair
     small = dataclasses.replace(
         sg, points=sg.points[:2000], neighbors=sg.neighbors[:2000] % 2000,
@@ -489,10 +491,75 @@ def test_small_and_padded_meshes_raise(torch_pair):
     assert res["correspondences"].shape == (2000,)
     assert torch.isfinite(res["weighted_points"]).all()
     assert (res["eig_vals_source"] > 0).all()
-    padded = dataclasses.replace(sg, valid_mask=torch.cat(
-        [sg.valid_mask[:-5], torch.zeros(5)]))
-    with pytest.raises(NotImplementedError, match="padded.*item 6"):
-        TP.register_pair(tg, padded, TP.PipelineConfig())
+    padded = _padded(sg, sg.n_points + 40)
+    for target, kw, match in (
+            (tg, dict(FAST, n_coords_spectral_ordering=2000,
+                      final_correspondence_type="hungarian"),
+             "'hungarian' correspondences need unpadded graphs: source"),
+            (_padded(tg, tg.n_points + 40), FAST,
+             "n_coords_spectral_ordering=5000 exceeds the target")):
+        with pytest.raises(ValueError, match=match):
+            TP.register_pair(target, padded, TP.PipelineConfig(**kw))
+
+
+def _padded(graph, n_pad):
+    """``graph`` padded to ``n_pad`` rows as ``mesh_to_graph_arrays(
+    pad_n_points=n_pad)`` pads it."""
+    extra, width = n_pad - graph.n_points, graph.neighbors.shape[1]
+
+    def rows(x, fill=0.0):
+        return torch.cat([x, torch.full((extra, *x.shape[1:]), fill, dtype=x.dtype)])
+
+    own = torch.arange(graph.n_points, n_pad)[:, None].expand(extra, width)
+    return TP.GraphArrays(
+        points=rows(graph.points), neighbors=torch.cat([graph.neighbors, own]),
+        nbr_mask=rows(graph.nbr_mask), valid_mask=rows(graph.valid_mask),
+        null_indicators=rows(graph.null_indicators), overflow=graph.overflow,
+        node_features=rows(graph.node_features))
+
+
+# The padded pair: eigsort on 2000 points (the default 5000 exceeds the
+# real vertex count, which the padding guard refuses).
+PADDED = dict(FAST, n_coords_spectral_ordering=2000)
+
+
+def test_padded_pair_matches_jax(mesh_5k_target, mesh_5k_source):
+    """Both meshes padded (target to 2600 rows, source to 2650) through
+    each package's ``register_pair``, the port on JAX's draws
+    (``_jax_draws`` draws from ``valid_mask``), at ``_check_slice``'s
+    gates; no output row of a padding row points at padding."""
+    tg = JP.mesh_to_graph_arrays(mesh_5k_target, pad_n_points=2600, patch_blocks=False)
+    sg = JP.mesh_to_graph_arrays(mesh_5k_source, pad_n_points=2650, patch_blocks=False)
+    want, got = _run_both((tg, sg), PADDED)
+    g = _check_slice(want, got)
+    n_t, n_s = mesh_5k_target.n_points, mesh_5k_source.n_points
+    assert g["correspondences"][:n_s].max() < n_t
+    for k in ("correspondences", "weighted_points", "eig_vecs_source_sorted"):
+        assert not np.any(g[k][n_s:]), k
+    assert not np.any(g["eig_vecs_target"][n_t:])
+
+
+def test_padded_pair_equals_the_unpadded_pair_on_real_rows(torch_pair):
+    """The 2562 pair (wide solver) padded by 38 and 88 rows, on draws that
+    equal the unpadded run's on every real row, against the unpadded
+    pair: the CUDA-vs-CPU gates of ``chip_smoke.agreement_checks``
+    (eigenvalues rtol 1e-4, |cos| >= 0.9999, >= 95% equal
+    correspondences, unique fraction within 0.02) on the real rows."""
+    tg, sg = torch_pair
+    cfg = TP.PipelineConfig(**PADDED)
+    draws = TP.make_draws(0, cfg, tg.n_points, sg.n_points)
+    ptg, psg = _padded(tg, 2600), _padded(sg, 2650)
+    assert TP.pipeline._solver(cfg, ptg.n_points) == "wide"
+    pdraws = dict(draws)
+    pdraws["eig_block_target"] = np.concatenate([
+        draws["eig_block_target"],
+        np.random.default_rng(1).standard_normal((38, cfg.eig_wide_block), np.float32)])
+    plain = TP.register_pair(tg, sg, cfg, draws=draws)
+    padded = TP.register_pair(ptg, psg, cfg, draws=pdraws)
+    cut = chip_smoke.real_rows(padded, tg.n_points, sg.n_points)
+    assert cut["correspondences"].max() < tg.n_points
+    chip_smoke.agreement_checks(chip_smoke.compare_runs(cut, plain),
+                                "padded vs unpadded pair")
 
 
 def test_make_draws_shapes_and_determinism():
