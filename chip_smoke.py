@@ -6,9 +6,10 @@ nvcc and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernels from ``pyfocusr_tpu_torch/csrc/`` (k-NN,
-Sinkhorn row-logsumexp, Jonker-Volgenant, streamed CPD E-step, the 3x3
-Umeyama close; one nvcc each, started together) and drives four paths of
+It builds the six CUDA kernels from ``pyfocusr_tpu_torch/csrc/`` (k-NN for
+k = 1..3 and for k = 4..128, Sinkhorn row-logsumexp, Jonker-Volgenant,
+streamed CPD E-step, the 3x3 Umeyama close; one nvcc each, started
+together) and drives four paths of
 ``register_pair`` on a synthetic 10242-vertex bone pair, on CUDA tensors,
 each with the kernels' launch counts set to 0 just before and read just
 after:
@@ -58,7 +59,15 @@ after:
   subjects beside four ~9.4k-vertex decimations, padded to 10242) against
   its subjects registered unpadded, and one padded lane on the CPU;
   ``iterate_template`` for three rounds with Procrustes, the SSM of its
-  last round, and ``all_pairs_surface_errors`` on the decimations.
+  last round, and ``all_pairs_surface_errors`` on the decimations;
+* wide coordinates and the class API's output stage (``wide_coords``):
+  ``Focusr`` at the class defaults with 16 spectral features and xyz
+  appended (D = 19: the initial correspondences on the port of JAX's XLA
+  k-NN path, both CPD runs on the E-step kernel's chunked D > 16 instance),
+  ``get_weighted_final_node_locations`` at k = 8 and 32 (the k = 4..128
+  kernel), ``transfer_point_data`` and a ``save_mesh`` / ``load_mesh``
+  round trip in .vtk and .vtp, first call and warm; CUDA against CPU at
+  2562.
 
 Every CPD EM loop and every ICP on the card runs as one captured iteration
 replayed as a CUDA graph, the host reading the stop flag every 8
@@ -288,9 +297,31 @@ COHORT_ROUNDS = 3
 COHORT_CHECK_TOLERANCE = FEATURE_CHECK_TOLERANCE
 SSM_RECON_RMS_MAX_MM = 1e-3
 COHORT_MIN_UNIQUE = 0.6
+# The k = 4..128 kernel's timed k (csrc/knn_topk.cu), at both of the k-NN
+# phase's shapes, and the wide-coordinates path (n_spectral_features + 3 xyz
+# columns = 19 > 16) with the k of its weighted final locations.  The E-step
+# kernel's chunked instance is held at the widths D of WIDE_ESTEP_D.
+TOPK_KS = (4, 8, 32, 128)
+WIDE_CFG = dict(n_spectral_features=16, include_points_as_features=True)
+WIDE_KS = (8, 32)
+WIDE_ESTEP_D = (19, 32, 64)
+# The wide path's CUDA-vs-CPU check: 2562 vertices, unweighted coordinates,
+# CPD stopped at 1e-6.  At 642 the narrow solver leaves its last pairs of 19
+# unconverged (two seeds' eigenvalues 32% apart on the CPU), which no
+# CUDA-vs-CPU gate can hold; at 2562 they agree within 2.1e-6.  Weighted
+# coordinates move with each eigh's eigenvector signs (PR 8).
+WIDE_CHECK_CFG = dict(WIDE_CFG, get_weighted_spectral_coords=False,
+                      non_rigid_tolerance=1e-6, rigid_tolerance=1e-6)
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line; a phase line also carries the script's seconds so far
+    (``elapsed_s``), so each phase's share of the command shows."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -822,6 +853,103 @@ class CpdRecorder:
         return sum(r["iterations"] for r in loops), len(loops)
 
 
+def knn_topk_bound(nq, nr, d, k, insertions):
+    """Least time of the k = 4..128 k-NN on the card, in ms: the distance
+    work of ``knn_bound`` (3 d unfused lane instructions a pair) and the
+    list work these inputs need: each of ``insertions`` (the kernel's count
+    of candidates that beat the k-th entry, scanning in index order) moves
+    and compares the k entries of a sorted list once (2 k lane
+    instructions); the inputs read and the outputs written once."""
+    ops_ms = (nq * nr * 3 * d + insertions * 2 * k) / F32_LANE_INSTR_PER_S * 1e3
+    bytes_ms = ((nq + nr) * d * 4 + nq * k * 8) / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "insertions": insertions,
+            "distance_only_ms": nq * nr * 3 * d / F32_LANE_INSTR_PER_S * 1e3}
+
+
+def phase_knn_topk(torch, knn_kernel, topk, tgt_pts, src_pts):
+    """The k = 4..128 kernel (``csrc/knn_topk.cu``, through
+    ``knn_kernel.knn_cuda``) against ``knn_plain`` on the card, bit for
+    bit: contract cases (ties, non-finite and sentinel rows, fewer
+    references than k, D = 5 and 16, one query, a k that is no multiple of
+    32), the done flag, and ``TOPK_KS`` at the k-NN phase's two shapes
+    (10242^2 and ICP's 2000 x 10242, D = 3) plus k = 8 at D = 16, each
+    timed as ``phase_kernel`` times k = 1..3 and held to its bound (the
+    list work from the kernel's own insertion count)."""
+    dev = "cuda"
+    g = torch.Generator().manual_seed(11)
+    ref = torch.tensor(tgt_pts, device=dev)
+    query = torch.tensor(src_pts, device=dev)
+    nr = ref.shape[0]
+    icp_q = query[:2000].contiguous()
+    ties = torch.randn(300, 3, generator=g).repeat_interleave(2, 0)
+    nonfinite = torch.randn(400, 3, generator=g)
+    nonfinite[::7] = float("nan")
+    nonfinite[5, 2] = float("inf")
+    sentinel = torch.cat([torch.randn(5, 3, generator=g), torch.full((20, 3), 1e30)])
+    contract = [
+        ("ties", ties, ties[::3].contiguous(), 4),
+        ("nonfinite_ref", nonfinite, torch.randn(50, 3, generator=g), 5),
+        ("nr_lt_k", torch.randn(6, 3, generator=g), torch.randn(9, 3, generator=g), 8),
+        ("sentinel_rows", sentinel, torch.randn(4, 3, generator=g), 8),
+        ("d5_k100", torch.randn(2000, 5, generator=g), torch.randn(300, 5, generator=g), 100),
+        ("d16_k33", torch.randn(3000, 16, generator=g), torch.randn(77, 16, generator=g), 33),
+        ("nq_1_k128", ref, query[:1], 128),
+    ]
+    results = []
+    for name, r, q, k in contract:
+        res = compare_knn(torch, knn_kernel, r.to(dev).contiguous(), q.to(dev).contiguous(), k)
+        res.update(case=name, nr=r.shape[0], nq=q.shape[0], d=r.shape[1], k=k)
+        results.append(res)
+    out = (torch.full((2000, 8), -1.0, device=dev),
+           torch.full((2000, 8), -7, dtype=torch.int32, device=dev))
+    flag = torch.ones(1, dtype=torch.int32, device=dev)
+    knn_kernel.knn_cuda(ref, icp_q, 8, out=out, done=flag)
+    torch.cuda.synchronize()
+    untouched = bool((out[0] == -1.0).all() and (out[1] == -7).all())
+    flag.zero_()
+    knn_kernel.knn_cuda(ref, icp_q, 8, out=out, done=flag)
+    pd, pi = knn_kernel.knn_plain(ref, icp_q, 8)
+    res = {"case": "done_flag", "nr": nr, "nq": 2000, "d": 3, "k": 8,
+           "set_leaves_outputs": untouched,
+           "unset_equal_to_plain": bool(torch.equal(out[0], pd) and torch.equal(out[1], pi))}
+    check(untouched and res["unset_equal_to_plain"], f"k-NN top-k done flag: {res}")
+    results.append(res)
+    spec_ref = torch.randn(nr, 16, generator=g).to(dev)
+    spec_query = torch.randn(query.shape[0], 16, generator=g).to(dev)
+    timed_cases = [(f"xyz_k{k}", ref, query, k) for k in TOPK_KS]
+    timed_cases += [(f"icp_k{k}", ref, icp_q, k) for k in TOPK_KS]
+    timed_cases.append(("d16_k8", spec_ref, spec_query, 8))
+    for name, r, q, k in timed_cases:
+        res = compare_knn(torch, knn_kernel, r, q, k)
+        inserted = torch.zeros(1, dtype=torch.int64, device=dev)
+        knn_kernel.knn_cuda(r, q, k, insertions=inserted)
+        buf = (torch.empty((q.shape[0], k), device=dev),
+               torch.empty((q.shape[0], k), dtype=torch.int32, device=dev))
+        run_k = lambda: knn_kernel.knn_cuda(r, q, k, out=buf)
+        p1 = cuda_ms(torch, lambda: knn_kernel.knn_plain(r, q, k), reps=2)
+        k1 = graph_ms(torch, run_k)
+        k2 = graph_ms(torch, run_k)
+        p2 = cuda_ms(torch, lambda: knn_kernel.knn_plain(r, q, k), reps=2)
+        res.update(case=name, nr=r.shape[0], nq=q.shape[0], d=r.shape[1], k=k,
+                   kernel_ms=(k1 + k2) / 2, call_ms=cuda_ms(torch, run_k),
+                   plain_ms=(p1 + p2) / 2,
+                   **knn_topk_bound(q.shape[0], r.shape[0], r.shape[1], k,
+                                    int(inserted.item())))
+        results.append(res)
+    for res in results:
+        if "idx_equal" in res:
+            check(res["idx_equal"] and res["inf_equal"] and res["bit_equal"],
+                  f"k-NN top-k kernel disagrees with its plain version: {res}")
+    emit({"phase": "knn_topk_kernel_vs_plain", "cases": results,
+          "kernel_ms": "device time of one call from a CUDA graph of 20 calls",
+          "library_ms": None,
+          "library_why": "torch.cdist + topk: two calls, and the matmul identity the "
+                         "contract forbids"})
+    return results
+
+
 def estep_launches_fit(launches: int, rec, cpd_ops) -> bool:
     """E-step launches of a pair's streamed EM runs (``rec``, a
     CpdRecorder): two per iteration, plus two per masked iteration replayed
@@ -871,7 +999,7 @@ def graph_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (calls * reps)
 
 
-def phase_cpd_estep(torch, EK, cpd_ops, cases):
+def phase_cpd_estep(torch, EK, cpd_ops, cases, phase="cpd_estep_kernel_vs_plain"):
     """The streamed E-step kernel against ``cpd_estep_plain`` on the card at
     the main paths' shapes (10242^2 full resolution, 5000^2 the raw
     defaults) and widths (D = 3; D = 6 with xyz appended), at the initial
@@ -914,7 +1042,7 @@ def phase_cpd_estep(torch, EK, cpd_ops, cases):
                "dense_estep_ms": dense, **estep_bound(M, N, D)}
         check(ok, f"E-step kernel disagrees with its plain version: {res}")
         results.append(res)
-    emit({"phase": "cpd_estep_kernel_vs_plain", "cases": results,
+    emit({"phase": phase, "cases": results,
           "tolerance": f"max |kernel - plain| <= {ESTEP_TOL_OF_SCALE} x max(1, max |plain|) "
                        "per output",
           "dense_estep_ms": "ops/cpd._estep, P [M, N] materialized: the E-step the "
@@ -922,6 +1050,29 @@ def phase_cpd_estep(torch, EK, cpd_ops, cases):
           "first_kernel_version_ms": FIRST_ESTEP_KERNEL_MS,
           "launches": "one E-step is two launches, the den pass and the row pass"})
     return results
+
+
+def wide_estep_cases(torch, sizes=(5000, 10242), widths=WIDE_ESTEP_D, device="cuda"):
+    """E-step inputs for the kernel's chunked D > 16 instance, from a seed:
+    X [n, D] spectral-like coordinates (N(0, 1/D) a column, |x| ~ 1) and TY
+    the same points shuffled and moved by N(0, 0.02^2 / D), as late in EM;
+    at sigma2 1e-2 (a late EM iteration: matched pairs at exp(-0.02), the
+    nearest others within a few sigma) and,
+    for the first size and width, at the initial sigma2 sum |x - ty|^2 /
+    (D M N), as the first iteration sees it."""
+    g = torch.Generator().manual_seed(7)
+    cases = []
+    for n in sizes:
+        for d in widths:
+            X = torch.randn(n, d, generator=g) / d ** 0.5
+            TY = X[torch.randperm(n, generator=g)] + torch.randn(n, d, generator=g) * (0.02 / d ** 0.5)
+            X, TY = X.to(device).contiguous(), TY.to(device).contiguous()
+            cases.append((f"{n}_d{d}_late", X, TY, 1e-2))
+            if n == sizes[0] and d == widths[0]:
+                s2 = float(((X * X).sum() * n + (TY * TY).sum() * n
+                            - 2 * (X.sum(0) * TY.sum(0)).sum()) / (d * n * n))
+                cases.append((f"{n}_d{d}_initial", X, TY, s2))
+    return cases
 
 
 def phase_cpd_loops(torch, cpd_ops, EK, runs):
@@ -1333,7 +1484,11 @@ def compare_runs(gpu, cpu):
         vg /= np.linalg.norm(vg, axis=0)
         vc /= np.linalg.norm(vc, axis=0)
         # Group near-degenerate eigenvalues: compare their subspaces (the
-        # smallest singular value of the cross-Gram), single modes by |cos|.
+        # smallest singular value of the cross-Gram of orthonormal bases of
+        # each, the cosine of the largest principal angle), single modes by
+        # |cos|.  Centred eigenvectors are no longer orthogonal, so each
+        # group's columns are orthonormalised first: unorthogonalised, two
+        # identical groups whose centred columns meet at cos c read 1 - |c|.
         groups, cur = [], [0]
         for c in range(1, len(lc)):
             if (lc[c] - lc[c - 1]) / lc[c] < DEGENERATE_GAP:
@@ -1343,7 +1498,8 @@ def compare_runs(gpu, cpu):
                 cur = [c]
         groups.append(cur)
         for grp in groups:
-            sv = np.linalg.svd(vc[:, grp].T @ vg[:, grp], compute_uv=False)
+            qc, qg = np.linalg.qr(vc[:, grp])[0], np.linalg.qr(vg[:, grp])[0]
+            sv = np.linalg.svd(qc.T @ qg, compute_uv=False)
             worst_cos = min(worst_cos, float(sv.min()))
         out[f"groups_{side}"] = groups
     cg = gpu["correspondences"].cpu().numpy()
@@ -2675,6 +2831,165 @@ def phase_cohort(torch, tp, kernels, smi, deterministic, device="cuda", levels=5
     return launches
 
 
+def phase_wide_coords(torch, tp, kernels, smi, device="cuda", levels=5,
+                      cpu_levels=CPU_CHECK_LEVELS, cpu_check=True):
+    """Wide coordinates and the class API's output stage on ``device``:
+    ``Focusr`` at the class defaults with ``WIDE_CFG`` (16 spectral
+    features and xyz: D = 19) on the ``levels`` pair, ``align_maps()``,
+    then ``get_weighted_final_node_locations`` at each k of ``WIDE_KS``,
+    ``transfer_point_data`` of the target's thickness, and the average
+    shape carrying it through ``save_mesh`` / ``load_mesh`` in .vtk and
+    .vtp; first call and warm, the launch counts set to 0 before each and
+    read after.  Checks: the initial correspondences took the tiled route
+    (``ops/knn.nn_tiled``) at D = 19 and nothing else did; both CPD runs
+    took the streamed E-step at D = 19; each k's locations equal the plain
+    k-NN's (``knn_plain`` + ``idw_from_knn`` on the same inputs) bit for
+    bit; the transfer equals the same transfer on the CPU; the round trip
+    gives back the points (.vtp exactly, .vtk within its 10 digits) and the
+    transferred scalar.  On the card, CUDA against CPU at ``cpu_levels``
+    under ``WIDE_CHECK_CFG`` and the 'kd' gates.  Returns the warm run's
+    launches."""
+    from pyfocusr_tpu_torch.ops import cpd as cpd_ops
+    from pyfocusr_tpu_torch.ops import knn as knn_ops
+    from pyfocusr_tpu_torch.ops import knn_kernel
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    target, source = synthetic_bone(tp, 2, levels), synthetic_bone(tp, 1, levels)
+    d_wide = WIDE_CFG["n_spectral_features"] + 3
+    out = {"phase": "wide_coords", "nvidia_smi": smi, "n": source.n_points,
+           "config": "Focusr class defaults (pyfocusr_tpu/focusr.py:48-94) with "
+                     f"{WIDE_CFG}", "d": d_wide}
+    tiled = []
+    real_nn, real_knn = knn_ops.nn_tiled, knn_ops.knn_tiled
+
+    def nn_tiled(ref, query, *a, **kw):
+        tiled.append(("nn", ref.shape[1]))
+        return real_nn(ref, query, *a, **kw)
+
+    def knn_tiled(ref, query, k, *a, **kw):
+        tiled.append(("knn", ref.shape[1]))
+        return real_knn(ref, query, k, *a, **kw)
+
+    knn_ops.nn_tiled, knn_ops.knn_tiled = nn_tiled, knn_tiled
+    runs = []
+    tmp = tempfile.mkdtemp(prefix="wide_coords_")
+    try:
+        for _ in range(2):
+            tiled.clear()
+            sync(torch, device)
+            for mod in kernels.values():
+                mod.LAUNCHES = 0
+            t0 = time.perf_counter()
+            with CpdRecorder(cpd_ops) as rec, contextlib.redirect_stdout(io.StringIO()):
+                reg = tp.Focusr(target, source, device=device, **WIDE_CFG)
+                reg.align_maps()
+                sync(torch, device)
+                align_s = time.perf_counter() - t0
+                weighted = {}
+                for k in WIDE_KS:
+                    reg.get_weighted_final_node_locations(n_closest_pts=k)
+                    weighted[k] = reg.weighted_avg_transformed_points
+                transferred = reg.transfer_point_data()
+                avg = tp.mesh_with_transferred_data(
+                    reg.get_average_shape(), target,
+                    {"correspondences": reg.corresponding_target_idx_for_each_source_pt,
+                     "smoothed_target_coords": reg.smoothed_target_coords,
+                     "source_projected_on_target": reg.source_projected_on_target},
+                    names=[FEATURE], suffix="_from_target", device=device)
+                loaded = {}
+                for ext in (".vtk", ".vtp"):
+                    path = os.path.join(tmp, f"average{ext}")
+                    tp.save_mesh(path, avg)
+                    loaded[ext] = tp.load_mesh(path)
+            sync(torch, device)
+            runs.append({"s": time.perf_counter() - t0, "align_maps_s": align_s,
+                         "outputs_s": time.perf_counter() - t0 - align_s,
+                         "stages_s": reg.timer.totals(),
+                         "launches": {k: m.LAUNCHES for k, m in kernels.items()},
+                         "tiled_route": list(tiled),
+                         "cpd_affine": rec.affine_runs, "cpd_deformable": rec.runs,
+                         "quality": reg.registration_quality()})
+    finally:
+        knn_ops.nn_tiled, knn_ops.knn_tiled = real_nn, real_knn
+    out["first"], out["warm"] = runs
+    warm = runs[1]
+    check(tuple(reg.source_spectral_coords.shape) == (source.n_points, d_wide),
+          f"wide coordinates: {tuple(reg.source_spectral_coords.shape)}")
+    check(("nn", d_wide) in warm["tiled_route"]
+          and all(d > knn_kernel.MAX_D for _, d in warm["tiled_route"]),
+          f"the tiled k-NN route ran where JAX's would not: {warm['tiled_route']}")
+    n_cpd = min(5000, source.n_points)
+    route = "streamed" if n_cpd * n_cpd > 3000 * 3000 else "dense"
+    check(warm["cpd_affine"][-1]["estep_impl"] == route
+          and warm["cpd_deformable"][-1]["estep_impl"] == route,
+          f"the wide path's CPD did not take the {route} E-step: {warm}")
+    if on_card:
+        check(warm["launches"]["knn_topk"] == len(WIDE_KS),
+              f"the weighted locations at k = {WIDE_KS} launched {warm['launches']}")
+        for name in ("knn", "umeyama3", "cpd_estep"):
+            check(warm["launches"][name] > 0, f"the wide path launched no {name} kernel")
+    check(warm["quality"]["unique_fraction"] > 0.5, f"wide path quality {warm['quality']}")
+
+    # The path's outputs held to plain versions on the same inputs.
+    ref_q, query = reg.smoothed_target_coords, reg.source_projected_on_target
+    same_weighted = {}
+    for k, w in weighted.items():
+        check(tuple(w.shape) == (source.n_points, 3) and bool(torch.isfinite(w).all()),
+              f"weighted locations at k = {k}")
+        pd, pi = knn_kernel.knn_plain(ref_q.contiguous(), query.contiguous(), k)
+        plain = knn_ops.idw_from_knn(pd, pi.long(), reg.graph_target.points)
+        same_weighted[str(k)] = bool(torch.equal(w, plain))
+    geometry = {"correspondences": reg.corresponding_target_idx_for_each_source_pt,
+                "smoothed_target_coords": ref_q.cpu(),
+                "source_projected_on_target": query.cpu()}
+    tgt_cpu = target.with_points(np.asarray(target.points))
+    cpu_transfer = tp.transfer_point_data(tgt_cpu, geometry, device="cpu")
+    nearest = reg.transfer_point_data(method="nearest")
+    transfer_diff = {name: float(np.abs(transferred[name] - cpu_transfer[name]).max())
+                     for name in transferred}
+    io_check = {}
+    for ext, m in loaded.items():
+        pts = avg.points.cpu().numpy()
+        io_check[ext] = {
+            "points_max_abs_diff": float(np.abs(m.points - pts).max()),
+            "triangles_equal": bool(np.array_equal(m.triangles, np.asarray(avg.triangles))),
+            "scalar_max_abs_diff": float(np.abs(
+                m.point_data[FEATURE + "_from_target"]
+                - np.asarray(avg.point_data[FEATURE + "_from_target"])).max())}
+    out["checks"] = {"weighted_equal_plain": same_weighted, "transfer_max_abs_diff_vs_cpu":
+                     transfer_diff, "io": io_check}
+    check(all(same_weighted.values()), f"weighted locations vs plain: {same_weighted}")
+    thick = np.asarray(target.point_data[FEATURE])
+    check(np.array_equal(nearest[FEATURE],
+                         thick[reg.corresponding_target_idx_for_each_source_pt]),
+          "'nearest' transfer is the corresponding target vertices' scalar")
+    check(all(v <= 1e-6 * max(1.0, float(np.abs(thick).max()))
+              for v in transfer_diff.values()),
+          f"transfer on {device} vs the CPU: {transfer_diff}")
+    check(io_check[".vtp"]["points_max_abs_diff"] == 0.0
+          and io_check[".vtp"]["scalar_max_abs_diff"] == 0.0
+          and all(c["triangles_equal"] for c in io_check.values())
+          and io_check[".vtk"]["points_max_abs_diff"] <= 1e-6 * float(np.abs(pts).max())
+          and io_check[".vtk"]["scalar_max_abs_diff"] <= 1e-6 * max(1.0, float(np.abs(thick).max())),
+          f"save_mesh / load_mesh round trip: {io_check}")
+
+    if on_card and cpu_check:
+        small_t = synthetic_bone(tp, 2, cpu_levels)
+        small_s = synthetic_bone(tp, 1, cpu_levels)
+        rr = {dev: focusr_run(torch, tp, kernels, small_t, small_s, dev, **WIDE_CHECK_CFG)
+              for dev in (device, "cpu")}
+        agree = compare_runs(focusr_result(torch, rr[device][0]),
+                             focusr_result(torch, rr["cpu"][0]))
+        out["cuda_vs_cpu"] = {"n": small_s.n_points, "config": WIDE_CHECK_CFG,
+                              **{f"{dev}_s": r[1] for dev, r in rr.items()}, **agree}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if "cuda_vs_cpu" in out:
+        agreement_checks(out["cuda_vs_cpu"], f"wide coordinates CUDA vs CPU ({cpu_levels})")
+    return warm["launches"]
+
+
 def main():
     import torch
 
@@ -2686,16 +3001,18 @@ def main():
     import pyfocusr_tpu_torch as tp
     from pyfocusr_tpu_torch.ops import assignment as TA
     from pyfocusr_tpu_torch.ops import icp as icp_ops
+    from pyfocusr_tpu_torch.ops import cpd as cpd_ops
     from pyfocusr_tpu_torch.ops import (
         cpd_estep_kernel,
         jv_kernel,
         knn_kernel,
+        knn_topk_kernel,
         sinkhorn_kernel,
         umeyama_kernel,
     )
 
-    kernels = {"knn": knn_kernel, "lse_rows": sinkhorn_kernel, "jv": jv_kernel,
-               "cpd_estep": cpd_estep_kernel, "umeyama3": umeyama_kernel}
+    kernels = {"knn": knn_kernel, "knn_topk": knn_topk_kernel, "lse_rows": sinkhorn_kernel,
+               "jv": jv_kernel, "cpd_estep": cpd_estep_kernel, "umeyama3": umeyama_kernel}
     smi = nvidia_smi_line()
     cap = torch.cuda.get_device_capability(0)
     emit({
@@ -2730,6 +3047,8 @@ def main():
     n_t, n_s = target_mesh.n_points, source_mesh.n_points
     knn_results = phase_kernel(torch, knn_kernel, target_mesh.points,
                                source_mesh.points)
+    topk_results = phase_knn_topk(torch, knn_kernel, knn_topk_kernel, target_mesh.points,
+                                  source_mesh.points)
 
     # --- The default 'kd' path ---
     cfg = tp.PipelineConfig(**BENCH_CFG)
@@ -2798,6 +3117,8 @@ def main():
     del prep, graphs
     class_launches, class_h_launches = phase_class_api(torch, tp, kernels, smi,
                                                        deterministic)
+    torch.cuda.empty_cache()
+    wide_launches = phase_wide_coords(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
 
     # --- The two 'hungarian' kernels at the costs that path gives them: the
@@ -2918,6 +3239,9 @@ def main():
     fr_launches, rd_launches, est_results, loop_results = cpd_paths(
         torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi)
     torch.cuda.empty_cache()
+    est_wide = phase_cpd_estep(torch, cpd_estep_kernel, cpd_ops, wide_estep_cases(torch),
+                               phase="cpd_estep_wide_vs_plain")
+    torch.cuda.empty_cache()
     mr_launches = phase_multires(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
     co_launches = phase_cohort(torch, tp, kernels, smi, deterministic)
@@ -2937,12 +3261,14 @@ def main():
     est_main = next(r for r in est_results if r["case"] == f"{n_t}_d3_late")
     est_first = next(r for r in est_results if r["case"] == f"{n_t}_d3_initial")
     est_5000 = next(r for r in est_results if r["case"] == "5000_d3_late")
+    topk_main = next(r for r in topk_results if r["case"] == "xyz_k8")
     emit({"kernels": [
         {
             "name": "knn",
             "route": "cuda",
             "launches_class_api": class_launches["knn"],
             "launches_class_api_hungarian": class_h_launches["knn"],
+            "launches_wide_coords": wide_launches["knn"],
             "source": "pyfocusr_tpu_torch/csrc/knn.cu",
             "replaces": "pyfocusr_tpu/ops/pallas_kernels.py:647",
             "launches": kd_launches["knn"],
@@ -2966,6 +3292,27 @@ def main():
                                                    "plain_ms", "bound_ms", "plan")},
             "icp_shape_ms_k2_k3": [knn_by_case["icp_k2"]["kernel_ms"],
                                    knn_by_case["icp_k3"]["kernel_ms"]],
+        },
+        {
+            "name": "knn_topk",
+            "route": "cuda",
+            "source": "pyfocusr_tpu_torch/csrc/knn_topk.cu",
+            "replaces": "pyfocusr_tpu/ops/pallas_kernels.py:647",
+            # The wide-coordinates path: weighted final locations at WIDE_KS.
+            "launches": wide_launches["knn_topk"],
+            "launches_other_paths": {
+                "kd": kd_launches["knn_topk"], "class_api": class_launches["knn_topk"],
+                "multires": mr_launches["knn_topk"], "cohort": co_launches["knn_topk"]},
+            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in topk_results),
+            "ms": topk_main["kernel_ms"],
+            "plain_ms": topk_main["plain_ms"],
+            "bound_ms": topk_main["bound_ms"],
+            "bound_by": topk_main["bound_by"],
+            "library_ms": None,  # cdist + topk: two calls, and the matmul identity
+            "shape": f"nq={topk_main['nq']} nr={topk_main['nr']} d=3 k=8",
+            "by_case": {r["case"]: {k: r[k] for k in (
+                "kernel_ms", "call_ms", "plain_ms", "bound_ms", "insertions",
+                "distance_only_ms")} for r in topk_results if "kernel_ms" in r},
         },
         {
             "name": "lse_rows",
@@ -3052,6 +3399,14 @@ def main():
             "ms_initial_sigma2": est_first["kernel_ms"],
             "ms_5000_d3": est_5000["kernel_ms"],
             "bound_ms_5000_d3": est_5000["bound_ms"],
+            # The chunked D > 16 instance: the wide-coordinates path's runs
+            # (D = 19 at 5000^2) and each case of cpd_estep_wide_vs_plain.
+            "launches_wide_coords": wide_launches["cpd_estep"],
+            "max_abs_err_wide": max(r["max_abs_err"][k] for r in est_wide
+                                    for k in ("Pt1", "P1", "PX")),
+            "wide": {r["case"]: {k: r[k] for k in (
+                "kernel_ms", "den_pass_ms", "call_ms", "plain_ms", "dense_estep_ms",
+                "bound_ms", "bound_by")} for r in est_wide},
             "em_loop": {r["case"]: {k: r[k] for k in (
                 "iterations", "host_ms_per_iteration", "device_ms_per_iteration",
                 "device_span_ms_per_iteration", "replays", "host_reads", "capture_ms")}

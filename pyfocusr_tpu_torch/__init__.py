@@ -45,11 +45,19 @@ Entry points:
   :func:`iterate_template` / :func:`build_ssm_template` (the groupwise
   loop with its Procrustes close), :func:`cohort_shape_modes`,
   :func:`ssm_project`, :func:`ssm_sample`, :func:`fit_subject_to_ssm`,
-  :func:`cohort_mean_shape` and :func:`all_pairs_surface_errors`.
+  :func:`cohort_mean_shape` and :func:`all_pairs_surface_errors`;
+* the output surface (``pyfocusr_tpu/__init__.py``): :func:`load_mesh` /
+  :func:`save_mesh` (.vtk, .vtp, .ply, .obj, .stl over copies of the JAX
+  package's numpy readers and writers in ``io/``), the ``vtk_functions``
+  module, :func:`transfer_point_data`, :func:`mesh_with_transferred_data`
+  and :func:`cohort_point_data_matrix` (``Focusr.transfer_point_data`` on
+  top), :func:`recursive_eig`, :func:`print_header` and
+  ``features_dictionary``.
 """
 
+from . import vtk_functions
 from .focusr import Focusr
-from .mesh import MeshTopology, TriMesh, as_trimesh, build_topology
+from .mesh import MeshTopology, TriMesh, as_trimesh, build_topology, load_mesh, save_mesh
 from .metrics import registration_quality, surface_distance
 from .multires import decimate, register_pair_multires, subdivide
 from .ops.assignment import linear_sum_assignment
@@ -88,7 +96,29 @@ from .pipeline import (
     warm_block_from_prepared,
 )
 from .spectral.eigsort import eigsort
-from .spectral.graph import Graph
+from .spectral.graph import Graph, features_dictionary
+from .transfer import cohort_point_data_matrix, mesh_with_transferred_data, transfer_point_data
+from .utils.logging import print_header
+
+
+
+def recursive_eig(matrix, k, n_k_needed, k_buffer=1, sigma=1e-10, which="LM"):
+    """The reference's ``recursive_eig`` (``graph.py:357-389``; JAX
+    ``pyfocusr_tpu/__init__.py:46-72``): the ``n_k_needed`` smallest
+    eigenpairs with eigenvalue > 1e-10 of an explicit (scipy sparse or
+    dense) matrix, as numpy.  Small matrices only: it densifies and runs
+    O(N^3) ``np.linalg.eig``; at mesh scale use ``Graph.get_graph_spectrum``."""
+    import numpy as np
+
+    min_eig_val = 1e-10
+    dense = matrix.toarray() if hasattr(matrix, "toarray") else np.asarray(matrix)
+    vals, vecs = np.linalg.eig(dense)
+    order = np.argsort(np.abs(vals - sigma))
+    vals, vecs = vals[order], vecs[:, order]
+    keep = np.where(vals.real > min_eig_val)[0][: max(k, n_k_needed)]
+    keep = keep[np.argsort(vals.real[keep])][:n_k_needed]
+    return np.real(vals[keep]), np.real(vecs[:, keep])
+
 
 __all__ = [
     "Focusr",
@@ -104,29 +134,36 @@ __all__ = [
     "build_topology",
     "check_cohort_config",
     "cohort_mean_shape",
+    "cohort_point_data_matrix",
     "cohort_shape_modes",
     "config_from_dict",
     "decimate",
     "deformable_registration",
     "eigsort",
+    "features_dictionary",
     "fit_subject_to_ssm",
     "graph_arrays_from_numpy",
     "iterate_template",
     "landmark_pairs_from_positions",
     "linear_sum_assignment",
+    "load_mesh",
     "load_prepared_target",
     "make_cohort_draws",
     "make_draws",
     "mesh_to_graph_arrays",
+    "mesh_with_transferred_data",
     "pad_cohort",
     "prepare_source",
     "prepare_target",
+    "print_header",
+    "recursive_eig",
     "register_cohort",
     "register_pair",
     "register_pair_multires",
     "register_pair_prepared",
     "register_pair_prepared_source",
     "registration_quality",
+    "save_mesh",
     "save_prepared_target",
     "source_spectrum_hoistable",
     "ssm_project",
@@ -134,5 +171,7 @@ __all__ = [
     "stack_graph_arrays",
     "subdivide",
     "surface_distance",
+    "transfer_point_data",
+    "vtk_functions",
     "warm_block_from_prepared",
 ]

@@ -49,7 +49,28 @@
 //   * The ragged edges are masked by index; the TPU version's +-1e15
 //     padding has no counterpart.
 //
-// f32 only, 1 <= D <= 16.
+// Those instances hold a row and its PX accumulators in registers, so they
+// stop at D = 16.  Wider coordinates (spectral features with xyz or node
+// features appended) take the chunked instance, `estep_den_chunked` /
+// `estep_row_chunked`, which computes the same contract for any D:
+//   * a warp owns kChunkRows rows and each lane kChunkPts points of a tile of
+//     kChunkTile points of the other cloud, so a lane holds kChunkRows x
+//     kChunkPts squared distances in registers and nothing sized by D;
+//   * the tile is staged transposed, kChunkDims dimensions at a time, in a
+//     padded [dim][point] array, so a lane reads its points without bank
+//     conflicts; the warp's own rows are read once a dimension from L1;
+//   * the row pass writes the tile's p (times 1/den) to shared memory, then
+//     each lane owns one dimension of a chunk and sums p x over the tile;
+//     the warp adds the tile's sums into its own rows of PX in device
+//     memory (zeroed first, owned by the warp, so no atomics);
+//   * exp is the accurate `expf` of exp(d2 * -(1 / 2 s2)), the plain
+//     version's formula: the fast ex2 of the instances above reaches 8.6e-6
+//     of scale at D = 6 against the 1e-5 gate, and longer sums grow it.
+// Per (m, n) pair both passes issue about 5 D + 30 instructions (the
+// distance twice, PX once, two expf), so at D = 19 the chunked instance is
+// issue-bound.
+//
+// f32 only, D >= 1.
 
 #include <cuda_runtime.h>
 
@@ -300,10 +321,208 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------ D > 16: the chunked instance
+constexpr int kRegisterD = 16;     // widest D of the register-resident instances
+constexpr int kChunkRows = 4;   // rows a warp owns
+constexpr int kChunkPts = 4;    // points of the other cloud a lane takes a tile
+constexpr int kChunkTile = 32 * kChunkPts;
+constexpr int kChunkDims = 32;             // dimensions staged at once
+constexpr int kChunkPitch = kChunkTile + 1;  // padded: conflict-free columns
+
+// Stages dimensions [c0, c0 + dc) of points [base, base + cols) of P [n, D]
+// transposed into s[dim][point], zero past `cols`.  Consecutive threads take
+// consecutive dimensions of a point: coalesced reads, and a pitch of
+// kChunkTile + 1 spreads the writes over the banks.
+__device__ void stage_chunk(float (*s)[kChunkPitch], const float* __restrict__ P,
+                           int D, int base, int cols, int c0, int dc) {
+  for (int e = threadIdx.x; e < kChunkTile * dc; e += kThreads) {
+    const int j = e / dc;
+    const int dd = e - j * dc;
+    s[dd][j] = j < cols ? P[(size_t)(base + j) * D + c0 + dd] : 0.0f;
+  }
+}
+
+// Squared distances of the warp's kChunkRows rows of `own` [*, D] (rows
+// clamped into range by the caller) to the lane's kChunkPts points of the
+// tile of `other`, fmaf in dimension order, the tile staged chunk by chunk
+// into `s` by the whole block.
+__device__ void chunk_d2(float (&d2)[kChunkPts][kChunkRows], const float* __restrict__ own,
+                        const int (&rows)[kChunkRows], const float* __restrict__ other,
+                        int D, int base, int cols, float (*s)[kChunkPitch], int lane) {
+#pragma unroll
+  for (int i = 0; i < kChunkPts; ++i) {
+#pragma unroll
+    for (int j = 0; j < kChunkRows; ++j) d2[i][j] = 0.0f;
+  }
+  for (int c0 = 0; c0 < D; c0 += kChunkDims) {
+    const int dc = min(kChunkDims, D - c0);
+    __syncthreads();  // the previous chunk has been read
+    stage_chunk(s, other, D, base, cols, c0, dc);
+    __syncthreads();
+    for (int dd = 0; dd < dc; ++dd) {
+      float xr[kChunkRows];
+#pragma unroll
+      for (int j = 0; j < kChunkRows; ++j) xr[j] = __ldg(&own[(size_t)rows[j] * D + c0 + dd]);
+#pragma unroll
+      for (int i = 0; i < kChunkPts; ++i) {
+        const float t = s[dd][lane + 32 * i];
+#pragma unroll
+        for (int j = 0; j < kChunkRows; ++j) {
+          const float diff = xr[j] - t;
+          d2[i][j] = fmaf(diff, diff, d2[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// The den pass for D > 16: a warp owns kChunkRows rows of X and reduces over
+// all of TY.
+__global__ void __launch_bounds__(kThreads)
+    estep_den_chunked(Args a, float outlier_coef, float* __restrict__ pt1,
+                   float* __restrict__ L) {
+  if (a.done != nullptr && *a.done) return;
+  __shared__ float sty[kChunkDims][kChunkPitch];
+  const int lane = threadIdx.x & 31;
+  const float s2 = *a.sigma2;
+  const float neg = -(1.0f / (2.0f * s2));
+  const int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kChunkRows;
+  int rows[kChunkRows];
+  float acc[kChunkRows];
+#pragma unroll
+  for (int j = 0; j < kChunkRows; ++j) {
+    rows[j] = min(row0 + j, a.N - 1);
+    acc[j] = 0.0f;
+  }
+  for (int base = 0; base < a.M; base += kChunkTile) {
+    const int cols = min(kChunkTile, a.M - base);
+    float d2[kChunkPts][kChunkRows];
+    chunk_d2(d2, a.X, rows, a.TY, a.D, base, cols, sty, lane);
+#pragma unroll
+    for (int i = 0; i < kChunkPts; ++i) {
+      if (lane + 32 * i < cols) {
+#pragma unroll
+        for (int j = 0; j < kChunkRows; ++j) acc[j] += expf(d2[i][j] * neg);
+      }
+    }
+  }
+  const float c = outlier_coef > 0.0f
+                      ? powf(2.0f * 3.14159265358979f * s2, 0.5f * a.D) * outlier_coef
+                      : 0.0f;
+  float log_sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kChunkRows; ++j) {
+    const float v = fmaxf(warp_sum(acc[j]) + c, 1e-30f);
+    const int n = row0 + j;
+    if (n < a.N) {
+      const float inv = 1.0f / v;
+      if (lane == j) {
+        a.inv_den[n] = inv;
+        pt1[n] = 1.0f - c * inv;
+      }
+      log_sum += logf(v);
+    }
+  }
+  float total;
+  if (grid_sum(block_sum_of_warps(log_sum), a.block_sums, a.counter, &total)) {
+    *L = -total + (float)a.D * (float)a.N * logf(s2) / 2.0f;
+  }
+}
+
+// The row pass for D > 16: a warp owns kChunkRows rows of TY and reduces
+// over all of X; p1px is P1 [M] then PX [M, D].
+__global__ void __launch_bounds__(kThreads)
+    estep_row_chunked(Args a, float* __restrict__ p1px, float* __restrict__ Np) {
+  if (a.done != nullptr && *a.done) return;
+  __shared__ float sx[kChunkDims][kChunkPitch];
+  __shared__ __align__(16) float sp[kWarps][kChunkRows][kChunkTile];
+  __shared__ float sinv[kChunkTile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float neg = -(1.0f / (2.0f * *a.sigma2));
+  const int row0 = (blockIdx.x * kWarps + warp) * kChunkRows;
+  float* px = p1px + a.M;
+  int rows[kChunkRows];
+  float p1[kChunkRows];
+#pragma unroll
+  for (int j = 0; j < kChunkRows; ++j) {
+    rows[j] = min(row0 + j, a.M - 1);
+    p1[j] = 0.0f;
+    if (row0 + j < a.M) {
+      // Lane l owns dimensions l, l + 32, ...: the same lane adds to them
+      // below, so no barrier orders the zeroing.
+      for (int d = lane; d < a.D; d += 32) px[(size_t)(row0 + j) * a.D + d] = 0.0f;
+    }
+  }
+  for (int base = 0; base < a.N; base += kChunkTile) {
+    const int cols = min(kChunkTile, a.N - base);
+    __syncthreads();  // the previous tile's 1/den and p have been read
+    for (int e = threadIdx.x; e < kChunkTile; e += kThreads) {
+      sinv[e] = e < cols ? a.inv_den[base + e] : 0.0f;
+    }
+    float d2[kChunkPts][kChunkRows];
+    chunk_d2(d2, a.TY, rows, a.X, a.D, base, cols, sx, lane);  // its barriers publish sinv
+#pragma unroll
+    for (int i = 0; i < kChunkPts; ++i) {
+      const int jj = lane + 32 * i;
+      const float inv = sinv[jj];  // 0 past the tile: p = 0 there
+#pragma unroll
+      for (int j = 0; j < kChunkRows; ++j) {
+        const float p = expf(d2[i][j] * neg) * inv;
+        p1[j] += p;
+        sp[warp][j][jj] = p;
+      }
+    }
+    __syncwarp();
+    for (int c0 = 0; c0 < a.D; c0 += kChunkDims) {
+      const int dc = min(kChunkDims, a.D - c0);
+      __syncthreads();
+      stage_chunk(sx, a.X, a.D, base, cols, c0, dc);
+      __syncthreads();
+      if (lane < dc) {
+        float acc[kChunkRows];
+#pragma unroll
+        for (int j = 0; j < kChunkRows; ++j) acc[j] = 0.0f;
+        for (int jj = 0; jj < cols; jj += 4) {  // zero p and x past the tile
+          const float x0 = sx[lane][jj], x1 = sx[lane][jj + 1];
+          const float x2 = sx[lane][jj + 2], x3 = sx[lane][jj + 3];
+#pragma unroll
+          for (int j = 0; j < kChunkRows; ++j) {
+            const float4 p4 = *reinterpret_cast<const float4*>(&sp[warp][j][jj]);
+            acc[j] = fmaf(p4.x, x0, acc[j]);
+            acc[j] = fmaf(p4.y, x1, acc[j]);
+            acc[j] = fmaf(p4.z, x2, acc[j]);
+            acc[j] = fmaf(p4.w, x3, acc[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kChunkRows; ++j) {
+          if (row0 + j < a.M) px[(size_t)(row0 + j) * a.D + c0 + lane] += acc[j];
+        }
+      }
+    }
+  }
+  float p1_sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kChunkRows; ++j) {
+    const float s = warp_sum(p1[j]);
+    const int m = row0 + j;
+    if (m < a.M) {
+      if (lane == j) p1px[m] = s;
+      p1_sum += s;
+    }
+  }
+  float total;
+  if (grid_sum(block_sum_of_warps(p1_sum), a.block_sums, a.counter, &total)) {
+    *Np = total;
+  }
+}
+
 int padded(int D) { return D <= 3 ? 3 : D <= 6 ? 6 : D <= 8 ? 8 : 16; }
 
 // Rows a warp owns for `rows` output rows at width D.
 int rows_per_warp(int rows, int D) {
+  if (D > kRegisterD) return kChunkRows;
   if (rows < kWideMin || padded(D) > 8) return 2;
   return padded(D) == 6 ? kRowsD6 : kRows;
 }
@@ -313,7 +532,7 @@ int blocks_for(int rows, int D) {
   return (rows + per_block - 1) / per_block;
 }
 
-bool bad_shape(int N, int M, int D) { return N < 1 || M < 1 || D < 1 || D > 16; }
+bool bad_shape(int N, int M, int D) { return N < 1 || M < 1 || D < 1; }
 
 // Makes `device` current if it is not (a CUDA graph capture may be under way,
 // so nothing else is called).
@@ -363,6 +582,10 @@ extern "C" int pyfocusr_cpd_estep_den_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{X, TY, N, M, D, sigma2, done, inv_den, block_sums, counter};
   const int blocks = blocks_for(N, D);
+  if (D > kRegisterD) {
+    estep_den_chunked<<<blocks, kThreads, 0, s>>>(a, outlier_coef, pt1, L);
+    return (int)cudaGetLastError();
+  }
   const bool wide = rows_per_warp(N, D) > 2;
   switch (padded(D)) {
     case 3: (wide ? den_launch<3, kRows> : den_launch<3, 2>)(a, outlier_coef, pt1, L, blocks, s); break;
@@ -386,6 +609,10 @@ extern "C" int pyfocusr_cpd_estep_rows_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{X, TY, N, M, D, sigma2, done, inv_den, block_sums, counter};
   const int blocks = blocks_for(M, D);
+  if (D > kRegisterD) {
+    estep_row_chunked<<<blocks, kThreads, 0, s>>>(a, p1px, Np);
+    return (int)cudaGetLastError();
+  }
   const bool wide = rows_per_warp(M, D) > 2;
   switch (padded(D)) {
     case 3: (wide ? row_launch<3, kRows> : row_launch<3, 2>)(a, p1px, Np, blocks, s); break;

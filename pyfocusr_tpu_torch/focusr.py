@@ -6,8 +6,8 @@ constructor (:48-222: ICP of the full clouds, both ``Graph`` objects with
 seeds ``seed`` and ``seed + 1``, the deferred spectra), ``align_maps``
 stage by stage (:654-731), ``align_maps_pipeline`` over ``register_pair``
 (:531-642), the correspondences, final locations, average shape, scalar
-setters, transformed meshes, ``icp_transform`` and
-``registration_quality``.  ``transfer_point_data``, the ``view_*`` viewers
+setters, transformed meshes, ``transfer_point_data`` (:437),
+``icp_transform`` and ``registration_quality``.  The ``view_*`` viewers
 and ``export_viewer_html`` raise ``NotImplementedError`` naming their
 ROADMAP item.
 
@@ -357,7 +357,28 @@ class Focusr(object):
         return self.average_mesh
 
     def transfer_point_data(self, names=None, method="idw"):
-        raise _not_ported("Focusr.transfer_point_data", "7")
+        """Pull named target point_data onto source vertices through the
+        computed correspondences (``transfer.transfer_point_data``, on this
+        object's device).  Call after :meth:`align_maps`; returns ``{name:
+        [Ns] array}`` of numpy arrays."""
+        from .transfer import transfer_point_data as _transfer
+
+        if self.corresponding_target_idx_for_each_source_pt is None:
+            raise RuntimeError("call align_maps() before transfer_point_data()")
+        smoothed = (self.smoothed_target_coords
+                    if self.smoothed_target_coords is not None
+                    else self.graph_target.points)
+        projected = (self.source_projected_on_target
+                     if self.source_projected_on_target is not None
+                     else self.graph_source.points)
+        result = {
+            "correspondences": np.asarray(
+                self.corresponding_target_idx_for_each_source_pt),
+            "smoothed_target_coords": smoothed,
+            "source_projected_on_target": projected,
+        }
+        return _transfer(self.graph_target.mesh, result, names, method,
+                         device=self.device)
 
     # --- Spectral weighting ---
     def calc_c_weighting_spectral(self):

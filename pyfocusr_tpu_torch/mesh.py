@@ -2,8 +2,10 @@
 
 Counterpart of ``pyfocusr_tpu/mesh.py``: ``TriMesh`` (:36, with
 ``with_points`` and ``with_point_data``), ``MeshTopology`` (:84), the numpy
-path of ``build_topology`` (:115, :178-264) and ``as_trimesh`` (:267-360,
-with the duck-typed ``vtkPolyData`` branch, which imports no vtk).  Topology
+path of ``build_topology`` (:115, :178-264), ``as_trimesh`` (:267-360,
+with the duck-typed ``vtkPolyData`` branch, which imports no vtk) and
+``load_mesh`` / ``save_mesh`` (:363, :384) over the copies of the JAX
+package's readers and writers in ``io/``.  Topology
 is one vectorized numpy pass at load; the tensors the pipeline iterates on
 are made from it by ``pipeline.mesh_to_graph_arrays``.
 
@@ -20,7 +22,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["TriMesh", "MeshTopology", "as_trimesh", "build_topology"]
+from .io.mesh_formats import read_any, write_any
+from .utils.device import to_numpy
+
+__all__ = ["TriMesh", "MeshTopology", "as_trimesh", "build_topology", "load_mesh",
+           "save_mesh"]
 
 
 def _array(values):
@@ -270,4 +276,30 @@ def as_trimesh(obj) -> TriMesh:
     raise TypeError(
         f"cannot interpret {type(obj).__name__!r} as a mesh: expected a "
         "TriMesh or a vtkPolyData-like object"
+    )
+
+
+def load_mesh(path: str, dtype=np.float32) -> TriMesh:
+    """Load a mesh file into a :class:`TriMesh` of numpy arrays (replaces
+    ``vtk_functions.read_vtk_mesh``, reference ``vtk_functions.py:5-9``).
+    Format by extension: legacy ``.vtk`` PolyData, XML ``.vtp``, ``.ply``,
+    ``.obj`` and ``.stl``.  The arrays stay on the host;
+    ``pipeline.mesh_to_graph_arrays`` moves them to the device."""
+    points, triangles, point_data = read_any(path)
+    return TriMesh(
+        points=np.asarray(points, dtype=dtype),
+        triangles=np.asarray(triangles, dtype=np.int32),
+        point_data={k: np.asarray(v, dtype=dtype) for k, v in point_data.items()},
+    )
+
+
+def save_mesh(path: str, mesh: TriMesh) -> None:
+    """Write ``mesh`` (numpy arrays or tensors on any device) in the format
+    implied by ``path``'s extension (.vtk / .vtp / .ply / .obj / .stl); the
+    file is the one the JAX package's ``save_mesh`` writes."""
+    write_any(
+        path,
+        to_numpy(mesh.points, np.float64),
+        to_numpy(mesh.triangles),
+        {k: to_numpy(v, np.float64) for k, v in mesh.point_data.items()},
     )

@@ -26,7 +26,10 @@ that the kernel reads sigma2 on the device and nothing else.
 
 Not carried from the TPU version: the +-1e15 padding (the kernel masks the
 ragged edge by index), the ``tile_m`` / ``tile_n`` block sizes, and the
-``M N >= 4096^2`` dispatch between Pallas and XLA.  f32 only, 1 <= D <= 16.
+``M N >= 4096^2`` dispatch between Pallas and XLA.  f32 only, any D >= 1,
+as in the JAX package: the kernel's register-resident instances take D <= 16
+and its chunked instance (``estep_den_chunked`` / ``estep_row_chunked``,
+accurate ``expf``) any wider D.
 
 ``estep_for(X, M, w)`` gives the E-step of one EM run: ``CudaEstep`` for a
 CUDA X (its workspaces and outputs allocated once, each call two launches
@@ -48,7 +51,6 @@ from ._cuda_build import CudaLibrary, require_sm90
 
 __all__ = [
     "LAUNCHES",
-    "MAX_D",
     "CudaEstep",
     "cpd_estep",
     "cpd_estep_cuda",
@@ -63,10 +65,6 @@ __all__ = [
 # the launches adds them at each replay (ops/cpd.py).  Callers reset it to 0
 # to count a run's launches.
 LAUNCHES = 0
-
-# Widest point dimension the kernel takes (its register arrays are padded
-# to 3, 6, 8 or 16).
-MAX_D = 16
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _LIBRARY = CudaLibrary("cpd_estep.cu", "cpd_estep", "CPD E-step", {
@@ -117,8 +115,8 @@ def _check_inputs(X: torch.Tensor, TY: torch.Tensor):
         )
     if X.dtype != torch.float32 or TY.dtype != torch.float32:
         raise TypeError(f"cpd_estep needs float32, got {X.dtype} and {TY.dtype}")
-    if not 1 <= X.shape[1] <= MAX_D:
-        raise ValueError(f"cpd_estep takes 1 <= D <= {MAX_D}, got D = {X.shape[1]}")
+    if X.shape[1] < 1:
+        raise ValueError("cpd_estep needs D >= 1")
     if X.shape[0] < 1 or TY.shape[0] < 1:
         raise ValueError("cpd_estep needs at least one point in X and in TY")
 

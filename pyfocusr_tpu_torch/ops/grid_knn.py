@@ -37,8 +37,8 @@ The k-th neighbour distance is estimated as the JAX package does, from up
 to 4096 strided sample rows, but against the reference rows that are not
 sampled (thinned to at most 262144, with the 2-manifold density correction
 sqrt(kept / all)): the JAX package asks the brute kernel for k + 1
-neighbours to step over each sample's own row, and the port's kernel stops
-at k = 3.
+neighbours to step over each sample's own row; leaving the sample rows out
+of the references does the same with k.
 
 Reference rows with a non-finite coordinate or one at or above 1e29 in
 magnitude (``ops.knn.SENTINEL``) are never candidates, as in the kernel.

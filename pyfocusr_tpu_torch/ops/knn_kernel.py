@@ -28,10 +28,14 @@ Contract (both versions, bit-identical to each other):
 * Euclidean distances f32 ``[nq, k]``, indices int32 ``[nq, k]``.
 
 ``knn`` dispatches on where the tensors lie: CPU tensors take
-``knn_plain``; CUDA tensors launch the kernel or raise.  There is no
-fallback from one to the other.  ``knn_cuda`` can write into outputs the
-caller allocated once and skip on a device flag (``out=``, ``done=``), so
-that a loop captured as a CUDA graph allocates nothing for it.
+``knn_plain``; CUDA tensors launch a kernel or raise.  There is no
+fallback from one to the other.  ``knn_cuda`` launches this library for
+k = 1..3 and ``knn_topk_kernel`` (``csrc/knn_topk.cu``) for k = 4..128,
+the rest of the Pallas kernel's k; each library counts its own launches.
+``knn_plain`` is the plain version of both.  ``knn_cuda`` can write into
+outputs the caller allocated once and skip on a device flag (``out=``,
+``done=``), so that a loop captured as a CUDA graph allocates nothing for
+it.
 """
 
 from __future__ import annotations
@@ -40,11 +44,13 @@ import ctypes
 
 import torch
 
+from . import knn_topk_kernel
 from ._cuda_build import CudaLibrary, require_sm90
 
 __all__ = [
     "LAUNCHES",
     "MAX_D",
+    "MAX_K",
     "MAX_QUERIES",
     "SUPPORTED_K",
     "knn",
@@ -58,7 +64,9 @@ __all__ = [
 # nothing else with it; callers reset it to 0 to count a run's launches.
 LAUNCHES = 0
 
+# The k of this library; k = 4..MAX_K go to knn_topk_kernel.
 SUPPORTED_K = (1, 2, 3)
+MAX_K = knn_topk_kernel.MAX_K
 MAX_D = 16
 # A launch's grid is (splits, ceil(nq / QUERIES_PER_CTA)) (csrc/knn.cu:
 # kQueriesPerCta = kThreads / kGroup * kQ), and CUDA caps gridDim.y at
@@ -136,18 +144,20 @@ def _check_out(out, nq: int, k: int, device):
 
 
 def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int, out=None,
-             done=None):
-    """Launch the CUDA kernel on the current stream.  Raises on anything the
-    kernel does not take; never falls back to the plain version.
+             done=None, insertions=None):
+    """Launch the CUDA kernel on the current stream: this library's for
+    k = 1..3, ``knn_topk_kernel``'s for k = 4..128.  Raises on anything the
+    kernels do not take; never falls back to the plain version.
 
     ``out``: (f32 [nq, k], int32 [nq, k]) to write into, else allocated.
     ``done``: an int32 device tensor; where its first element is non-zero
     the kernel returns at once and leaves the outputs as they were.
+    ``insertions``: k >= 4 only, see ``knn_topk_kernel.knn_topk_cuda``.
     Nothing is read back to the host."""
     global LAUNCHES
     _check_inputs(ref, query, k)
     nq = query.shape[0]
-    if -(-nq // QUERIES_PER_CTA) > MAX_GRID_Y:
+    if k <= 3 and -(-nq // QUERIES_PER_CTA) > MAX_GRID_Y:
         raise ValueError(
             f"knn_cuda takes at most {MAX_QUERIES} queries a launch "
             f"(ceil(nq / {QUERIES_PER_CTA}) query tiles on a grid's y axis, "
@@ -163,20 +173,24 @@ def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int, out=None,
     d = ref.shape[1]
     if not 1 <= d <= MAX_D:
         raise ValueError(f"knn_cuda supports 1 <= D <= {MAX_D}, got {d}")
-    if k not in SUPPORTED_K:
-        raise ValueError(f"knn_cuda supports k in {SUPPORTED_K}, got {k}")
+    if k > MAX_K:
+        raise ValueError(f"knn_cuda supports 1 <= k <= {MAX_K}, got {k}")
+    if insertions is not None and k in SUPPORTED_K:
+        raise ValueError("knn_cuda counts insertions for k >= 4 only")
     nr, nq = ref.shape[0], query.shape[0]
     if max(nr, nq) * max(d, k) >= 2**31:
         raise ValueError("knn_cuda indexes with int32: input too large")
     if done is not None and (done.dtype != torch.int32 or done.device != ref.device):
         raise ValueError("knn_cuda needs done as an int32 tensor on the inputs' device")
     require_sm90(ref.device, "knn_cuda")
-    lib = load_library()
     if out is None:
         out = (torch.empty((nq, k), dtype=torch.float32, device=ref.device),
                torch.empty((nq, k), dtype=torch.int32, device=ref.device))
     else:
         _check_out(out, nq, k, ref.device)
+    if k not in SUPPORTED_K:
+        return knn_topk_kernel.knn_topk_cuda(ref, query, k, out, done, insertions)
+    lib = load_library()
     out_d, out_i = out
     if nq == 0:
         return out_d, out_i

@@ -1,0 +1,101 @@
+"""Exact brute-force k-NN for k = 4..128: the hand-written Hopper kernel.
+
+Counterpart of ``pyfocusr_tpu/ops/pallas_kernels.py:647-796``
+(``_knn_kernel`` / ``knn_pallas``, which keeps a running top-k of up to
+128 in one lane block) for the k that ``csrc/knn.cu`` leaves: its CUDA C++
+source is ``csrc/knn_topk.cu``, built at first use by
+``ops/_cuda_build.py``.  The contract is ``knn_kernel``'s (direct f32
+differences, ascending, ties to the lower index, non-finite references at
+1e30, ``(inf, nr)`` for a missing neighbour), and its plain version is
+``knn_kernel.knn_plain``, which takes any k: the kernel equals it bit for
+bit.  ``knn_kernel.knn_cuda`` dispatches k = 1..3 to ``csrc/knn.cu`` and
+k = 4..128 here.
+
+What bounds the kernel and what its design does about it is written at the
+top of ``csrc/knn_topk.cu``: a warp owns two queries and keeps each one's
+sorted list spread over its lanes; a candidate that beats the k-th entry is
+inserted by the whole warp with ballots and shuffles.  ``insertions=`` (an
+int64 device tensor of one element) receives the number of insertions the
+inputs needed, from which the bound counts the list work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._cuda_build import CudaLibrary, require_sm90
+
+__all__ = ["LAUNCHES", "MAX_D", "MAX_K", "MIN_K", "knn_topk_cuda", "load_library"]
+
+# Launch count of the CUDA kernel: the wrapper adds one per launch and does
+# nothing else with it; callers reset it to 0 to count a run's launches.
+LAUNCHES = 0
+
+MIN_K = 4
+MAX_K = 128
+MAX_D = 16
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_LIBRARY = CudaLibrary("knn_topk.cu", "knn_topk", "k-NN top-k", {
+    "pyfocusr_knn_topk_f32": [
+        _VP, _VP,  # ref, query
+        _INT, _INT, _INT, _INT,  # nr nq d k
+        _VP,  # done
+        _VP, _VP,  # out_d, out_i
+        _VP,  # insertions
+        _INT, _VP,  # device, stream
+    ],
+})
+# Filled by load_library(): seconds spent in nvcc (0.0 on a cache hit) and
+# the compiler's register/shared-memory report.
+BUILD_SECONDS = None
+BUILD_LOG = ""
+
+
+def load_library():
+    """Build ``csrc/knn_topk.cu`` if its hashed library is missing, then
+    load it."""
+    global BUILD_SECONDS, BUILD_LOG
+    lib = _LIBRARY.load()
+    BUILD_SECONDS, BUILD_LOG = _LIBRARY.build_seconds, _LIBRARY.build_log
+    return lib
+
+
+def knn_topk_cuda(ref: torch.Tensor, query: torch.Tensor, k: int, out, done=None,
+                  insertions=None):
+    """Launch the kernel on the current stream into ``out`` = (f32 [nq, k],
+    int32 [nq, k]).  ``knn_kernel.knn_cuda`` has checked the inputs, the
+    outputs and ``done``; this checks what only this kernel limits.
+    ``insertions``: an int64 [1] device tensor the kernel adds its count of
+    list insertions to, or None.  Nothing is read back to the host."""
+    global LAUNCHES
+    d = ref.shape[1]
+    if not MIN_K <= k <= MAX_K:
+        raise ValueError(f"knn_topk_cuda takes {MIN_K} <= k <= {MAX_K}, got {k}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"knn_topk_cuda supports 1 <= D <= {MAX_D}, got {d}")
+    if insertions is not None and (insertions.dtype != torch.int64
+                                   or insertions.device != ref.device
+                                   or insertions.numel() != 1):
+        raise ValueError("knn_topk_cuda needs insertions as one int64 element on "
+                         "the inputs' device")
+    require_sm90(ref.device, "knn_topk_cuda")
+    lib = load_library()
+    out_d, out_i = out
+    nr, nq = ref.shape[0], query.shape[0]
+    if nq == 0:
+        return out_d, out_i
+    stream = torch.cuda.current_stream(ref.device).cuda_stream
+    err = lib.pyfocusr_knn_topk_f32(
+        ref.data_ptr(), query.data_ptr(), nr, nq, d, k,
+        None if done is None else done.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(),
+        None if insertions is None else insertions.data_ptr(),
+        ref.device.index, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"knn top-k CUDA kernel launch failed: error {err}")
+    LAUNCHES += 1
+    return out_d, out_i

@@ -7,9 +7,10 @@ CPU; nothing chooses between the two silently.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["as_f32", "resolve_device", "to_numpy"]
 
 
 def resolve_device(device) -> torch.device:
@@ -24,3 +25,17 @@ def resolve_device(device) -> torch.device:
             "by default; pass device='cpu' to build on the CPU"
         )
     return torch.device("cuda")
+
+
+def as_f32(values, device) -> torch.Tensor:
+    """Numpy or a tensor (on any device) as an f32 tensor on ``device``."""
+    if torch.is_tensor(values):
+        return values.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(values, dtype=np.float32), device=device)
+
+
+def to_numpy(values, dtype=None) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    if torch.is_tensor(values):
+        values = values.detach().cpu().numpy()
+    return np.asarray(values, dtype=dtype)

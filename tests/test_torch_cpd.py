@@ -59,13 +59,21 @@ def _outlier_c(s2, w, D, M, N):
 
 
 # (M, N, D, sigma2, w, seed): the cases of tests/test_pallas_kernels.py
-# (700 x 900; 258 x 513 non-square with ragged tiles; the outlier term) and
-# the xyz-as-features width D = 6.
+# (700 x 900; 258 x 513 non-square with ragged tiles; the outlier term),
+# the xyz-as-features width D = 6, and the wide coordinates of spectral
+# features with xyz appended (D = 17, 20, 35: the kernel's chunked
+# instance, ragged in its 32-dimension chunks and 128-point tiles), whose
+# sigma2 keeps exp(-|x - ty|^2 / 2 sigma2) away from underflow at
+# |x - ty|^2 ~ 2 D / 3.  The wide cases take no outlier term: its
+# (2 pi sigma2)^(D / 2) swamps den at these widths (measured c ~ 1e4-1e8).
 ESTEP_CASES = {
     "700x900": (700, 900, 3, 0.05, 0.0, 0),
     "258x513": (258, 513, 3, 0.1, 0.0, 1),
     "outlier_w0.1": (700, 900, 3, 0.05, 0.1, 0),
     "d6": (400, 600, 6, 0.2, 0.0, 3),
+    "d17": (300, 450, 17, 1.0, 0.0, 8),
+    "d20": (333, 260, 20, 1.2, 0.0, 6),
+    "d35": (200, 390, 35, 2.5, 0.0, 7),
 }
 
 
@@ -111,7 +119,7 @@ def test_cpd_estep_dispatches_cpu_tensors_to_the_plain_version():
 
 
 @pytest.mark.parametrize("bad,err", [
-    ((np.zeros((5, 17), np.float32), np.zeros((4, 17), np.float32)), ValueError),
+    ((np.zeros((5, 3, 1), np.float32), np.zeros((4, 3, 1), np.float32)), ValueError),
     ((np.zeros((5, 3), np.float64), np.zeros((4, 3), np.float64)), TypeError),
     ((np.zeros((5, 3), np.float32), np.zeros((4, 2), np.float32)), ValueError),
 ])

@@ -210,8 +210,7 @@ def test_class_api_exports_and_unported_viewers(bones_642):
         g.export_viewer_html("x.html")
     reg = TP.Focusr(t, s, icp_register_first=False, list_features_to_calc=(),
                     device="cpu")
-    for call in (lambda: reg.transfer_point_data(), lambda: reg.view_meshes(),
-                 lambda: reg.export_viewer_html("x.html")):
+    for call in (lambda: reg.view_meshes(), lambda: reg.export_viewer_html("x.html")):
         with pytest.raises(NotImplementedError, match="item 7"):
             call()
 

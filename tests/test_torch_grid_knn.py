@@ -5,7 +5,8 @@ package's ``knn_grid`` / ``knn_routing``.
 
 Gates:
 * the grid equals ``knn_plain`` bit for bit (distances and indices), for
-  k = 1, 2, 3, on surface clouds, with masked (1e30) and non-finite
+  k = 1, 2, 3 and 8 (the largest k the route sends to the grid, as JAX's
+  does), on surface clouds, with masked (1e30) and non-finite
   reference and query rows, duplicated points (ties to the lower index), a
   sparse patch that pass 2 rescues and a dense spot that only the brute
   fallback resolves;
@@ -90,7 +91,7 @@ def _case(name):
 CASES = ("surface", "masked_nonfinite", "duplicates", "sparse_patch", "dense_spot")
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
 @pytest.mark.parametrize("case", CASES)
 def test_grid_bit_equal_to_plain(case, k):
     ref, q, stats_ok = _case(case)
@@ -149,7 +150,8 @@ def dials(monkeypatch):
     ({"PYFOCUSR_TPU_KNN_GRID": "off"}, (10**6, 10**6, 3), 1, "brute"),
     ({"PYFOCUSR_TPU_KNN_GRID": "on"}, (10, 10, 3), 1, "grid"),
     ({"PYFOCUSR_TPU_KNN_GRID": "on"}, (10, 10, 6), 1, "brute"),  # not 3-D
-    ({"PYFOCUSR_TPU_KNN_GRID": "on"}, (10, 10, 3), 4, "brute"),  # k past the kernel's
+    ({"PYFOCUSR_TPU_KNN_GRID": "on"}, (10, 10, 3), 8, "grid"),  # JAX's largest grid k
+    ({"PYFOCUSR_TPU_KNN_GRID": "on"}, (10, 10, 3), 9, "brute"),  # past it (JAX :198)
     ({"PYFOCUSR_TPU_KNN_GRID_MIN_PAIRS": "100", "PYFOCUSR_TPU_KNN_GRID_SURE_PAIRS": "1000"},
      (9, 10, 3), 1, "brute"),
     ({"PYFOCUSR_TPU_KNN_GRID_MIN_PAIRS": "100", "PYFOCUSR_TPU_KNN_GRID_SURE_PAIRS": "1000"},
