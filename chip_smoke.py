@@ -63,7 +63,7 @@ after:
 * wide coordinates and the class API's output stage (``wide_coords``):
   ``Focusr`` at the class defaults with 16 spectral features and xyz
   appended (D = 19: the initial correspondences on the port of JAX's XLA
-  k-NN path, both CPD runs on the E-step kernel's chunked D > 16 instance),
+  k-NN path, both CPD runs on the E-step kernel's tiled D > 16 instance),
   ``get_weighted_final_node_locations`` at k = 8 and 32 (the k = 4..128
   kernel), ``transfer_point_data`` and a ``save_mesh`` / ``load_mesh``
   round trip in .vtk and .vtp, first call and warm; CUDA against CPU at
@@ -300,8 +300,22 @@ COHORT_MIN_UNIQUE = 0.6
 # The k = 4..128 kernel's timed k (csrc/knn_topk.cu), at both of the k-NN
 # phase's shapes, and the wide-coordinates path (n_spectral_features + 3 xyz
 # columns = 19 > 16) with the k of its weighted final locations.  The E-step
-# kernel's chunked instance is held at the widths D of WIDE_ESTEP_D.
+# kernel's tiled instance is held at the widths D of WIDE_ESTEP_D.
 TOPK_KS = (4, 8, 32, 128)
+# The first versions of the two kernels redesigned since: the k = 4..128
+# kernel (a warp owning two queries, no split) and the E-step's chunked
+# D > 16 instance (32-dimension chunks, a warp owning 4 rows, no split), as
+# PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W, run 11c:
+# device ms of one call from a CUDA graph of 20), printed beside this run's
+# times case by case.
+FIRST_TOPK_KERNEL_MS = {
+    "xyz_k4": 0.1749, "xyz_k8": 0.1933, "xyz_k32": 0.2794, "xyz_k128": 1.1098,
+    "icp_k4": 0.0708, "icp_k8": 0.0797, "icp_k32": 0.1151, "icp_k128": 0.3586,
+    "d16_k8": 0.6303}
+FIRST_WIDE_ESTEP_KERNEL_MS = {
+    "5000_d19_late": 0.7210, "5000_d19_initial": 0.7241, "5000_d32_late": 1.0232,
+    "5000_d64_late": 2.0059, "10242_d19_late": 2.0237, "10242_d32_late": 2.9559,
+    "10242_d64_late": 5.7735}
 WIDE_CFG = dict(n_spectral_features=16, include_points_as_features=True)
 WIDE_KS = (8, 32)
 WIDE_ESTEP_D = (19, 32, 64)
@@ -868,15 +882,38 @@ def knn_topk_bound(nq, nr, d, k, insertions):
             "distance_only_ms": nq * nr * 3 * d / F32_LANE_INSTR_PER_S * 1e3}
 
 
+def topk_grid_cases(torch, device="cuda"):
+    """Cases of the k = 4..128 kernel on both of ``plan``'s grids, (name,
+    ref, query, k): 6401 queries take 4 a warp up to k = 32; 77 and 333
+    queries, one query and every k above 32 take 1 (the thread queues).  Integer-grid clouds
+    (many equal distances), 90 references (fewer than k = 96 and 128),
+    query counts no multiple of a CTA's, k across the 32-entry list
+    registers.  The card test
+    ``tests/test_torch_knn.py::test_topk_kernel_matches_plain_on_card``
+    takes these cases too."""
+    g = torch.Generator().manual_seed(23)
+    ref = torch.randint(0, 5, (3001, 3), generator=g).float().to(device)
+    many = torch.randint(0, 5, (6401, 3), generator=g).float().to(device)
+    cases = []
+    for k in (4, 8, 31, 32, 33, 64, 65, 96, 128):
+        for name, r, q in (("grid_ties_6401", ref, many), ("grid_ties_77", ref, many[:77]),
+                           ("nq_1", ref, many[:1]), ("nr_90_6401", ref[:90], many),
+                           ("nr_90_333", ref[:90], many[:333])):
+            cases.append((f"{name}_k{k}", r.contiguous(), q.contiguous(), k))
+    return cases
+
+
 def phase_knn_topk(torch, knn_kernel, topk, tgt_pts, src_pts):
     """The k = 4..128 kernel (``csrc/knn_topk.cu``, through
     ``knn_kernel.knn_cuda``) against ``knn_plain`` on the card, bit for
     bit: contract cases (ties, non-finite and sentinel rows, fewer
     references than k, D = 5 and 16, one query, a k that is no multiple of
-    32), the done flag, and ``TOPK_KS`` at the k-NN phase's two shapes
-    (10242^2 and ICP's 2000 x 10242, D = 3) plus k = 8 at D = 16, each
-    timed as ``phase_kernel`` times k = 1..3 and held to its bound (the
-    list work from the kernel's own insertion count)."""
+    32), both of ``plan``'s grids (1 and 4 queries a warp) at every list
+    width (``topk_grid_cases``), the done flag, and ``TOPK_KS`` at the k-NN phase's two shapes (10242^2
+    and ICP's 2000 x 10242, D = 3) plus k = 8 at D = 16, each timed as
+    ``phase_kernel`` times k = 1..3, beside the first version's time
+    (``FIRST_TOPK_KERNEL_MS``) and held to its bound (the list work from the
+    kernel's own insertion count)."""
     dev = "cuda"
     g = torch.Generator().manual_seed(11)
     ref = torch.tensor(tgt_pts, device=dev)
@@ -900,7 +937,13 @@ def phase_knn_topk(torch, knn_kernel, topk, tgt_pts, src_pts):
     results = []
     for name, r, q, k in contract:
         res = compare_knn(torch, knn_kernel, r.to(dev).contiguous(), q.to(dev).contiguous(), k)
-        res.update(case=name, nr=r.shape[0], nq=q.shape[0], d=r.shape[1], k=k)
+        res.update(case=name, nr=r.shape[0], nq=q.shape[0], d=r.shape[1], k=k,
+                   grid=topk.plan(q.shape[0], k))
+        results.append(res)
+    for name, r, q, k in topk_grid_cases(torch, dev):
+        res = compare_knn(torch, knn_kernel, r, q, k)
+        res.update(case=name, nr=r.shape[0], nq=q.shape[0], d=3, k=k,
+                   grid=topk.plan(q.shape[0], k))
         results.append(res)
     out = (torch.full((2000, 8), -1.0, device=dev),
            torch.full((2000, 8), -7, dtype=torch.int32, device=dev))
@@ -912,7 +955,7 @@ def phase_knn_topk(torch, knn_kernel, topk, tgt_pts, src_pts):
     knn_kernel.knn_cuda(ref, icp_q, 8, out=out, done=flag)
     pd, pi = knn_kernel.knn_plain(ref, icp_q, 8)
     res = {"case": "done_flag", "nr": nr, "nq": 2000, "d": 3, "k": 8,
-           "set_leaves_outputs": untouched,
+           "grid": topk.plan(2000, 8), "set_leaves_outputs": untouched,
            "unset_equal_to_plain": bool(torch.equal(out[0], pd) and torch.equal(out[1], pi))}
     check(untouched and res["unset_equal_to_plain"], f"k-NN top-k done flag: {res}")
     results.append(res)
@@ -923,20 +966,21 @@ def phase_knn_topk(torch, knn_kernel, topk, tgt_pts, src_pts):
     timed_cases.append(("d16_k8", spec_ref, spec_query, 8))
     for name, r, q, k in timed_cases:
         res = compare_knn(torch, knn_kernel, r, q, k)
-        inserted = torch.zeros(1, dtype=torch.int64, device=dev)
-        knn_kernel.knn_cuda(r, q, k, insertions=inserted)
         buf = (torch.empty((q.shape[0], k), device=dev),
                torch.empty((q.shape[0], k), dtype=torch.int32, device=dev))
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        topk.knn_topk_cuda(r, q, k, buf, insertions=counter)
         run_k = lambda: knn_kernel.knn_cuda(r, q, k, out=buf)
         p1 = cuda_ms(torch, lambda: knn_kernel.knn_plain(r, q, k), reps=2)
         k1 = graph_ms(torch, run_k)
         k2 = graph_ms(torch, run_k)
         p2 = cuda_ms(torch, lambda: knn_kernel.knn_plain(r, q, k), reps=2)
         res.update(case=name, nr=r.shape[0], nq=q.shape[0], d=r.shape[1], k=k,
-                   kernel_ms=(k1 + k2) / 2, call_ms=cuda_ms(torch, run_k),
-                   plain_ms=(p1 + p2) / 2,
+                   kernel_ms=(k1 + k2) / 2, first_version_ms=FIRST_TOPK_KERNEL_MS.get(name),
+                   call_ms=cuda_ms(torch, run_k), plain_ms=(p1 + p2) / 2,
+                   grid=topk.plan(q.shape[0], k),
                    **knn_topk_bound(q.shape[0], r.shape[0], r.shape[1], k,
-                                    int(inserted.item())))
+                                    int(counter.item())))
         results.append(res)
     for res in results:
         if "idx_equal" in res:
@@ -944,6 +988,8 @@ def phase_knn_topk(torch, knn_kernel, topk, tgt_pts, src_pts):
                   f"k-NN top-k kernel disagrees with its plain version: {res}")
     emit({"phase": "knn_topk_kernel_vs_plain", "cases": results,
           "kernel_ms": "device time of one call from a CUDA graph of 20 calls",
+          "first_version_ms": "the first version of the kernel (FIRST_TOPK_KERNEL_MS)",
+          "grid": "queries_per_warp, ctas, warps_per_sm = the grid's warps over the SMs",
           "library_ms": None,
           "library_why": "torch.cdist + topk: two calls, and the matmul identity the "
                          "contract forbids"})
@@ -999,7 +1045,21 @@ def graph_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (calls * reps)
 
 
-def phase_cpd_estep(torch, EK, cpd_ops, cases, phase="cpd_estep_kernel_vs_plain"):
+def estep_errors(torch, got, want):
+    """Each output's max |kernel - plain|, that over max(1, max |plain|)
+    (the scale the tolerance takes), and whether all are within it."""
+    errs, of_scale, ok = {}, {}, True
+    for out, g, w in zip(("Pt1", "P1", "PX", "Np", "L"), got, want):
+        check(bool(torch.isfinite(g).all()), f"E-step kernel {out} finite")
+        err = float((g - w).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        errs[out], of_scale[out] = err, err / scale
+        ok = ok and err <= ESTEP_TOL_OF_SCALE * scale
+    return errs, of_scale, ok
+
+
+def phase_cpd_estep(torch, EK, cpd_ops, cases, phase="cpd_estep_kernel_vs_plain",
+                    edges=(), first_ms=None):
     """The streamed E-step kernel against ``cpd_estep_plain`` on the card at
     the main paths' shapes (10242^2 full resolution, 5000^2 the raw
     defaults) and widths (D = 3; D = 6 with xyz appended), at the initial
@@ -1009,22 +1069,31 @@ def phase_cpd_estep(torch, EK, cpd_ops, cases, phase="cpd_estep_kernel_vs_plain"
     (its two launches) from a CUDA graph of calls, ``den_pass_ms`` that of
     the den pass alone, ``row_pass_ms`` the difference; ``call_ms`` one call
     by plain CUDA events, which the host's launch overhead sets when it
-    exceeds the device time."""
+    exceeds the device time.  D > 16 cases also give the grid (``plan``:
+    cluster size, CTAs and the grid's warps an SM per pass), the time of the
+    first version from ``first_ms`` and whether two calls repeat bit for
+    bit.  ``edges`` (name, X, TY, sigma2) are checked for
+    tolerance and repetition only."""
     results = []
+    for name, X, TY, sigma2 in edges:
+        s2 = torch.tensor(sigma2, dtype=torch.float32, device=X.device)
+        est = EK.CudaEstep(X, TY.shape[0])
+        got = [t.clone() for t in est(TY, s2)]
+        again = est(TY, s2)
+        errs, of_scale, ok = estep_errors(torch, got, EK.cpd_estep_plain(X, TY, s2))
+        res = {"case": name, "M": TY.shape[0], "N": X.shape[0], "D": X.shape[1],
+               "sigma2": sigma2, "grid": est.plan, "max_abs_err": errs,
+               "max_err_of_scale": of_scale, "within_tolerance": ok,
+               "repeat_bit_equal": all(bool(torch.equal(a, b)) for a, b in zip(got, again))}
+        check(ok and res["repeat_bit_equal"], f"E-step kernel edge case: {res}")
+        results.append(res)
     for name, X, TY, sigma2 in cases:
         (N, D), M = X.shape, TY.shape[0]
         s2 = torch.tensor(sigma2, dtype=torch.float32, device=X.device)
-        got = EK.cpd_estep_cuda(X, TY, s2)
-        want = EK.cpd_estep_plain(X, TY, s2)
-        torch.cuda.synchronize()
-        errs, ok = {}, True
-        for out, g, w in zip(("Pt1", "P1", "PX", "Np", "L"), got, want):
-            check(bool(torch.isfinite(g).all()), f"E-step kernel {out} finite ({name})")
-            err = float((g - w).abs().max())
-            scale = max(1.0, float(w.abs().max()))
-            errs[out] = err
-            ok = ok and err <= ESTEP_TOL_OF_SCALE * scale
         est = EK.CudaEstep(X, M)
+        got = [t.clone() for t in est(TY, s2)]
+        again = est(TY, s2)
+        errs, of_scale, ok = estep_errors(torch, got, EK.cpd_estep_plain(X, TY, s2))
         run_k = lambda: est(TY, s2)
         run_p = lambda: EK.cpd_estep_plain(X, TY, s2)
         p1 = cuda_ms(torch, run_p, reps=3)
@@ -1035,11 +1104,16 @@ def phase_cpd_estep(torch, EK, cpd_ops, cases, phase="cpd_estep_kernel_vs_plain"
         kernel_ms = graph_ms(torch, run_k)
         den_ms = graph_ms(torch, lambda: est.den_pass(TY, s2))
         res = {"case": name, "M": M, "N": N, "D": D, "sigma2": sigma2,
-               "max_abs_err": errs, "within_tolerance": ok,
+               "max_abs_err": errs, "max_err_of_scale": of_scale, "within_tolerance": ok,
                "kernel_ms": kernel_ms, "den_pass_ms": den_ms,
                "row_pass_ms": kernel_ms - den_ms,
                "call_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                "dense_estep_ms": dense, **estep_bound(M, N, D)}
+        if D > EK.REGISTER_MAX_D:
+            res.update(grid=est.plan, first_version_ms=(first_ms or {}).get(name),
+                       repeat_bit_equal=all(bool(torch.equal(a, b))
+                                            for a, b in zip(got, again)))
+            check(res["repeat_bit_equal"], f"E-step kernel does not repeat: {res}")
         check(ok, f"E-step kernel disagrees with its plain version: {res}")
         results.append(res)
     emit({"phase": phase, "cases": results,
@@ -1047,31 +1121,60 @@ def phase_cpd_estep(torch, EK, cpd_ops, cases, phase="cpd_estep_kernel_vs_plain"
                        "per output",
           "dense_estep_ms": "ops/cpd._estep, P [M, N] materialized: the E-step the "
                             "pipeline takes at or under 3000^2 pairs",
-          "first_kernel_version_ms": FIRST_ESTEP_KERNEL_MS,
+          "first_kernel_version_ms": first_ms or FIRST_ESTEP_KERNEL_MS,
+          "grid": "per pass: splits = CTAs of a cluster splitting the other cloud, ctas, "
+                  "warps_per_sm = the grid's warps over the SMs, blocks",
           "launches": "one E-step is two launches, the den pass and the row pass"})
     return results
 
 
+def _wide_pair(torch, g, n, m, d, device):
+    """X [n, d] spectral-like coordinates (N(0, 1/d) a column, |x| ~ 1) and
+    TY [m, d]: X's points in another order (repeated past n), moved by N(0,
+    0.02^2 / d), as late in EM."""
+    X = torch.randn(n, d, generator=g) / d ** 0.5
+    rows = torch.randperm(max(n, m), generator=g)[:m] % n
+    TY = X[rows] + torch.randn(m, d, generator=g) * (0.02 / d ** 0.5)
+    return X.to(device).contiguous(), TY.to(device).contiguous()
+
+
 def wide_estep_cases(torch, sizes=(5000, 10242), widths=WIDE_ESTEP_D, device="cuda"):
-    """E-step inputs for the kernel's chunked D > 16 instance, from a seed:
-    X [n, D] spectral-like coordinates (N(0, 1/D) a column, |x| ~ 1) and TY
-    the same points shuffled and moved by N(0, 0.02^2 / D), as late in EM;
-    at sigma2 1e-2 (a late EM iteration: matched pairs at exp(-0.02), the
-    nearest others within a few sigma) and,
-    for the first size and width, at the initial sigma2 sum |x - ty|^2 /
-    (D M N), as the first iteration sees it."""
+    """E-step inputs for the kernel's tiled D > 16 instance, from a seed
+    (``_wide_pair``, M = N = n) at sigma2 1e-2 (a late EM iteration: matched
+    pairs at exp(-0.02), the nearest others within a few sigma) and, for the
+    first size and width, at the initial sigma2 sum |x - ty|^2 / (D M N), as
+    the first iteration sees it."""
     g = torch.Generator().manual_seed(7)
     cases = []
     for n in sizes:
         for d in widths:
-            X = torch.randn(n, d, generator=g) / d ** 0.5
-            TY = X[torch.randperm(n, generator=g)] + torch.randn(n, d, generator=g) * (0.02 / d ** 0.5)
-            X, TY = X.to(device).contiguous(), TY.to(device).contiguous()
+            X, TY = _wide_pair(torch, g, n, n, d, device)
             cases.append((f"{n}_d{d}_late", X, TY, 1e-2))
             if n == sizes[0] and d == widths[0]:
                 s2 = float(((X * X).sum() * n + (TY * TY).sum() * n
                             - 2 * (X.sum(0) * TY.sum(0)).sum()) / (d * n * n))
                 cases.append((f"{n}_d{d}_initial", X, TY, s2))
+    return cases
+
+
+def wide_estep_edge_cases(torch, device="cuda"):
+    """The tiled instance's edges on ``plan``'s grids, (name, X, TY,
+    sigma2): clouds smaller than one rank's range or one 64-point tile,
+    sizes no multiple of the tile or the CTA's 32 rows, splits of 2, 4 and
+    8 ranks, and D = 17, 19, 20, 32, 33, 64, 65 and 130 (one, two and three
+    64-dimension chunks, the PX slabs of blockIdx.z).  The card test
+    ``tests/test_torch_cpd.py::test_cpd_estep_kernel_matches_plain_on_card``
+    takes these cases too."""
+    g = torch.Generator().manual_seed(17)
+    shapes = [  # (N, M, D)
+        (130, 5000, 33), (5000, 130, 17), (130, 2000, 33), (2000, 130, 17), (300, 257, 17),
+        (5, 40, 19), (5, 40, 32), (40, 5, 19), (1000, 999, 64), (999, 1000, 64),
+        (2000, 1999, 32), (1100, 1000, 33), (700, 650, 65), (500, 450, 130), (333, 1, 20),
+        (1, 333, 20)]
+    cases = []
+    for n, m, d in shapes:
+        X, TY = _wide_pair(torch, g, n, m, d, device)
+        cases.append((f"n{n}_m{m}_d{d}", X, TY, 1e-2))
     return cases
 
 
@@ -2929,6 +3032,10 @@ def phase_wide_coords(torch, tp, kernels, smi, device="cuda", levels=5,
               f"the weighted locations at k = {WIDE_KS} launched {warm['launches']}")
         for name in ("knn", "umeyama3", "cpd_estep"):
             check(warm["launches"][name] > 0, f"the wide path launched no {name} kernel")
+        if route == "streamed":
+            check(estep_launches_fit(warm["launches"]["cpd_estep"], rec, cpd_ops),
+                  f"wide E-step launches {warm['launches']['cpd_estep']} outside [2 x, 2 x "
+                  f"(EM iterations {rec.streamed_loops()} + a block a loop))")
     check(warm["quality"]["unique_fraction"] > 0.5, f"wide path quality {warm['quality']}")
 
     # The path's outputs held to plain versions on the same inputs.
@@ -3240,7 +3347,9 @@ def main():
         torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi)
     torch.cuda.empty_cache()
     est_wide = phase_cpd_estep(torch, cpd_estep_kernel, cpd_ops, wide_estep_cases(torch),
-                               phase="cpd_estep_wide_vs_plain")
+                               phase="cpd_estep_wide_vs_plain",
+                               edges=wide_estep_edge_cases(torch),
+                               first_ms=FIRST_WIDE_ESTEP_KERNEL_MS)
     torch.cuda.empty_cache()
     mr_launches = phase_multires(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
@@ -3311,8 +3420,9 @@ def main():
             "library_ms": None,  # cdist + topk: two calls, and the matmul identity
             "shape": f"nq={topk_main['nq']} nr={topk_main['nr']} d=3 k=8",
             "by_case": {r["case"]: {k: r[k] for k in (
-                "kernel_ms", "call_ms", "plain_ms", "bound_ms", "insertions",
-                "distance_only_ms")} for r in topk_results if "kernel_ms" in r},
+                "kernel_ms", "first_version_ms", "call_ms", "plain_ms", "bound_ms",
+                "insertions", "distance_only_ms", "grid")}
+                for r in topk_results if "kernel_ms" in r},
         },
         {
             "name": "lse_rows",
@@ -3399,14 +3509,18 @@ def main():
             "ms_initial_sigma2": est_first["kernel_ms"],
             "ms_5000_d3": est_5000["kernel_ms"],
             "bound_ms_5000_d3": est_5000["bound_ms"],
-            # The chunked D > 16 instance: the wide-coordinates path's runs
-            # (D = 19 at 5000^2) and each case of cpd_estep_wide_vs_plain.
+            # The tiled D > 16 instance: the wide-coordinates path's runs
+            # (D = 19 at 5000^2) and each timed case of
+            # cpd_estep_wide_vs_plain, beside the first version's time.
             "launches_wide_coords": wide_launches["cpd_estep"],
             "max_abs_err_wide": max(r["max_abs_err"][k] for r in est_wide
                                     for k in ("Pt1", "P1", "PX")),
+            "max_err_of_scale_wide": max(max(r["max_err_of_scale"].values())
+                                         for r in est_wide),
             "wide": {r["case"]: {k: r[k] for k in (
-                "kernel_ms", "den_pass_ms", "call_ms", "plain_ms", "dense_estep_ms",
-                "bound_ms", "bound_by")} for r in est_wide},
+                "kernel_ms", "first_version_ms", "den_pass_ms", "call_ms", "plain_ms",
+                "dense_estep_ms", "bound_ms", "bound_by", "grid")}
+                for r in est_wide if "kernel_ms" in r},
             "em_loop": {r["case"]: {k: r[k] for k in (
                 "iterations", "host_ms_per_iteration", "device_ms_per_iteration",
                 "device_span_ms_per_iteration", "replays", "host_reads", "capture_ms")}

@@ -1,8 +1,9 @@
 // Thread-block cluster primitives for Hopper (sm_90a), shared by csrc/jv.cu,
-// csrc/knn.cu and the latency probes of tools/jv_chain_floor.cu: the
-// cluster barrier, addresses in and loads from another CTA's shared memory,
-// mbarriers, stores into another CTA's shared memory that signal its
-// mbarrier, and the launch of one cluster or of a grid of clusters.
+// csrc/knn.cu, csrc/cpd_estep.cu and the latency probes of
+// tools/jv_chain_floor.cu: the cluster barrier, addresses in and loads from
+// another CTA's shared memory, mbarriers, stores into another CTA's shared
+// memory that signal its mbarrier, and the launch of one cluster or of a
+// grid of clusters.
 
 #pragma once
 
@@ -27,6 +28,13 @@ __device__ __forceinline__ unsigned cluster_u32(unsigned local, int rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote) : "r"(local), "r"(rank));
   return remote;
+}
+
+// A 32-bit float from another CTA's shared memory (a cluster address).
+__device__ __forceinline__ float ld_cluster_f32(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // Two 32-bit words from another CTA's shared memory (a cluster address).

@@ -51,28 +51,42 @@
 //
 // Those instances hold a row and its PX accumulators in registers, so they
 // stop at D = 16.  Wider coordinates (spectral features with xyz or node
-// features appended) take the chunked instance, `estep_den_chunked` /
-// `estep_row_chunked`, which computes the same contract for any D:
-//   * a warp owns kChunkRows rows and each lane kChunkPts points of a tile of
-//     kChunkTile points of the other cloud, so a lane holds kChunkRows x
-//     kChunkPts squared distances in registers and nothing sized by D;
-//   * the tile is staged transposed, kChunkDims dimensions at a time, in a
-//     padded [dim][point] array, so a lane reads its points without bank
-//     conflicts; the warp's own rows are read once a dimension from L1;
-//   * the row pass writes the tile's p (times 1/den) to shared memory, then
-//     each lane owns one dimension of a chunk and sums p x over the tile;
-//     the warp adds the tile's sums into its own rows of PX in device
-//     memory (zeroed first, owned by the warp, so no atomics);
-//   * exp is the accurate `expf` of exp(d2 * -(1 / 2 s2)), the plain
-//     version's formula: the fast ex2 of the instances above reaches 8.6e-6
-//     of scale at D = 6 against the 1e-5 gate, and longer sums grow it.
-// Per (m, n) pair both passes issue about 5 D + 30 instructions (the
-// distance twice, PX once, two expf), so at D = 19 the chunked instance is
-// issue-bound.
-//
+// features appended) take the tiled instance, `estep_den_wide` /
+// `estep_row_wide`, which computes the same contract for any D.  Per pair
+// it costs 2 D lane instructions of distance in each pass (a subtraction and
+// an FMA a dimension: the f32 rule forbids the identity), D FMAs of PX in
+// the row pass and an exponential in each: at D = 19, 5000^2, about 0.08 ms
+// of issue at the card's peak against a bound of 0.059 ms (8 D + 7 flops a
+// pair at 67 TFLOP/s).  What the design does about it:
+//   * a CTA of 4 warps owns 32 output rows; a thread holds 4 rows x 4 points
+//     of a 64-point tile of the other cloud, so a float4 shared load of a
+//     row or a point feeds 4 pairs (one load to 16 lane instructions).  Rows
+//     and tile are staged as [point][dim] with a pitch of an odd number of
+//     float4 (no bank conflicts), D rounded up to 4 (up to 64 at once; wider
+//     D in chunks of 64);
+//   * the other cloud is split across the `splits` CTAs of a thread-block
+//     cluster (1-8, planned in ops/cpd_estep_kernel.py for up to 16 CTAs a
+//     SM: 157 row tiles at 5000 points are too few for 132 SMs); after the
+//     sweep the ranks' sums are added in rank order through distributed
+//     shared memory, each CTA finishing a share of the rows;
+//   * the row pass writes the tile's p to shared memory, and each thread
+//     then adds p x for 4 rows x 4 dimensions over a share of the tile's
+//     points (a float4 of p and one of x to 16 FMAs) into accumulators held
+//     for the whole sweep, for up to 64 dimensions (blockIdx.z takes further
+//     slabs of 64, each redoing the distances); the shares' sums are added
+//     in a fixed order, then the ranks', and PX is written once;
+//   * exp(x) of the plain version's rounded exponent by one ex2.approx and a
+//     one-FMA correction of the rounding of x log2(e) (exp_of_exponent),
+//     about 2 ulp, where the accurate expf costs ~9 instructions;
+//   * padded points carry a weight of 0 (1/den in the row pass), so the
+//     ragged tile needs no index test.  No float atomics: the results
+//     repeat bit for bit.
+
 // f32 only, D >= 1.
 
 #include <cuda_runtime.h>
+
+#include "cluster_sync.cuh"
 
 namespace {
 
@@ -126,27 +140,29 @@ __device__ void stage(float4 (*dst)[V], const float* __restrict__ P, int D,
   }
 }
 
-// Sum over the blocks of the grid of one value per block, in block order:
-// every block writes its value to block_sums; the last block to arrive at
-// `counter` adds them (thread t takes blocks t, t + kThreads, ..., then a
-// fixed tree) and returns true in thread 0 with the total in *total.  The
-// counter is reset to 0 for the next launch.
+// Sum over the blocks of the grid of one value per block, in block order
+// (x fastest, then y, then z): every block writes its value to block_sums;
+// the last block to arrive at `counter` adds them (thread t takes blocks t,
+// t + kThreads, ..., then a fixed tree) and returns true in thread 0 with
+// the total in *total.  The counter is reset to 0 for the next launch.
 __device__ bool grid_sum(float block_value, float* block_sums, int* counter,
                          float* total) {
   __shared__ int last;
   __shared__ float red[kThreads];
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = block_value;
+  const int blocks = (int)(gridDim.x * gridDim.y * gridDim.z);
+  const int block = (int)(blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z));
+  if (threadIdx.x == 0) block_sums[block] = block_value;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+    last = atomicAdd(counter, 1) == blocks - 1;
     if (last) *counter = 0;
   }
   __syncthreads();
   if (!last) return false;
   __threadfence();
   float s = 0.0f;
-  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads) s += __ldcg(&block_sums[b]);
+  for (int b = threadIdx.x; b < blocks; b += kThreads) s += __ldcg(&block_sums[b]);
   red[threadIdx.x] = s;
   __syncthreads();
 #pragma unroll
@@ -321,208 +337,427 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------ D > 16: the chunked instance
-constexpr int kRegisterD = 16;     // widest D of the register-resident instances
-constexpr int kChunkRows = 4;   // rows a warp owns
-constexpr int kChunkPts = 4;    // points of the other cloud a lane takes a tile
-constexpr int kChunkTile = 32 * kChunkPts;
-constexpr int kChunkDims = 32;             // dimensions staged at once
-constexpr int kChunkPitch = kChunkTile + 1;  // padded: conflict-free columns
+// ------------------------------------------------ D > 16: the tiled instance
+constexpr int kRegisterD = 16;   // widest D of the register-resident instances
+constexpr int kWideOwn = 32;     // output rows a CTA owns
+constexpr int kWideTile = 64;    // points of the other cloud a shared-memory tile
+constexpr int kWideMaxSplit = 8; // CTAs of a cluster splitting the other cloud
+constexpr int kPPitch = kWideOwn + 4;  // p tile [point][row]: conflict-free float4 stores
 
-// Stages dimensions [c0, c0 + dc) of points [base, base + cols) of P [n, D]
-// transposed into s[dim][point], zero past `cols`.  Consecutive threads take
-// consecutive dimensions of a point: coalesced reads, and a pitch of
-// kChunkTile + 1 spreads the writes over the banks.
-__device__ void stage_chunk(float (*s)[kChunkPitch], const float* __restrict__ P,
-                           int D, int base, int cols, int c0, int dc) {
-  for (int e = threadIdx.x; e < kChunkTile * dc; e += kThreads) {
-    const int j = e / dc;
-    const int dd = e - j * dc;
-    s[dd][j] = j < cols ? P[(size_t)(base + j) * D + c0 + dd] : 0.0f;
+// Dimensions staged at once for D in (16, 32] and above 32: the row pass
+// keeps PX's accumulators for DP dimensions in registers, and D > 64 is
+// taken 64 dimensions at a time (chunks of the distance, slabs of PX).
+int wide_dp(int D) { return D <= 32 ? 32 : 64; }
+
+// Width of a staged chunk in floats (D, or DP, rounded up to 4) and the
+// pitch of a staged point: a number of float4 that is odd, so the 16 points
+// a half-warp reads with one float4 load each sit in distinct bank groups.
+struct WideLayout {
+  int groups;  // float4 groups of the widest chunk
+  int pitch;   // floats
+};
+
+__host__ __device__ inline WideLayout wide_layout(int D, int DP) {
+  const int width = D < DP ? D : DP;
+  const int groups = (width + 3) / 4;
+  return {groups, 4 * (groups % 2 == 1 ? groups : groups + 1)};
+}
+
+// e^x for the E-step's exponent x = d2 * -(1 / 2 sigma2) <= 0, rounded as
+// the plain version rounds it: 2^y by one ex2.approx for y = x log2(e)
+// rounded, times 1 + lo ln 2 for the rounding lo of that product (one FMA
+// and a product with log2(e)'s low part).  x is clamped at -126 (e^x flushes
+// to 0 below ~-87.3, as the den's 1e-30 floor makes harmless) so that -inf
+// gives 0; NaN stays NaN.
+__device__ __forceinline__ float exp_of_exponent(float x) {
+  constexpr float kLog2eHi = 1.44269502162933349609375f;
+  constexpr float kLog2eLo = 1.925963033500011e-08f;
+  constexpr float kLn2 = 0.693147180559945309f;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(x) : "f"(x), "f"(-126.0f));
+  const float y = x * kLog2eHi;
+  float lo = fmaf(x, kLog2eHi, -y);
+  lo = fmaf(x, kLog2eLo, lo);
+  const float r = fast_exp2(y);
+  return fmaf(r, lo * kLn2, r);
+}
+
+// Stages float4 groups [0, groups) of dimensions [c0, c0 + 4 groups) of rows
+// [base, base + count) of P [n, D] into s (ROWS rows of `pitch` floats),
+// zeros past D and past count.  kThreads / ROWS threads share a row.
+template <int ROWS>
+__device__ __forceinline__ void stage_wide(float* s, const float* __restrict__ P, int D,
+                                           int base, int count, int c0, int groups,
+                                           int pitch) {
+  constexpr int kPerRow = kThreads / ROWS;
+  const int r = threadIdx.x / kPerRow;
+  const float* src = P + (size_t)(base + min(r, count - 1)) * D;
+  for (int g = threadIdx.x % kPerRow; g < groups; g += kPerRow) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = c0 + 4 * g + i;
+      v[i] = (r < count && d < D) ? __ldg(src + d) : 0.0f;
+    }
+    *reinterpret_cast<float4*>(s + r * pitch + 4 * g) = make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
-// Squared distances of the warp's kChunkRows rows of `own` [*, D] (rows
-// clamped into range by the caller) to the lane's kChunkPts points of the
-// tile of `other`, fmaf in dimension order, the tile staged chunk by chunk
-// into `s` by the whole block.
-__device__ void chunk_d2(float (&d2)[kChunkPts][kChunkRows], const float* __restrict__ own,
-                        const int (&rows)[kChunkRows], const float* __restrict__ other,
-                        int D, int base, int cols, float (*s)[kChunkPitch], int lane) {
+// The tile of the other cloud (D <= 64: one chunk) held in registers from
+// its load out of device memory to its store into shared memory, so that
+// the next tile's loads are in flight while this one is computed.  Two
+// threads share a point; `weight` (1/den in the row pass) or 1 for a point
+// of the tile, 0 past it.
+template <int DP>
+struct TilePrefetch {
+  static constexpr int kPerRow = kThreads / kWideTile;
+  static constexpr int kMax = DP / 4 / kPerRow;  // float4 groups a thread
+  float4 v[kMax];
+  float w;
+
+  __device__ __forceinline__ void load(const float* __restrict__ P, int D, int base,
+                                       int count, int groups,
+                                       const float* __restrict__ weight) {
+    const int r = threadIdx.x / kPerRow;
+    const float* src = P + (size_t)(base + min(r, count - 1)) * D;
 #pragma unroll
-  for (int i = 0; i < kChunkPts; ++i) {
+    for (int m = 0; m < kMax; ++m) {
+      const int g = threadIdx.x % kPerRow + kPerRow * m;
+      float x[4];
 #pragma unroll
-    for (int j = 0; j < kChunkRows; ++j) d2[i][j] = 0.0f;
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * g + i;
+        x[i] = (g < groups && r < count && d < D) ? __ldg(src + d) : 0.0f;
+      }
+      v[m] = make_float4(x[0], x[1], x[2], x[3]);
+    }
+    if (threadIdx.x < kWideTile) {
+      w = threadIdx.x < count ? (weight != nullptr ? __ldg(weight + base + threadIdx.x) : 1.0f)
+                              : 0.0f;
+    }
   }
-  for (int c0 = 0; c0 < D; c0 += kChunkDims) {
-    const int dc = min(kChunkDims, D - c0);
-    __syncthreads();  // the previous chunk has been read
-    stage_chunk(s, other, D, base, cols, c0, dc);
-    __syncthreads();
-    for (int dd = 0; dd < dc; ++dd) {
-      float xr[kChunkRows];
+
+  __device__ __forceinline__ void store(float* s, float* s_w, int groups, int pitch) const {
+    const int r = threadIdx.x / kPerRow;
 #pragma unroll
-      for (int j = 0; j < kChunkRows; ++j) xr[j] = __ldg(&own[(size_t)rows[j] * D + c0 + dd]);
+    for (int m = 0; m < kMax; ++m) {
+      const int g = threadIdx.x % kPerRow + kPerRow * m;
+      if (g < groups) *reinterpret_cast<float4*>(s + r * pitch + 4 * g) = v[m];
+    }
+    if (threadIdx.x < kWideTile) s_w[threadIdx.x] = w;
+  }
+};
+
+// Adds the squared distances of the thread's 4 own rows (`own`, rows 4 tr +
+// j) to its 4 points of the tile (`other`, points tc + 16 i) over `groups`
+// float4 groups of a staged chunk, fmaf in dimension order.
+__device__ __forceinline__ void wide_d2(float (&d2)[4][4], const float* own,
+                                        const float* other, int pitch, int groups) {
+#pragma unroll 2
+  for (int g = 0; g < groups; ++g) {
+    float4 a[4], b[4];
 #pragma unroll
-      for (int i = 0; i < kChunkPts; ++i) {
-        const float t = s[dd][lane + 32 * i];
+    for (int j = 0; j < 4; ++j) a[j] = *reinterpret_cast<const float4*>(own + j * pitch + 4 * g);
 #pragma unroll
-        for (int j = 0; j < kChunkRows; ++j) {
-          const float diff = xr[j] - t;
-          d2[i][j] = fmaf(diff, diff, d2[i][j]);
-        }
+    for (int i = 0; i < 4; ++i) {
+      b[i] = *reinterpret_cast<const float4*>(other + 16 * i * pitch + 4 * g);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float t = a[j].x - b[i].x;
+        d2[j][i] = fmaf(t, t, d2[j][i]);
+        t = a[j].y - b[i].y;
+        d2[j][i] = fmaf(t, t, d2[j][i]);
+        t = a[j].z - b[i].z;
+        d2[j][i] = fmaf(t, t, d2[j][i]);
+        t = a[j].w - b[i].w;
+        d2[j][i] = fmaf(t, t, d2[j][i]);
       }
     }
   }
 }
 
-// The den pass for D > 16: a warp owns kChunkRows rows of X and reduces over
-// all of TY.
+// A float of CTA `rank`'s shared memory at the address of `local` in this
+// CTA (the cluster's split); this CTA's own when there is no split.
+__device__ __forceinline__ float rank_value(const float* local, int rank, int splits) {
+  if (splits == 1) return *local;
+  return cluster_sync::ld_cluster_f32(
+      cluster_sync::cluster_u32(cluster_sync::smem_u32(local), rank));
+}
+
+__device__ __forceinline__ void split_barrier(int splits) {
+  if (splits > 1) {
+    cluster_sync::cluster_barrier();
+  } else {
+    __syncthreads();
+  }
+}
+
+// The staged tiles of both wide passes.  The row pass reuses the space for
+// its warps' PX partial sums once the sweep is over.
+template <int DP>
+struct WideTiles {
+  float own[kWideOwn * (DP + 4)];
+  float other[kWideTile * (DP + 4)];
+  float p[kWideTile * kPPitch];  // row pass: p of the tile, [point][row]
+};
+
+// The den pass for D > 16.  Grid (splits, own tiles), clusters of `splits`
+// CTAs along x: CTA `rank` owns rows [32 y, 32 y + 32) of X and sums over
+// TY rows [rank chunk, (rank + 1) chunk); the ranks' sums are added in rank
+// order through distributed shared memory.  A thread holds 4 rows x 4
+// points of a 64-point tile (tr = thread / 16, tc = thread % 16).
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    estep_den_chunked(Args a, float outlier_coef, float* __restrict__ pt1,
+    estep_den_wide(Args a, float outlier_coef, int chunk, float* __restrict__ pt1,
                    float* __restrict__ L) {
   if (a.done != nullptr && *a.done) return;
-  __shared__ float sty[kChunkDims][kChunkPitch];
-  const int lane = threadIdx.x & 31;
+  __shared__ __align__(16) WideTiles<DP> sm;
+  __shared__ float s_w[kWideTile];
+  __shared__ float s_part[kWideOwn];
+  const int rank = blockIdx.x, splits = gridDim.x;
+  const int own0 = blockIdx.y * kWideOwn;
+  const int n_own = min(kWideOwn, a.N - own0);
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
   const float s2 = *a.sigma2;
   const float neg = -(1.0f / (2.0f * s2));
-  const int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kChunkRows;
-  int rows[kChunkRows];
-  float acc[kChunkRows];
-#pragma unroll
-  for (int j = 0; j < kChunkRows; ++j) {
-    rows[j] = min(row0 + j, a.N - 1);
-    acc[j] = 0.0f;
-  }
-  for (int base = 0; base < a.M; base += kChunkTile) {
-    const int cols = min(kChunkTile, a.M - base);
-    float d2[kChunkPts][kChunkRows];
-    chunk_d2(d2, a.X, rows, a.TY, a.D, base, cols, sty, lane);
-#pragma unroll
-    for (int i = 0; i < kChunkPts; ++i) {
-      if (lane + 32 * i < cols) {
-#pragma unroll
-        for (int j = 0; j < kChunkRows; ++j) acc[j] += expf(d2[i][j] * neg);
-      }
+  const int o_begin = min(a.M, rank * chunk), o_end = min(a.M, o_begin + chunk);
+  const WideLayout lay = wide_layout(a.D, DP);
+  const int nch = (a.D + DP - 1) / DP;
+  const float* own = sm.own + 4 * tr * lay.pitch;
+  const float* other = sm.other + tc * lay.pitch;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  TilePrefetch<DP> pre;
+  if (nch == 1) {
+    stage_wide<kWideOwn>(sm.own, a.X, a.D, own0, n_own, 0, lay.groups, lay.pitch);
+    if (o_begin < o_end) {
+      pre.load(a.TY, a.D, o_begin, min(kWideTile, o_end - o_begin), lay.groups, nullptr);
     }
   }
+  for (int base = o_begin; base < o_end; base += kWideTile) {
+    const int cnt = min(kWideTile, o_end - base);
+    float d2[4][4] = {};
+    if (nch == 1) {
+      __syncthreads();  // the previous tile has been read
+      pre.store(sm.other, s_w, lay.groups, lay.pitch);
+      __syncthreads();
+      const int next = base + kWideTile;
+      if (next < o_end) pre.load(a.TY, a.D, next, min(kWideTile, o_end - next), lay.groups, nullptr);
+      wide_d2(d2, own, other, lay.pitch, lay.groups);
+    }
+    for (int c = 0; nch > 1 && c < nch; ++c) {
+      const int groups = (min(DP, a.D - c * DP) + 3) / 4;
+      __syncthreads();  // the previous chunk has been read
+      stage_wide<kWideOwn>(sm.own, a.X, a.D, own0, n_own, c * DP, groups, lay.pitch);
+      stage_wide<kWideTile>(sm.other, a.TY, a.D, base, cnt, c * DP, groups, lay.pitch);
+      if (c == 0 && threadIdx.x < kWideTile) s_w[threadIdx.x] = threadIdx.x < cnt ? 1.0f : 0.0f;
+      __syncthreads();
+      wide_d2(d2, own, other, lay.pitch, groups);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float w = s_w[tc + 16 * i];  // 0 past the tile
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = fmaf(exp_of_exponent(d2[j][i] * neg), w, acc[j]);
+    }
+  }
+  // The 16 threads of a row group, by a fixed xor tree.
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) acc[j] += __shfl_xor_sync(kFull, acc[j], off);
+  }
+  if (tc == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_part[4 * tr + j] = acc[j];
+  }
+  split_barrier(splits);  // every rank's sums are published
   const float c = outlier_coef > 0.0f
                       ? powf(2.0f * 3.14159265358979f * s2, 0.5f * a.D) * outlier_coef
                       : 0.0f;
   float log_sum = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kChunkRows; ++j) {
-    const float v = fmaxf(warp_sum(acc[j]) + c, 1e-30f);
-    const int n = row0 + j;
-    if (n < a.N) {
-      const float inv = 1.0f / v;
-      if (lane == j) {
-        a.inv_den[n] = inv;
-        pt1[n] = 1.0f - c * inv;
-      }
-      log_sum += logf(v);
-    }
+  // This CTA finishes rows rank, rank + splits, ... of the tile.
+  const int r = rank + splits * threadIdx.x;
+  if (r < n_own) {
+    float s = 0.0f;
+    for (int q = 0; q < splits; ++q) s += rank_value(&s_part[r], q, splits);
+    const float v = fmaxf(s + c, 1e-30f);
+    const float inv = 1.0f / v;
+    a.inv_den[own0 + r] = inv;
+    pt1[own0 + r] = 1.0f - c * inv;
+    log_sum = logf(v);
   }
+  split_barrier(splits);  // no CTA leaves while another reads its sums
   float total;
-  if (grid_sum(block_sum_of_warps(log_sum), a.block_sums, a.counter, &total)) {
+  if (grid_sum(block_sum_of_warps(warp_sum(log_sum)), a.block_sums, a.counter, &total)) {
     *L = -total + (float)a.D * (float)a.N * logf(s2) / 2.0f;
   }
 }
 
-// The row pass for D > 16: a warp owns kChunkRows rows of TY and reduces
-// over all of X; p1px is P1 [M] then PX [M, D].
+// The row pass for D > 16: as the den pass with the roles swapped (a CTA
+// owns 32 rows of TY and sums over X with 1/den), plus PX for dimensions
+// [DP z, DP z + DP) of blockIdx.z (one slab for D <= 64).  Each tile's p
+// goes to shared memory; then a thread adds p x for 4 rows x 4 dimensions
+// over its share of the tile's points (two float4 loads to 16 FMAs) into
+// accumulators held for the whole sweep.  At the end the threads' sums are
+// added in slice order, then the ranks' in rank order.  P1 and Np come
+// from slab 0.
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    estep_row_chunked(Args a, float* __restrict__ p1px, float* __restrict__ Np) {
+    estep_row_wide(Args a, int chunk, float* __restrict__ p1px, float* __restrict__ Np) {
   if (a.done != nullptr && *a.done) return;
-  __shared__ float sx[kChunkDims][kChunkPitch];
-  __shared__ __align__(16) float sp[kWarps][kChunkRows][kChunkTile];
-  __shared__ float sinv[kChunkTile];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  constexpr int kPxPitch = DP + 1;
+  constexpr int kMaxSlices = 4;
+  static_assert(kMaxSlices * kWideOwn * kPxPitch <= sizeof(WideTiles<DP>) / 4,
+                "the slices' PX sums fit in the tiles' space");
+  __shared__ __align__(16) WideTiles<DP> sm;
+  __shared__ float s_w[kWideTile];
+  __shared__ float s_p1[kWideOwn];
+  const int rank = blockIdx.x, splits = gridDim.x, slab = blockIdx.z;
+  const int own0 = blockIdx.y * kWideOwn;
+  const int n_own = min(kWideOwn, a.M - own0);
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
   const float neg = -(1.0f / (2.0f * *a.sigma2));
-  const int row0 = (blockIdx.x * kWarps + warp) * kChunkRows;
-  float* px = p1px + a.M;
-  int rows[kChunkRows];
-  float p1[kChunkRows];
-#pragma unroll
-  for (int j = 0; j < kChunkRows; ++j) {
-    rows[j] = min(row0 + j, a.M - 1);
-    p1[j] = 0.0f;
-    if (row0 + j < a.M) {
-      // Lane l owns dimensions l, l + 32, ...: the same lane adds to them
-      // below, so no barrier orders the zeroing.
-      for (int d = lane; d < a.D; d += 32) px[(size_t)(row0 + j) * a.D + d] = 0.0f;
+  const int o_begin = min(a.N, rank * chunk), o_end = min(a.N, o_begin + chunk);
+  const WideLayout lay = wide_layout(a.D, DP);
+  const int nch = (a.D + DP - 1) / DP;
+  const int slab_groups = (min(DP, a.D - slab * DP) + 3) / 4;
+  const float* own = sm.own + 4 * tr * lay.pitch;
+  const float* other = sm.other + tc * lay.pitch;
+  float p1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // PX as 4 rows x 4 dimensions a thread: `items` (row group, dimension
+  // group) pairs, the tile's points split `slices` ways among the threads
+  // that share an item (points slice, slice + slices, ...).
+  const int items = (kWideOwn / 4) * slab_groups;
+  const int slices = min(kMaxSlices, kThreads / items);
+  const int item = threadIdx.x % items, slice = threadIdx.x / items;
+  const int rg = item % (kWideOwn / 4), dg = item / (kWideOwn / 4);
+  const bool px_thread = slice < slices;
+  float px[4][4] = {};
+  TilePrefetch<DP> pre;
+  if (nch == 1) {
+    stage_wide<kWideOwn>(sm.own, a.TY, a.D, own0, n_own, 0, lay.groups, lay.pitch);
+    if (o_begin < o_end) {
+      pre.load(a.X, a.D, o_begin, min(kWideTile, o_end - o_begin), lay.groups, a.inv_den);
     }
   }
-  for (int base = 0; base < a.N; base += kChunkTile) {
-    const int cols = min(kChunkTile, a.N - base);
-    __syncthreads();  // the previous tile's 1/den and p have been read
-    for (int e = threadIdx.x; e < kChunkTile; e += kThreads) {
-      sinv[e] = e < cols ? a.inv_den[base + e] : 0.0f;
-    }
-    float d2[kChunkPts][kChunkRows];
-    chunk_d2(d2, a.TY, rows, a.X, a.D, base, cols, sx, lane);  // its barriers publish sinv
-#pragma unroll
-    for (int i = 0; i < kChunkPts; ++i) {
-      const int jj = lane + 32 * i;
-      const float inv = sinv[jj];  // 0 past the tile: p = 0 there
-#pragma unroll
-      for (int j = 0; j < kChunkRows; ++j) {
-        const float p = expf(d2[i][j] * neg) * inv;
-        p1[j] += p;
-        sp[warp][j][jj] = p;
+  for (int base = o_begin; base < o_end; base += kWideTile) {
+    const int cnt = min(kWideTile, o_end - base);
+    float d2[4][4] = {};
+    if (nch == 1) {
+      __syncthreads();  // the previous tile and its p have been read
+      pre.store(sm.other, s_w, lay.groups, lay.pitch);
+      __syncthreads();
+      const int next = base + kWideTile;
+      if (next < o_end) {
+        pre.load(a.X, a.D, next, min(kWideTile, o_end - next), lay.groups, a.inv_den);
       }
+      wide_d2(d2, own, other, lay.pitch, lay.groups);
     }
-    __syncwarp();
-    for (int c0 = 0; c0 < a.D; c0 += kChunkDims) {
-      const int dc = min(kChunkDims, a.D - c0);
+    for (int c = 0; nch > 1 && c < nch; ++c) {
+      const int groups = (min(DP, a.D - c * DP) + 3) / 4;
+      __syncthreads();  // the previous chunk, or tile and p, has been read
+      stage_wide<kWideOwn>(sm.own, a.TY, a.D, own0, n_own, c * DP, groups, lay.pitch);
+      stage_wide<kWideTile>(sm.other, a.X, a.D, base, cnt, c * DP, groups, lay.pitch);
+      if (c == 0 && threadIdx.x < kWideTile) {
+        s_w[threadIdx.x] = threadIdx.x < cnt ? a.inv_den[base + threadIdx.x] : 0.0f;
+      }
       __syncthreads();
-      stage_chunk(sx, a.X, a.D, base, cols, c0, dc);
+      wide_d2(d2, own, other, lay.pitch, groups);
+    }
+    if (nch > 1 && slab != nch - 1) {  // PX's slab is not the last chunk
       __syncthreads();
-      if (lane < dc) {
-        float acc[kChunkRows];
+      stage_wide<kWideTile>(sm.other, a.X, a.D, base, cnt, slab * DP, slab_groups, lay.pitch);
+    }
 #pragma unroll
-        for (int j = 0; j < kChunkRows; ++j) acc[j] = 0.0f;
-        for (int jj = 0; jj < cols; jj += 4) {  // zero p and x past the tile
-          const float x0 = sx[lane][jj], x1 = sx[lane][jj + 1];
-          const float x2 = sx[lane][jj + 2], x3 = sx[lane][jj + 3];
+    for (int i = 0; i < 4; ++i) {
+      const float w = s_w[tc + 16 * i];  // 1/den, 0 past the tile: p = 0 there
+      float p[4];
 #pragma unroll
-          for (int j = 0; j < kChunkRows; ++j) {
-            const float4 p4 = *reinterpret_cast<const float4*>(&sp[warp][j][jj]);
-            acc[j] = fmaf(p4.x, x0, acc[j]);
-            acc[j] = fmaf(p4.y, x1, acc[j]);
-            acc[j] = fmaf(p4.z, x2, acc[j]);
-            acc[j] = fmaf(p4.w, x3, acc[j]);
-          }
-        }
+      for (int j = 0; j < 4; ++j) {
+        p[j] = exp_of_exponent(d2[j][i] * neg) * w;
+        p1[j] += p[j];
+      }
+      *reinterpret_cast<float4*>(&sm.p[(tc + 16 * i) * kPPitch + 4 * tr]) =
+          make_float4(p[0], p[1], p[2], p[3]);
+    }
+    __syncthreads();  // the tile's p is complete
+    if (px_thread) {
+      for (int pt = slice; pt < kWideTile; pt += slices) {
+        const float4 pv = *reinterpret_cast<const float4*>(&sm.p[pt * kPPitch + 4 * rg]);
+        const float4 xv = *reinterpret_cast<const float4*>(sm.other + pt * lay.pitch + 4 * dg);
+        const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-        for (int j = 0; j < kChunkRows; ++j) {
-          if (row0 + j < a.M) px[(size_t)(row0 + j) * a.D + c0 + lane] += acc[j];
+        for (int j = 0; j < 4; ++j) {
+          px[j][0] = fmaf(pr[j], xv.x, px[j][0]);
+          px[j][1] = fmaf(pr[j], xv.y, px[j][1]);
+          px[j][2] = fmaf(pr[j], xv.z, px[j][2]);
+          px[j][3] = fmaf(pr[j], xv.w, px[j][3]);
         }
       }
     }
   }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) p1[j] += __shfl_xor_sync(kFull, p1[j], off);
+  }
+  float* part = reinterpret_cast<float*>(&sm);  // [slice][row][kPxPitch]
+  __syncthreads();  // the tiles are no longer read
+  if (tc == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_p1[4 * tr + j] = p1[j];
+  }
+  if (px_thread) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        part[(slice * kWideOwn + 4 * rg + j) * kPxPitch + 4 * dg + i] = px[j][i];
+      }
+    }
+  }
+  __syncthreads();
+  // Slice order, into slice 0's slots.
+  for (int e = threadIdx.x; e < kWideOwn * 4 * slab_groups; e += kThreads) {
+    const int row = e / (4 * slab_groups), d = e - row * 4 * slab_groups;
+    float s = part[row * kPxPitch + d];
+    for (int q = 1; q < slices; ++q) s += part[(q * kWideOwn + row) * kPxPitch + d];
+    part[row * kPxPitch + d] = s;
+  }
+  split_barrier(splits);  // every rank's sums are published
+  // This CTA finishes rows rank, rank + splits, ... of the tile: P1 (slab 0)
+  // and the slab's PX columns, each summed over the ranks in rank order.
   float p1_sum = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kChunkRows; ++j) {
-    const float s = warp_sum(p1[j]);
-    const int m = row0 + j;
-    if (m < a.M) {
-      if (lane == j) p1px[m] = s;
-      p1_sum += s;
+  const int rows_here = n_own > rank ? (n_own - rank + splits - 1) / splits : 0;
+  const int cols = 1 + min(DP, a.D - slab * DP);
+  for (int e = threadIdx.x; e < rows_here * cols; e += kThreads) {
+    const int rr = e / cols, col = e - rr * cols;
+    const int r = rank + splits * rr;
+    float s = 0.0f;
+    if (col == 0) {
+      if (slab == 0) {
+        for (int q = 0; q < splits; ++q) s += rank_value(&s_p1[r], q, splits);
+        p1px[own0 + r] = s;
+        p1_sum += s;
+      }
+    } else {
+      for (int q = 0; q < splits; ++q) s += rank_value(&part[r * kPxPitch + col - 1], q, splits);
+      p1px[a.M + (size_t)(own0 + r) * a.D + slab * DP + col - 1] = s;
     }
   }
+  split_barrier(splits);  // no CTA leaves while another reads its sums
   float total;
-  if (grid_sum(block_sum_of_warps(p1_sum), a.block_sums, a.counter, &total)) {
+  if (grid_sum(block_sum_of_warps(warp_sum(p1_sum)), a.block_sums, a.counter, &total)) {
     *Np = total;
   }
 }
 
 int padded(int D) { return D <= 3 ? 3 : D <= 6 ? 6 : D <= 8 ? 8 : 16; }
 
-// Rows a warp owns for `rows` output rows at width D.
+// Rows a warp owns for `rows` output rows at width D <= 16.
 int rows_per_warp(int rows, int D) {
-  if (D > kRegisterD) return kChunkRows;
   if (rows < kWideMin || padded(D) > 8) return 2;
   return padded(D) == 6 ? kRowsD6 : kRows;
 }
@@ -532,7 +767,24 @@ int blocks_for(int rows, int D) {
   return (rows + per_block - 1) / per_block;
 }
 
+int wide_tiles(int rows) { return (rows + kWideOwn - 1) / kWideOwn; }
+
+// PX slabs of the wide row pass (blockIdx.z): one up to D = 64.
+int wide_slabs(int D) { return (D + wide_dp(D) - 1) / wide_dp(D); }
+
+int den_blocks(int N, int D, int splits) {
+  return D > kRegisterD ? splits * wide_tiles(N) : blocks_for(N, D);
+}
+
+int row_blocks(int M, int D, int splits) {
+  return D > kRegisterD ? splits * wide_tiles(M) * wide_slabs(D) : blocks_for(M, D);
+}
+
 bool bad_shape(int N, int M, int D) { return N < 1 || M < 1 || D < 1; }
+
+bool bad_split(int D, int splits) {
+  return D > kRegisterD && (splits < 1 || splits > kWideMaxSplit);
+}
 
 // Makes `device` current if it is not (a CUDA graph capture may be under way,
 // so nothing else is called).
@@ -541,6 +793,25 @@ cudaError_t use_device(int device) {
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess || current == device) return err;
   return cudaSetDevice(device);
+}
+
+// The wide passes: `splits` CTAs a cluster, each taking ceil(n / splits)
+// points of the other cloud.
+template <int DP>
+int den_wide_launch(const Args& a, float coef, float* pt1, float* L, int splits,
+                    cudaStream_t s) {
+  const int chunk = (a.M + splits - 1) / splits;
+  return cluster_sync::launch_grid_of_clusters(
+      estep_den_wide<DP>, dim3(splits, wide_tiles(a.N), 1), splits, kThreads, 0, s, a,
+      coef, chunk, pt1, L);
+}
+
+template <int DP>
+int row_wide_launch(const Args& a, float* p1px, float* Np, int splits, cudaStream_t s) {
+  const int chunk = (a.N + splits - 1) / splits;
+  return cluster_sync::launch_grid_of_clusters(
+      estep_row_wide<DP>, dim3(splits, wide_tiles(a.M), wide_slabs(a.D)), splits, kThreads,
+      0, s, a, chunk, p1px, Np);
 }
 
 template <int DP, int R>
@@ -558,13 +829,16 @@ void row_launch(const Args& a, float* p1px, float* Np, int blocks, cudaStream_t 
 
 // Plain C entry points, loaded through ctypes.  Every one returns 0 on
 // success, -1 for shapes the kernels do not take, or a CUDA error code.
+// `den_splits` / `splits` are the wide passes' cluster sizes (1-8, chosen by
+// the caller, ops/cpd_estep_kernel.py::plan); D <= 16 ignores them.
 
 // Blocks of the den pass and of the row pass for X [N, D] and TY [M, D],
 // into out[2]: the caller sizes the block-sum workspaces from them.
-extern "C" int pyfocusr_cpd_estep_plan(int N, int M, int D, int* out) {
-  if (bad_shape(N, M, D)) return -1;
-  out[0] = blocks_for(N, D);
-  out[1] = blocks_for(M, D);
+extern "C" int pyfocusr_cpd_estep_plan(int N, int M, int D, int den_splits,
+                                       int row_splits, int* out) {
+  if (bad_shape(N, M, D) || bad_split(D, den_splits) || bad_split(D, row_splits)) return -1;
+  out[0] = den_blocks(N, D, den_splits);
+  out[1] = row_blocks(M, D, row_splits);
   return 0;
 }
 
@@ -575,17 +849,17 @@ extern "C" int pyfocusr_cpd_estep_plan(int N, int M, int D, int* out) {
 extern "C" int pyfocusr_cpd_estep_den_f32(
     const float* X, const float* TY, int N, int M, int D, const float* sigma2,
     float outlier_coef, const int* done, float* inv_den, float* block_sums,
-    int* counter, float* pt1, float* L, int device, void* stream) {
-  if (bad_shape(N, M, D)) return -1;
+    int* counter, float* pt1, float* L, int splits, int device, void* stream) {
+  if (bad_shape(N, M, D) || bad_split(D, splits)) return -1;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{X, TY, N, M, D, sigma2, done, inv_den, block_sums, counter};
-  const int blocks = blocks_for(N, D);
   if (D > kRegisterD) {
-    estep_den_chunked<<<blocks, kThreads, 0, s>>>(a, outlier_coef, pt1, L);
-    return (int)cudaGetLastError();
+    return wide_dp(D) == 32 ? den_wide_launch<32>(a, outlier_coef, pt1, L, splits, s)
+                            : den_wide_launch<64>(a, outlier_coef, pt1, L, splits, s);
   }
+  const int blocks = blocks_for(N, D);
   const bool wide = rows_per_warp(N, D) > 2;
   switch (padded(D)) {
     case 3: (wide ? den_launch<3, kRows> : den_launch<3, 2>)(a, outlier_coef, pt1, L, blocks, s); break;
@@ -602,17 +876,17 @@ extern "C" int pyfocusr_cpd_estep_den_f32(
 extern "C" int pyfocusr_cpd_estep_rows_f32(
     const float* X, const float* TY, int N, int M, int D, const float* sigma2,
     const int* done, float* inv_den, float* block_sums, int* counter,
-    float* p1px, float* Np, int device, void* stream) {
-  if (bad_shape(N, M, D)) return -1;
+    float* p1px, float* Np, int splits, int device, void* stream) {
+  if (bad_shape(N, M, D) || bad_split(D, splits)) return -1;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{X, TY, N, M, D, sigma2, done, inv_den, block_sums, counter};
-  const int blocks = blocks_for(M, D);
   if (D > kRegisterD) {
-    estep_row_chunked<<<blocks, kThreads, 0, s>>>(a, p1px, Np);
-    return (int)cudaGetLastError();
+    return wide_dp(D) == 32 ? row_wide_launch<32>(a, p1px, Np, splits, s)
+                            : row_wide_launch<64>(a, p1px, Np, splits, s);
   }
+  const int blocks = blocks_for(M, D);
   const bool wide = rows_per_warp(M, D) > 2;
   switch (padded(D)) {
     case 3: (wide ? row_launch<3, kRows> : row_launch<3, 2>)(a, p1px, Np, blocks, s); break;

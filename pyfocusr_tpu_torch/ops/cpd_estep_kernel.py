@@ -28,8 +28,9 @@ Not carried from the TPU version: the +-1e15 padding (the kernel masks the
 ragged edge by index), the ``tile_m`` / ``tile_n`` block sizes, and the
 ``M N >= 4096^2`` dispatch between Pallas and XLA.  f32 only, any D >= 1,
 as in the JAX package: the kernel's register-resident instances take D <= 16
-and its chunked instance (``estep_den_chunked`` / ``estep_row_chunked``,
-accurate ``expf``) any wider D.
+and its tiled instance (``estep_den_wide`` / ``estep_row_wide``) any wider
+D, the other cloud split across the CTAs of a thread-block cluster as
+``plan`` chooses.
 
 ``estep_for(X, M, w)`` gives the E-step of one EM run: ``CudaEstep`` for a
 CUDA X (its workspaces and outputs allocated once, each call two launches
@@ -58,6 +59,7 @@ __all__ = [
     "estep_for",
     "load_library",
     "outlier_constant",
+    "plan",
 ]
 
 # Launch count of the CUDA kernel: the wrapper adds one per pass it launches
@@ -66,22 +68,65 @@ __all__ = [
 # to count a run's launches.
 LAUNCHES = 0
 
+# The launch plan of the tiled D > 16 instance (csrc/cpd_estep.cu, where
+# kWideOwn, kThreads and kWideMaxSplit are the same numbers): a CTA of
+# WIDE_THREADS threads owns WIDE_OWN output rows, and the other cloud is
+# split across the `splits` CTAs of a thread-block cluster, doubled up to
+# WIDE_MAX_SPLIT while the grid holds fewer than WIDE_CTAS_PER_SM CTAs a SM
+# and each CTA keeps WIDE_MIN_POINTS points of the other cloud or more.
+WIDE_OWN = 32
+WIDE_THREADS = 128
+WIDE_MAX_SPLIT = 8
+WIDE_CTAS_PER_SM = 16
+WIDE_MIN_POINTS = 128
+REGISTER_MAX_D = 16
+
+
+def _wide_splits(rows: int, other: int, sms: int) -> int:
+    tiles = -(-rows // WIDE_OWN)
+    splits = 1
+    while (splits < WIDE_MAX_SPLIT and tiles * splits < WIDE_CTAS_PER_SM * sms
+           and other // (2 * splits) >= WIDE_MIN_POINTS):
+        splits *= 2
+    return splits
+
+
+def plan(N: int, M: int, D: int, sms: int = 132) -> dict:
+    """The wide instance's grid for X [N, D] and TY [M, D] on a card of
+    ``sms`` SMs: per pass (``den`` over the N rows of X, ``row`` over the M
+    rows of TY) the cluster size ``splits``, the CTAs and the warps an SM.
+    At D <= 16 the register instances take no split (``splits`` 1, the
+    grid is the kernel's own)."""
+    out = {}
+    slabs = 1 if D <= 64 else -(-D // 64)
+    for name, rows, other, z in (("den", N, M, 1), ("row", M, N, slabs)):
+        if D <= REGISTER_MAX_D:
+            out[name] = {"splits": 1}
+            continue
+        splits = _wide_splits(rows, other, sms)
+        ctas = splits * -(-rows // WIDE_OWN) * z
+        out[name] = {"splits": splits, "ctas": ctas,
+                     "warps_per_sm": ctas * (WIDE_THREADS // 32) / sms}
+    return out
+
+
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _LIBRARY = CudaLibrary("cpd_estep.cu", "cpd_estep", "CPD E-step", {
-    "pyfocusr_cpd_estep_plan": [_INT, _INT, _INT, _VP],  # N, M, D, out[2]
+    # N, M, D, den splits, row splits, out[2]
+    "pyfocusr_cpd_estep_plan": [_INT, _INT, _INT, _INT, _INT, _VP],
     "pyfocusr_cpd_estep_den_f32": [
         _VP, _VP, _INT, _INT, _INT,  # X, TY, N, M, D
         _VP, ctypes.c_float, _VP, _VP,  # sigma2, outlier coefficient, done, 1/den
         _VP, _VP,  # block sums, counter
         _VP, _VP,  # Pt1, L
-        _INT, _VP,  # device, stream
+        _INT, _INT, _VP,  # splits, device, stream
     ],
     "pyfocusr_cpd_estep_rows_f32": [
         _VP, _VP, _INT, _INT, _INT,  # X, TY, N, M, D
         _VP, _VP, _VP,  # sigma2, done, 1/den
         _VP, _VP,  # block sums, counter
         _VP, _VP,  # p1px, Np
-        _INT, _VP,  # device, stream
+        _INT, _INT, _VP,  # splits, device, stream
     ],
 })
 # Filled by load_library(): seconds spent in nvcc (0.0 on a cache hit) and
@@ -135,7 +180,8 @@ class CudaEstep:
     here, once; each call launches the den pass and the row pass on the
     current stream and returns views of the outputs, which the next call
     overwrites.  A call allocates nothing and reads nothing back to the
-    host, so it can be captured in a CUDA graph."""
+    host, so it can be captured in a CUDA graph.  The D > 16 instance
+    runs on ``plan``'s grid."""
 
     def __init__(self, X: torch.Tensor, M: int, w: float = 0.0):
         _check_inputs(X, X)
@@ -148,11 +194,15 @@ class CudaEstep:
             raise ValueError("CudaEstep indexes points with int32")
         require_sm90(dev, "CudaEstep")
         self.lib = load_library()
-        plan = (ctypes.c_int * 2)()
-        err = self.lib.pyfocusr_cpd_estep_plan(N, M, D, ctypes.addressof(plan))
+        self.plan = plan(N, M, D, torch.cuda.get_device_properties(dev).multi_processor_count)
+        self.splits = (self.plan["den"]["splits"], self.plan["row"]["splits"])
+        blocks = (ctypes.c_int * 2)()
+        err = self.lib.pyfocusr_cpd_estep_plan(N, M, D, *self.splits,
+                                               ctypes.addressof(blocks))
         if err != 0:
             raise RuntimeError(f"cpd_estep plan failed: error {err}")
-        den_blocks, row_blocks = plan
+        den_blocks, row_blocks = blocks
+        self.plan["den"]["blocks"], self.plan["row"]["blocks"] = den_blocks, row_blocks
         self.X, self.N, self.M, self.D = X, N, M, D
         self.coef = float(w / (1.0 - w) * (M / N)) if w > 0 else 0.0
         f32 = dict(dtype=torch.float32, device=dev)
@@ -199,7 +249,7 @@ class CudaEstep:
             self.X.data_ptr(), ty, self.N, self.M, self.D, s2, self.coef, done_ptr,
             self.inv_den.data_ptr(), self.block_sums.data_ptr(),
             self.counters.data_ptr(), self.pt1.data_ptr(), self.scalars.data_ptr(),
-            dev, stream,
+            self.splits[0], dev, stream,
         )
         if err != 0:
             raise RuntimeError(f"cpd_estep den pass launch failed: error {err}")
@@ -212,7 +262,7 @@ class CudaEstep:
         err = self.lib.pyfocusr_cpd_estep_rows_f32(
             self.X.data_ptr(), ty, self.N, self.M, self.D, s2, done_ptr,
             self.inv_den.data_ptr(), self.row_sums_ptr, self.counters.data_ptr() + 4,
-            self.p1px.data_ptr(), self.scalars.data_ptr() + 4, dev, stream,
+            self.p1px.data_ptr(), self.scalars.data_ptr() + 4, self.splits[1], dev, stream,
         )
         if err != 0:
             raise RuntimeError(f"cpd_estep row pass launch failed: error {err}")

@@ -61,8 +61,8 @@ def _outlier_c(s2, w, D, M, N):
 # (M, N, D, sigma2, w, seed): the cases of tests/test_pallas_kernels.py
 # (700 x 900; 258 x 513 non-square with ragged tiles; the outlier term),
 # the xyz-as-features width D = 6, and the wide coordinates of spectral
-# features with xyz appended (D = 17, 20, 35: the kernel's chunked
-# instance, ragged in its 32-dimension chunks and 128-point tiles), whose
+# features with xyz appended (D = 17, 20, 35: the kernel's tiled
+# instance, ragged in its 32-row CTAs and 64-point tiles), whose
 # sigma2 keeps exp(-|x - ty|^2 / 2 sigma2) away from underflow at
 # |x - ty|^2 ~ 2 D / 3.  The wide cases take no outlier term: its
 # (2 pi sigma2)^(D / 2) swamps den at these widths (measured c ~ 1e4-1e8).
@@ -267,7 +267,8 @@ def test_affine_cpd_run_matches_jax(w):
 @pytest.mark.gpu
 def test_cpd_estep_kernel_matches_plain_on_card():
     """Runs on a CUDA card only: the kernel against its plain version at
-    D = 3 and 6, ragged sizes and the outlier term, two launches per call.
+    D = 3 and 6, ragged sizes and the outlier term, two launches per call;
+    then the D > 16 instance's edges.
     Tolerance: rtol 1e-5 on den-sized sums (the two sum in different orders
     and the kernel contracts with FMA), i.e. atol 1e-5 on P1 / PX here."""
     if not torch.cuda.is_available():
@@ -281,6 +282,57 @@ def test_cpd_estep_kernel_matches_plain_on_card():
         want = EK.cpd_estep_plain(Xc, TYc, s2, w)
         for name, g, w in zip(NAMES, got, want):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+    # The D > 16 instance's edges on the plan's grids, the cases
+    # chip_smoke.py's wide E-step phase runs on the card; two calls repeat
+    # bit for bit.
+    import chip_smoke
+
+    for name, Xc, TYc, s2 in chip_smoke.wide_estep_edge_cases(torch):
+        s2 = torch.tensor(s2).cuda()
+        est = EK.CudaEstep(Xc, TYc.shape[0])
+        got = [t.clone() for t in est(TYc, s2)]
+        again = est(TYc, s2)
+        want = EK.cpd_estep_plain(Xc, TYc, s2)
+        for out, g, a, w in zip(NAMES, got, again, want):
+            assert torch.equal(g, a), (name, out)
+            scale = max(1.0, float(w.abs().max()))
+            assert float((g - w).abs().max()) <= 1e-5 * scale, (name, out)
+
+
+# (rows, splits, CTAs) of the D > 16 instance's plan on a 132-SM card, per
+# pass at M = N = rows: the other cloud is split up to 8 ranks, until about
+# 16 CTAs an SM or 128 points a rank (1000 rows: 4 ranks of 250 points).
+WIDE_PLAN = {1000: (4, 128), 2000: (8, 504), 5000: (8, 1256), 10242: (8, 2568)}
+
+
+@pytest.mark.parametrize("rows", sorted(WIDE_PLAN))
+def test_wide_estep_plan_at_path_sizes(rows):
+    splits, ctas = WIDE_PLAN[rows]
+    for D in (17, 19, 32, 64):
+        got = EK.plan(rows, rows, D)
+        for name in ("den", "row"):
+            assert (got[name]["splits"], got[name]["ctas"]) == (splits, ctas), (D, got)
+            assert got[name]["warps_per_sm"] == ctas * 4 / 132
+    # D = 130: three PX slabs in the row pass; D <= 16 takes no split.
+    assert EK.plan(rows, rows, 130)["row"]["ctas"] == 3 * ctas
+    assert EK.plan(rows, rows, 16) == {"den": {"splits": 1}, "row": {"splits": 1}}
+    # Each pass plans from its own rows and the other cloud's points: the
+    # den pass over X's rows has 200 points of TY to split (no split).
+    small = EK.plan(rows, 200, 19)
+    assert small["den"]["splits"] == 1 and small["den"]["ctas"] == -(-rows // 32)
+    assert small["row"]["ctas"] == small["row"]["splits"] * 7
+
+
+def test_wide_estep_source_agrees_with_planner():
+    """The rows a CTA, threads a CTA and largest split that
+    csrc/cpd_estep.cu's D > 16 instance is built with are the planner's."""
+    from pathlib import Path
+
+    src = (Path(EK.__file__).parent.parent / "csrc" / "cpd_estep.cu").read_text()
+    assert f"constexpr int kWideOwn = {EK.WIDE_OWN};" in src
+    assert f"constexpr int kWarps = {EK.WIDE_THREADS // 32};" in src
+    assert f"constexpr int kWideMaxSplit = {EK.WIDE_MAX_SPLIT};" in src
+    assert f"constexpr int kRegisterD = {EK.REGISTER_MAX_D};" in src
 
 
 # ------------------------------------------------ the EM loops' two drivers

@@ -356,3 +356,50 @@ def test_topk_kernel_matches_plain_on_card():
            torch.full((300, 8), -7, dtype=torch.int32, device="cuda"))
     knn_kernel.knn_cuda(r, q, 8, out=out, done=torch.ones(1, dtype=torch.int32, device="cuda"))
     assert bool((out[0] == -1.0).all()) and bool((out[1] == -7).all())
+    # Both of the plan's grids (1 and 4 queries a warp) at every list width,
+    # the cases chip_smoke.py's top-k phase runs on the card.
+    import chip_smoke
+
+    for name, r, q, k in chip_smoke.topk_grid_cases(torch):
+        assert knn_topk_kernel.plan(q.shape[0], k)["queries_per_warp"] == (
+            4 if q.shape[0] == 6401 and k <= 32 else 1), name
+        kd, ki = knn_kernel.knn(r, q, k)
+        pd, pi = knn_kernel.knn_plain(r, q, k)
+        assert torch.equal(ki, pi), name
+        assert torch.equal(kd, pd), name
+
+
+# (nq, {k: queries a warp}) of the k = 4..128 kernel's plan on a 132-SM
+# card: 10242 queries fill the card at 4 a warp up to k = 32; ICP's 2000
+# take 1 a warp (4 would leave 4 warps an SM), as does every k above 32
+# (the thread queues' instances).
+TOPK_PLAN = {1: {8: 1, 32: 1, 64: 1, 128: 1}, 1000: {8: 1, 32: 1, 64: 1, 128: 1},
+             2000: {8: 1, 32: 1, 64: 1, 128: 1}, 5000: {8: 1, 32: 1, 64: 1, 128: 1},
+             10242: {8: 4, 32: 4, 33: 1, 64: 1, 128: 1}}
+
+
+@pytest.mark.parametrize("nq", sorted(TOPK_PLAN))
+def test_topk_plan_at_path_sizes(nq):
+    from pyfocusr_tpu_torch.ops import knn_topk_kernel as T
+
+    for k, qw in TOPK_PLAN[nq].items():
+        got = T.plan(nq, k)
+        assert got["queries_per_warp"] == qw, (nq, k, got)
+        assert got["ctas"] == -(-nq // (qw * T.WARPS_PER_CTA))
+        assert got["warps_per_sm"] == got["ctas"] * T.WARPS_PER_CTA / 132
+    # The switch sits where 4 queries a warp give 12 warps an SM.
+    edge = 4 * T.TARGET_WARPS_PER_SM * 132
+    assert T.plan(edge, 8)["queries_per_warp"] == 4
+    assert T.plan(edge - 4, 8)["queries_per_warp"] == 1
+
+
+def test_topk_kernel_source_agrees_with_planner():
+    """The warps a CTA and the grids csrc/knn_topk.cu is built with are the
+    planner's."""
+    from pathlib import Path
+
+    from pyfocusr_tpu_torch.ops import knn_topk_kernel as T
+
+    src = (Path(T.__file__).parent.parent / "csrc" / "knn_topk.cu").read_text()
+    assert f"constexpr int kWarps = {T.WARPS_PER_CTA};" in src
+    assert "(qw != 1 && qw != 4) || (qw == 4 && k > 32)" in src

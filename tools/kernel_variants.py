@@ -4,14 +4,16 @@ libraries: the shared part of ``tools/knn_variants.py`` and
 from ``chip_smoke.py`` (``graph_ms``, ``nvidia_smi_line``).
 
 A variant ``spec`` is either comma-separated ``NAME=VALUE`` pairs, each
-replacing ``constexpr int NAME = ...;``, or literal replacements
-``OLD=>NEW`` of source text joined by ``' ;; '``.
+replacing ``constexpr int NAME = ...;``, literal replacements ``OLD=>NEW``
+of source text joined by ``' ;; '``, or the path of a whole other source
+(``*.cu``, e.g. an earlier version kept under ``build/``).
 """
 
 from __future__ import annotations
 
 import hashlib
 import re
+from pathlib import Path
 
 
 def variant_library(build, library, source_name: str, label: str, spec: str):
@@ -21,7 +23,10 @@ def variant_library(build, library, source_name: str, label: str, spec: str):
     src = build.CSRC_DIR / source_name
     stem = src.stem
     text = src.read_text()
-    if "=>" in spec:
+    if spec.endswith(".cu"):
+        text = Path(spec).read_text()
+        tag = "file_" + hashlib.sha256(text.encode()).hexdigest()[:8]
+    elif "=>" in spec:
         for sub in spec.split(" ;; "):
             old, new = sub.split("=>", 1)
             if old not in text:
