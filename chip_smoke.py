@@ -9,7 +9,8 @@ nvcc and PyTorch built for CUDA:
 It builds the six CUDA kernels from ``pyfocusr_tpu_torch/csrc/`` (k-NN for
 k = 1..3 and for k = 4..128, Sinkhorn row-logsumexp, Jonker-Volgenant,
 streamed CPD E-step, the 3x3 Umeyama close; one nvcc each, started
-together) and drives four paths of
+together), builds the host library from ``csrc/host/`` with g++ at its
+first use, and drives four paths of
 ``register_pair`` on a synthetic 10242-vertex bone pair, on CUDA tensors,
 each with the kernels' launch counts set to 0 just before and read just
 after:
@@ -43,7 +44,9 @@ after:
   'hungarian' correspondences at 642 and 2562 (lse and JV; the objective
   against ``lap_host``'s) and ``linear_sum_assignment`` on the card against
   ``lap_host`` from 2 to 2048 rows; the narrow solver at 642 and 2562 and Lanczos at 2562
-  through ``register_pair``, each solve timed; CUDA against CPU at 2562;
+  through ``register_pair``, each solve timed; CUDA against CPU at 2562; the
+  result (CUDA tensors) and its target ``Graph`` through ``export_viewer_html``,
+  read back to their meshes' counts;
 * multi-resolution registration (``multires``): ``register_pair_multires``
   on the pair subdivided to 655362 vertices (coarse_n 12000, one jump) with
   stage checkpoints, resumed from them bit for bit, and split by stage;
@@ -60,6 +63,17 @@ after:
   its subjects registered unpadded, and one padded lane on the CPU;
   ``iterate_template`` for three rounds with Procrustes, the SSM of its
   last round, and ``all_pairs_surface_errors`` on the decimations;
+* the host library (``native``): ``build_topology``, ``decimate`` and
+  ``lap_host`` through the C++ paths of ``csrc/host/`` against their numpy
+  plain versions (byte-equal, both timed) at the multires pair's 655362
+  vertices, and a .vtk ASCII round trip through both parsers; the
+  multires phase's split then shows the native host paths;
+* groupwise registration (``groupwise``): ``register_pair_symmetric`` on the
+  10242 pair, ``register_all_pairs`` on four warped subjects (12 pairs),
+  first call and warm, the three-cycle error, ``synchronize_correspondences``
+  and ``synchronize_spectral`` on the clean maps (nothing flagged) and with
+  one map's rows scrambled (flagged and repaired); CUDA against CPU on the
+  symmetric pair at 2562;
 * wide coordinates and the class API's output stage (``wide_coords``):
   ``Focusr`` at the class defaults with 16 spectral features and xyz
   appended (D = 19: the initial correspondences on the port of JAX's XLA
@@ -260,9 +274,30 @@ CPU_CHECK_LEVELS = 4
 # against the CPU read under 95%); at 1e-6 all stop at 104, 96.5-97.3%.
 FEATURE_CHECK_TOLERANCE = 1e-6
 # The sizes at which the class phase times ``linear_sum_assignment`` on the
-# card against ``lap_host`` (its default sends every square CUDA cost to
-# the card).
-LAP_DISPATCH_SIZES = (2, 4, 16, 64, 256, 642, 2048)
+# card against ``lap_host`` (the host library's C++ solver), on which
+# ``ops/assignment.DEVICE_THRESHOLD`` rests.
+LAP_DISPATCH_SIZES = (2, 4, 16, 64, 128, 256, 512, 642, 1024, 2048)
+# The native phase: the host library's paths against their numpy plain
+# versions on the multires pair's target (655362 vertices), decimated to
+# the multires coarse_n; ``lap_host`` at three sizes.
+NATIVE_LEVELS = 8
+NATIVE_LAP_SIZES = (64, 256, 1024)
+# The groupwise phase: ``register_pair_symmetric`` on the seed-2 / seed-1
+# pair, ``register_all_pairs`` on four subjects of one anatomy (the seed-2
+# bone under axial warps of 0-3%, as tests/test_groupwise.py warps one
+# bone), the synchronizations with ``n_basis`` 20, JAX's default, and one
+# map's rows scrambled for the detection gate.
+GROUPWISE_WARPS = ((0.0, 0.0), (0.01, 0.4), (0.02, 0.8), (0.03, 1.2))
+GROUPWISE_N_BASIS = 20
+GROUPWISE_SCRAMBLED_SHARE = 0.5
+# synchronize_spectral's outlier_factor in the phase.  JAX's default 1.3
+# (tuned on the bundled bone's three-mesh set, clean ceiling ~0.53 against
+# 0.73 scrambled) flags 2-3 of the 12 clean maps of four-subject cohorts
+# (tools/groupwise_flagging.py on the CPU at 2562 vertices: these warps,
+# 0.3 mm jitter, four different bones): their residuals spread 1.51-1.75x
+# about their median, while a map with half its rows permuted scores
+# 0.51-0.54, 3.1-6.6x the median.  The phase also reports what 1.3 flags.
+GROUPWISE_OUTLIER_FACTOR = 2.5
 # The multires phase: the synthetic pair subdivided 8 times (655362
 # vertices) with JAX's default coarse_n; a 40962 pair (6) whose coarse_n and
 # level_ratio 4 insert intermediate levels; both k-NN routes at 163842 (7);
@@ -1889,33 +1924,89 @@ def focusr_result(torch, reg):
 
 
 def lap_dispatch(torch, TA, sizes=LAP_DISPATCH_SIZES, reps=3):
-    """``linear_sum_assignment`` on a CUDA cost (the card's Sinkhorn and JV
-    solve) against ``lap_host`` on the same cost, at each of ``sizes``:
-    uniform [0, 1) costs from a seed, the card's fenced median of ``reps``
-    warm calls, the host's one call; the objectives must agree."""
+    """The card's solve (``linear_sum_assignment`` with
+    ``device_threshold=0``: Sinkhorn and JV) against ``lap_host`` (the host
+    library's C++ JV) on the same cost, at each of ``sizes``: uniform [0, 1)
+    costs from a seed, the fenced median of ``reps`` warm calls of each;
+    the objectives must agree.  Also the largest size at which the host
+    won (``host_wins_up_to``), which ``DEVICE_THRESHOLD`` should equal."""
     rows = {}
+    host_wins_up_to = 0
     for n in sizes:
         c64 = np.random.default_rng(n).uniform(0.0, 1.0, (n, n))
         cost = torch.tensor(c64.astype(np.float32), device="cuda")
         c64 = cost.double().cpu().numpy()
-        TA.linear_sum_assignment(cost)
-        secs = []
+        TA.linear_sum_assignment(cost, device_threshold=0)
+        TA.lap_host(c64)
+        secs, host_secs = [], []
         for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, col = TA.linear_sum_assignment(cost)
+            _, col = TA.linear_sum_assignment(cost, device_threshold=0)
             secs.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        _, host_col = TA.lap_host(c64)
-        host_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, host_col = TA.lap_host(c64)
+            host_secs.append(time.perf_counter() - t0)
         r = np.arange(n)
         obj, obj_host = float(c64[r, col].sum()), float(c64[r, host_col].sum())
-        rows[str(n)] = {"card_s": float(np.median(secs)), "lap_host_s": host_s,
+        card_s, host_s = float(np.median(secs)), float(np.median(host_secs))
+        if host_s < card_s:
+            host_wins_up_to = n
+        rows[str(n)] = {"card_s": card_s, "lap_host_s": host_s,
                         "objective_rel_diff": abs(obj - obj_host) / obj_host}
         check(len(np.unique(col)) == n
               and abs(obj - obj_host) <= SAME_COST_OBJ_RTOL * obj_host,
               f"linear_sum_assignment on the card at n = {n}: {rows[str(n)]}")
-    return rows
+    return {"sizes": rows, "host_wins_up_to": host_wins_up_to,
+            "device_threshold": TA.DEVICE_THRESHOLD}
+
+
+def viewer_counts(path):
+    """(name, vertices, triangles) of each mesh in an exported viewer file,
+    read back from its scene JSON and its decoded base64 payloads, and the
+    point sets' sizes."""
+    import base64
+
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    body = text.split('<script id="scene" type="application/json">', 1)[1]
+    scene = json.loads(body.split("</script>", 1)[0])
+    meshes = []
+    for m in scene["meshes"]:
+        pos = np.frombuffer(base64.b64decode(m["pos"]), "<f4")
+        idx = np.frombuffer(base64.b64decode(m["idx"]), "<u4")
+        check(pos.size == 3 * m["n"] and idx.size == 3 * m["f"]
+              and (idx.size == 0 or int(idx.max()) < m["n"]),
+              f"viewer payload of {m['name']} does not match its counts")
+        meshes.append((m["name"], m["n"], m["f"]))
+    return meshes, [p["n"] for p in scene["pointSets"]]
+
+
+def viewer_export(reg):
+    """A ``Focusr`` result (tensors on its device) and its target ``Graph``
+    through ``export_viewer_html``; the files must parse back to the
+    meshes' vertex and triangle counts."""
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        reg_path = reg.export_viewer_html(os.path.join(d, "registration.html"),
+                                          include_spectral_coords=True)
+        graph_path = reg.graph_target.export_viewer_html(os.path.join(d, "graph.html"),
+                                                         eig_vec=1)
+        secs = time.perf_counter() - t0
+        sizes = [os.path.getsize(reg_path), os.path.getsize(graph_path)]
+        reg_meshes, reg_points = viewer_counts(reg_path)
+        graph_meshes, _ = viewer_counts(graph_path)
+    t, s = reg.graph_target.mesh, reg.graph_source.mesh
+    want = [("target", t.n_points, t.n_triangles), ("source", s.n_points, s.n_triangles)]
+    if (reg.weighted_avg_transformed_mesh is not None
+            or reg.nearest_neighbour_transformed_mesh is not None):  # built by the export
+        want.append(("source transformed", s.n_points, s.n_triangles))
+    check(reg_meshes == want and reg_points == [t.n_points, s.n_points]
+          and graph_meshes == [("mesh", t.n_points, t.n_triangles)],
+          f"viewer export read back {reg_meshes}, {reg_points}, {graph_meshes}; "
+          f"expected {want}")
+    return {"s": secs, "bytes": sizes, "meshes": reg_meshes, "graph": graph_meshes,
+            "on_device": str(reg.graph_target.mesh.points.device)}
 
 
 def phase_class_api(torch, tp, kernels, smi, deterministic, device="cuda",
@@ -1962,6 +2053,7 @@ def phase_class_api(torch, tp, kernels, smi, deterministic, device="cuda",
           f"the class path's CPD did not take the {route} E-step at {n_cpd} points: {warm}")
     check(warm["quality"]["unique_fraction"] > 0.5,
           f"class defaults unique fraction {warm['quality']}")
+    out["viewer_export"] = viewer_export(reg)
 
     # --- align_maps_pipeline against register_pair on its inputs ---
     reg_p, p_s, p_launches, _ = focusr_run(torch, tp, kernels, target, source, device,
@@ -2008,8 +2100,11 @@ def phase_class_api(torch, tp, kernels, smi, deterministic, device="cuda",
             "objective_class": obj_class, "objective_lap_host": obj_host,
             "objective_rel_diff": abs(obj_class - obj_host) / obj_host,
             "lap_host_s": host_s, "unique_fraction": unique}
-        if on_card:
+        if on_card and n_h > TA.DEVICE_THRESHOLD:
             check(launches["lse_rows"] > 0 and launches["jv"] == 2,
+                  f"the class 'hungarian' pair at {n_h} launched {launches}")
+        elif on_card:  # linear_sum_assignment keeps this size on the host
+            check(launches["lse_rows"] == 0 and launches["jv"] == 0,
                   f"the class 'hungarian' pair at {n_h} launched {launches}")
         check(abs(obj_class - obj_host) <= SAME_COST_OBJ_RTOL * obj_host,
               f"class 'hungarian' objective at {n_h}: {obj_class} against "
@@ -2703,6 +2798,271 @@ def phase_multires(torch, tp, kernels, smi, device="cuda", levels=MULTIRES_LEVEL
     return launches
 
 
+def topology_equal(a, b) -> bool:
+    """Whether two ``MeshTopology`` are equal field for field (dtypes,
+    shapes, values)."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def host_timed(fn):
+    """(fn(), its seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_native(tp, smi, levels=NATIVE_LEVELS, coarse_n=MULTIRES_COARSE_N,
+                 lap_sizes=NATIVE_LAP_SIZES):
+    """The host library (``native.py``, ``csrc/host/*.cpp``, built with g++
+    at first use): its build seconds, then at ``levels`` (655362 vertices)
+    ``build_topology`` against ``build_topology_plain`` and ``decimate``
+    (to ``coarse_n``, from the fine edges, as ``register_pair_multires``
+    calls it) against ``decimate_plain``, each pair byte-equal and timed;
+    ``lap_host`` against ``lap_host_plain`` on uniform costs at
+    ``lap_sizes`` (equal assignments); and a .vtk ASCII round trip of the
+    mesh through the C++ and the python parsers (equal arrays)."""
+    from pyfocusr_tpu_torch import mesh as TM
+    from pyfocusr_tpu_torch import multires, native
+    from pyfocusr_tpu_torch.io import vtk_io
+    from pyfocusr_tpu_torch.ops import assignment as TA
+
+    t_phase = time.perf_counter()
+    _, load_s = host_timed(native.get_lib)
+    compiler = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                              check=True).stdout.splitlines()[0]
+    mesh = synthetic_bone(tp, 2, levels)
+    n = mesh.n_points
+    tris = np.asarray(mesh.triangles)
+    topo, topo_s = host_timed(lambda: TM.build_topology(tris, n))
+    topo_plain, topo_plain_s = host_timed(lambda: TM.build_topology_plain(tris, n))
+    dec, dec_s = host_timed(lambda: multires.decimate(mesh, coarse_n, 0, edges=topo.edges))
+    dec_plain, dec_plain_s = host_timed(
+        lambda: multires.decimate_plain(mesh, coarse_n, 0, edges=topo.edges))
+    dec_equal = (np.array_equal(dec[0].points, dec_plain[0].points)
+                 and np.array_equal(dec[0].triangles, dec_plain[0].triangles)
+                 and np.array_equal(dec[1], dec_plain[1])
+                 and np.array_equal(dec[2], dec_plain[2]))
+    laps = {}
+    for size in lap_sizes:
+        cost = np.random.default_rng(size).uniform(0.0, 1.0, (size, size))
+        (_, col), lap_s = host_timed(lambda: TA.lap_host(cost))
+        (_, col_plain), lap_plain_s = host_timed(lambda: TA.lap_host_plain(cost))
+        laps[str(size)] = {"native_s": lap_s, "plain_s": lap_plain_s,
+                           "equal": bool(np.array_equal(col, col_plain))}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "bone.vtk")
+        _, write_s = host_timed(lambda: tp.save_mesh(path, mesh))
+        with open(path, "rb") as f:
+            raw = f.read()
+        parsed, parse_s = host_timed(lambda: vtk_io._read_ascii_native(raw))
+        parsed_plain, parse_plain_s = host_timed(
+            lambda: vtk_io._read_ascii(raw.decode("ascii", errors="replace")))
+        loaded, load_mesh_s = host_timed(lambda: tp.load_mesh(path))
+    parse_equal = (all(np.array_equal(a, b) for a, b in zip(parsed[:2], parsed_plain[:2]))
+                   and sorted(parsed[2]) == sorted(parsed_plain[2])
+                   and all(np.array_equal(parsed[2][k], parsed_plain[2][k])
+                           for k in parsed_plain[2]))
+    emit({"phase": "native", "nvidia_smi": smi, "compiler": compiler,
+          "build_s": native.build_seconds(), "load_s": load_s, "n": n,
+          "build_topology": {"native_s": topo_s, "plain_s": topo_plain_s,
+                             "equal": topology_equal(topo, topo_plain)},
+          "decimate": {"coarse_n": coarse_n, "n_coarse": dec[0].n_points,
+                       "native_s": dec_s, "plain_s": dec_plain_s, "equal": dec_equal},
+          "lap_host": laps,
+          "vtk_ascii": {"bytes": len(raw), "save_mesh_s": write_s, "native_s": parse_s,
+                        "plain_s": parse_plain_s, "load_mesh_s": load_mesh_s,
+                        "equal": parse_equal},
+          "phase_s": time.perf_counter() - t_phase})
+    check(topology_equal(topo, topo_plain), f"build_topology native vs plain at {n}")
+    check(dec_equal, f"decimate native vs plain at {n}")
+    check(all(r["equal"] for r in laps.values()), f"lap_host native vs plain: {laps}")
+    check(parse_equal and loaded.n_points == n, "the .vtk ASCII parse native vs python")
+
+
+def warped_bone(tp, levels, amp, phase):
+    """The seed-2 bone scaled by 1 + amp sin(0.08 z + phase): one anatomy
+    under a smooth axial warp (z in mm)."""
+    m = synthetic_bone(tp, 2, levels)
+    p = np.asarray(m.points, np.float64)
+    p = p * (1.0 + amp * np.sin(0.08 * p[:, [2]] + phase))
+    return tp.TriMesh(p.astype(np.float32), m.triangles, {})
+
+
+def scrambled_map(corr, j, i, n_real, share, seed=0):
+    """``corr`` with ``share`` of map j -> i's real rows permuted among
+    themselves (``register_all_pairs``' layout)."""
+    rng = np.random.default_rng(seed)
+    bad = corr.copy()
+    rows = rng.permutation(n_real)[: int(share * n_real)]
+    bad[j, i, rows] = corr[j, i, rng.permutation(rows)]
+    return bad
+
+
+def phase_groupwise(torch, tp, kernels, smi, device="cuda", levels=5,
+                    cpu_levels=CPU_CHECK_LEVELS, cpu_check=True, cfg_kw=BENCH_CFG):
+    """``parallel/groupwise.py`` on ``device`` at the bench configuration:
+    ``register_pair_symmetric`` on the seed-2 / seed-1 pair at ``levels``
+    (10242 vertices); ``register_all_pairs`` on the ``GROUPWISE_WARPS``
+    subjects (12 pairs), first call and warm, launches of each; the
+    three-cycle error, ``synchronize_correspondences``, and
+    ``synchronize_spectral`` on the clean maps (nothing may be flagged, the
+    maps come back unchanged) and with one map's rows scrambled (it must be
+    flagged and repaired, the others left alone), at
+    ``GROUPWISE_OUTLIER_FACTOR``; CUDA against CPU on the
+    symmetric pair at ``cpu_levels`` with the same draws.  Returns the warm
+    ``register_all_pairs`` call's launches."""
+    from pyfocusr_tpu_torch.parallel import groupwise as G
+
+    t_phase = time.perf_counter()
+    cfg = tp.PipelineConfig(**cfg_kw)
+    on_card = torch.device(device).type == "cuda"
+    gates = []
+    out = {"phase": "groupwise", "nvidia_smi": smi, "config": "bench.py:122-134"}
+
+    def run(fn):
+        sync(torch, device)
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+        res, secs = timed(torch, fn, device)
+        return res, secs, {k: m.LAUNCHES for k, m in kernels.items()}
+
+    # --- The symmetric pair ---
+    tg = tp.mesh_to_graph_arrays(synthetic_bone(tp, 2, levels), device=device)
+    sg = tp.mesh_to_graph_arrays(synthetic_bone(tp, 1, levels), device=device)
+    sym_draws = G.make_symmetric_draws(0, cfg, tg, sg)
+    sym, sym_s, sym_launches = run(lambda: G.register_pair_symmetric(tg, sg, cfg,
+                                                                     draws=sym_draws))
+    n_s = sg.n_points
+    out["symmetric"] = {
+        "n": n_s, "s": sym_s, "launches": sym_launches,
+        "fb_consistency_mm": float(sym["fb_consistency"]),
+        "cycle_error_mm": float(sym["cycle_error"]),
+        "sym_unique_fraction": len(torch.unique(sym["sym_correspondences"])) / n_s,
+        "sym_vs_forward_agreement": float((sym["sym_correspondences"]
+                                           == sym["forward"]["correspondences"])
+                                          .float().mean())}
+    if on_card:
+        gates.append((sym_launches["knn"] > 0 and sym_launches["umeyama3"] > 0,
+                      f"register_pair_symmetric launched {sym_launches}"))
+    gates.append((np.isfinite(out["symmetric"]["fb_consistency_mm"])
+                  and out["symmetric"]["sym_unique_fraction"] > 0.5,
+                  f"symmetric pair diagnostics {out['symmetric']}"))
+    del sym, tg, sg
+
+    # --- All pairs of four subjects, first call and warm ---
+    subjects = [warped_bone(tp, levels, a, ph) for a, ph in GROUPWISE_WARPS]
+    graphs = tp.pad_cohort(subjects, device=device)
+    draws = G.make_all_pairs_draws(1, cfg, graphs)
+    calls = []
+    for _ in range(2):
+        (corr, pair_index, results), secs, launches = run(
+            lambda: G.register_all_pairs(graphs, cfg, draws=draws))
+        calls.append({"s": secs, "launches": launches})
+    n_pairs = len(pair_index)
+    n_real = [m.n_points for m in subjects]
+    unique = [len(np.unique(corr[j, i, : n_real[j]])) / n_real[j] for i, j in pair_index]
+    warm = calls[1]
+    out["all_pairs"] = {"subjects": len(subjects), "n": n_real[0], "pairs": n_pairs,
+                        "first_s": calls[0]["s"], "warm_s": warm["s"],
+                        "pairs_per_s": n_pairs / warm["s"], "s_per_pair": warm["s"] / n_pairs,
+                        "launches_first": calls[0]["launches"], "launches": warm["launches"],
+                        "min_unique_fraction": min(unique)}
+    if on_card:
+        gates.append((warm["launches"]["knn"] > 0 and warm["launches"]["umeyama3"] > 0,
+                      f"register_all_pairs launched {warm['launches']}"))
+    gates.append((min(unique) > 0.5, f"all-pairs unique fractions {unique}"))
+    del results
+
+    # --- The synchronizations ---
+    points = [g.points[:n] for g, n in zip(graphs, n_real)]
+    cyc, cyc_s = host_timed(lambda: G.cycle_consistency_error(corr, points, n_real))
+    synced, sync_s, sync_launches = run(
+        lambda: G.synchronize_correspondences(corr, points, n_real))
+    cyc_synced = G.cycle_consistency_error(synced, points, n_real)
+    blocks = G.make_basis_blocks(2, cfg, graphs, GROUPWISE_N_BASIS)
+    (clean, info), spec_s, spec_launches = run(lambda: G.synchronize_spectral(
+        corr, graphs, cfg, n_basis=GROUPWISE_N_BASIS, blocks=blocks,
+        outlier_factor=GROUPWISE_OUTLIER_FACTOR))
+    bad = scrambled_map(corr, 0, 1, n_real[0], GROUPWISE_SCRAMBLED_SHARE)
+    (fixed, info_bad), bad_s, bad_launches = run(lambda: G.synchronize_spectral(
+        bad, graphs, cfg, n_basis=GROUPWISE_N_BASIS, blocks=blocks,
+        outlier_factor=GROUPWISE_OUTLIER_FACTOR))
+    off = info["residuals"][~np.eye(len(graphs), dtype=bool)]
+    pts1 = points[1].cpu().numpy()
+    rows = slice(0, n_real[0])
+    repaired_mm = float(np.linalg.norm(pts1[fixed[0, 1, rows]] - pts1[corr[0, 1, rows]],
+                                       axis=1).mean())
+    scrambled_mm = float(np.linalg.norm(pts1[bad[0, 1, rows]] - pts1[corr[0, 1, rows]],
+                                        axis=1).mean())
+    untouched = fixed.copy()
+    untouched[info_bad["flagged"]] = bad[info_bad["flagged"]]
+    out["synchronize"] = {
+        "cycle_error_mm": cyc, "cycle_error_s": cyc_s,
+        "correspondences_s": sync_s, "correspondences_launches": sync_launches,
+        "cycle_error_after_mm": cyc_synced,
+        "spectral_clean_s": spec_s, "spectral_clean_launches": spec_launches,
+        "outlier_factor": GROUPWISE_OUTLIER_FACTOR,
+        "residuals_clean": info["residuals"].tolist(),
+        "residual_max_over_median_clean": float(off.max() / np.median(off)),
+        "flagged_clean": int(info["flagged"].sum()),
+        "flagged_clean_at_default_factor": int((off > 1.3 * np.median(off)).sum()),
+        "spectral_scrambled_s": bad_s,
+        "residuals_scrambled": info_bad["residuals"].tolist(),
+        "flagged_scrambled": np.argwhere(info_bad["flagged"]).tolist(),
+        "repaired_map_mean_mm_from_clean": repaired_mm,
+        "scrambled_map_mean_mm_from_clean": scrambled_mm,
+        "cycle_error_scrambled_mm": G.cycle_consistency_error(bad, points, n_real),
+        "cycle_error_repaired_mm": G.cycle_consistency_error(fixed, points, n_real)}
+    if on_card:
+        gates.append((sync_launches["knn"] > 0,
+                      f"synchronize_correspondences launched {sync_launches}"))
+    gates += [
+        (not info["flagged"].any() and np.array_equal(clean, corr),
+         f"synchronize_spectral flagged clean maps: {info['flagged'].tolist()}"),
+        (bool(info_bad["flagged"][0, 1]) and repaired_mm < 0.5 * scrambled_mm,
+         f"the scrambled map was not flagged and repaired: {out['synchronize']}"),
+        (np.array_equal(untouched, bad), "synchronize_spectral changed unflagged maps"),
+    ]
+
+    # --- CUDA against CPU on the symmetric pair, CPD stopping at 1e-6 ---
+    if cpu_check and on_card:
+        ccfg = tp.PipelineConfig(**dict(cfg_kw, non_rigid_tolerance=FEATURE_CHECK_TOLERANCE))
+        pair = [tp.mesh_to_graph_arrays(synthetic_bone(tp, s, cpu_levels), device="cpu")
+                for s in (2, 1)]
+        d = G.make_symmetric_draws(0, ccfg, *pair)
+        runs = {}
+        for dev in (device, "cpu"):
+            runs[dev] = timed(torch, lambda: G.register_pair_symmetric(
+                pair[0].to(dev), pair[1].to(dev), ccfg, draws=d), dev)
+        g, c = runs[device][0], runs["cpu"][0]
+        out["cuda_vs_cpu"] = {
+            "n": pair[1].n_points, "cuda_s": runs[device][1], "cpu_s": runs["cpu"][1],
+            "forward": compare_runs(g["forward"], to_cpu(c["forward"])),
+            "backward": compare_runs(g["backward"], to_cpu(c["backward"])),
+            "sym_correspondence_agreement": float(
+                (g["sym_correspondences"].cpu() == c["sym_correspondences"]).float().mean()),
+            "fb_consistency_mm": [float(g["fb_consistency"]), float(c["fb_consistency"])]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if "cuda_vs_cpu" in out:
+        for side in ("forward", "backward"):
+            agreement_checks(out["cuda_vs_cpu"][side], f"symmetric pair {side} CUDA vs CPU")
+        check(out["cuda_vs_cpu"]["sym_correspondence_agreement"] >= CORR_AGREE_MIN,
+              "symmetric correspondences CUDA vs CPU")
+    for ok, what in gates:
+        check(ok, what)
+    return warm["launches"]
+
+
 def jittered_cohort(tp, mesh, n: int, scale: float):
     """``n`` copies of ``mesh``, each point moved by normal noise of
     ``scale`` mm from one ``default_rng(0)`` stream (bench.py:661-667)."""
@@ -3351,9 +3711,12 @@ def main():
                                edges=wide_estep_edge_cases(torch),
                                first_ms=FIRST_WIDE_ESTEP_KERNEL_MS)
     torch.cuda.empty_cache()
+    phase_native(tp, smi)
     mr_launches = phase_multires(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
     co_launches = phase_cohort(torch, tp, kernels, smi, deterministic)
+    torch.cuda.empty_cache()
+    gw_launches = phase_groupwise(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
 
     knn_by_case = {r["case"]: r for r in knn_results}
@@ -3386,6 +3749,7 @@ def main():
             "launches_hungarian_path": h_launches["knn"],
             "launches_multires": mr_launches["knn"],
             "launches_cohort": co_launches["knn"],
+            "launches_groupwise": gw_launches["knn"],
             "max_abs_err": max(r.get("max_abs_err", 0.0) for r in knn_results),
             "ms": knn_main["kernel_ms"],
             "plain_ms": knn_main["plain_ms"],
@@ -3411,7 +3775,8 @@ def main():
             "launches": wide_launches["knn_topk"],
             "launches_other_paths": {
                 "kd": kd_launches["knn_topk"], "class_api": class_launches["knn_topk"],
-                "multires": mr_launches["knn_topk"], "cohort": co_launches["knn_topk"]},
+                "multires": mr_launches["knn_topk"], "cohort": co_launches["knn_topk"],
+                "groupwise": gw_launches["knn_topk"]},
             "max_abs_err": max(r.get("max_abs_err", 0.0) for r in topk_results),
             "ms": topk_main["kernel_ms"],
             "plain_ms": topk_main["plain_ms"],
@@ -3542,6 +3907,7 @@ def main():
             "launches_served_pair": served_launches["umeyama3"],
             "launches_multires": mr_launches["umeyama3"],
             "launches_cohort": co_launches["umeyama3"],
+            "launches_groupwise": gw_launches["umeyama3"],
             "max_abs_err": max(r["max_abs_err"]["R"] for r in umeyama_results),
             "max_s_rel_err": max(r["max_abs_err"]["s_rel"] for r in umeyama_results),
             "ms": close_main["kernel_ms"],

@@ -52,7 +52,15 @@ Entry points:
   module, :func:`transfer_point_data`, :func:`mesh_with_transferred_data`
   and :func:`cohort_point_data_matrix` (``Focusr.transfer_point_data`` on
   top), :func:`recursive_eig`, :func:`print_header` and
-  ``features_dictionary``.
+  ``features_dictionary``;
+* the viewers (``Focusr.view_*`` / ``export_viewer_html`` and ``Graph``'s,
+  over ``utils/viz.py`` and ``utils/html_viewer.py``), and groupwise
+  registration on one card in ``parallel/groupwise.py`` (not exported
+  here, as in the JAX package).
+
+The host-side fast paths (topology, the decimator's MIS, ``lap_host``, the
+ASCII ``.vtk`` parse) run in C++ compiled with g++ at first use
+(``native.py``).
 """
 
 from . import vtk_functions

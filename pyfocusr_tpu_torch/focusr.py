@@ -7,17 +7,18 @@ seeds ``seed`` and ``seed + 1``, the deferred spectra), ``align_maps``
 stage by stage (:654-731), ``align_maps_pipeline`` over ``register_pair``
 (:531-642), the correspondences, final locations, average shape, scalar
 setters, transformed meshes, ``transfer_point_data`` (:437),
-``icp_transform`` and ``registration_quality``.  The ``view_*`` viewers
-and ``export_viewer_html`` raise ``NotImplementedError`` naming their
-ROADMAP item.
+``icp_transform``, ``registration_quality`` and the viewers (:782-985:
+the ``view_*`` methods over the optional itkwidgets, ``utils/viz.py``,
+and ``export_viewer_html`` over ``utils/html_viewer.py``).
 
 The one argument beyond the JAX signature is ``device``: the class builds
 on the CUDA card unless the caller names the CPU
 (``utils.device.resolve_device``).  Every stage runs there: ICP and the
 nearest-neighbour queries launch the k-NN kernel (ICP the 3x3 close too),
 CPD above 3000^2 pairs the E-step kernel, and 'hungarian' correspondences
-the JV kernel at any size, from 512 vertices after the Sinkhorn kernel's
-warm start (``ops.assignment.linear_sum_assignment``).  Index results
+above ``ops.assignment.DEVICE_THRESHOLD`` vertices the JV kernel after the
+Sinkhorn kernel's warm start; smaller assignments take the host library's
+``lap_host`` (``ops.assignment.linear_sum_assignment``).  Index results
 (``corresponding_target_idx_for_each_source_pt``) are numpy, as in the JAX
 class; point results are tensors on the device.
 """
@@ -36,10 +37,9 @@ from .ops import cpd
 from .ops.assignment import linear_sum_assignment
 from .ops.icp import icp as icp_fit
 from .ops.knn import idw_from_knn, knn_query, nn_query, pairwise_sq_dists
-from .pipeline import _not_ported
 from .spectral.eigsort import eigsort
 from .spectral.graph import Graph
-from .utils.device import resolve_device
+from .utils.device import resolve_device, to_numpy
 from .utils.logging import StageTimer, print_header
 
 __all__ = ["Focusr"]
@@ -621,7 +621,8 @@ class Focusr(object):
         self.nearest_neighbour_transformed_mesh = self.graph_source.mesh.with_points(
             self.nearest_neighbor_transformed_points)
 
-    # --- Viewers: not ported yet ---
+    # --- Viewers (reference ``focusr.py:646-795``): optional itkwidgets,
+    # or the standalone HTML export ---
     def view_aligned_spectral_coords(self, starting_spectral_coord=0,
                                      point_set_representations=("spheres",),
                                      point_set_colors=None,
@@ -629,25 +630,153 @@ class Focusr(object):
                                      include_non_rigid_aligned=True,
                                      include_rigid_aligned=False,
                                      include_unaligned=False, upscale_factor=10.0):
-        raise _not_ported("Focusr.view_aligned_spectral_coords", "7")
+        from .utils.viz import view_point_sets
+
+        sl = slice(starting_spectral_coord, starting_spectral_coord + 3)
+        chosen = ((include_target_coordinates, self.target_spectral_coords),
+                  (include_unaligned, self.source_spectral_coords_b4_reg),
+                  (include_rigid_aligned, self.source_spectral_coords_after_rigid),
+                  (include_non_rigid_aligned, self.source_spectral_coords))
+        point_sets = [upscale_factor * to_numpy(coords)[:, sl]
+                      for include, coords in chosen if include]
+        return view_point_sets(point_sets, representations=list(point_set_representations),
+                               colors=point_set_colors)
 
     def view_meshes_colored_by_spectral_correspondences(
             self, x_translation=100, y_translation=0, z_translation=0, shadow=True):
-        raise _not_ported("Focusr.view_meshes_colored_by_spectral_correspondences", "7")
+        from .utils.viz import view_meshes
+
+        target = self.graph_target.mesh.with_point_data(
+            "corresp_idx", np.arange(self.graph_target.n_points, dtype=np.float32))
+        target = target.with_points(
+            to_numpy(target.points, np.float32)
+            + np.asarray([x_translation, y_translation, z_translation], np.float32))
+        source = self.graph_source.mesh.with_point_data(
+            "corresp_idx", to_numpy(self.corresponding_target_idx_for_each_source_pt,
+                                    np.float32))
+        return view_meshes([source, target], shadow=shadow)
 
     def view_aligned_smoothed_spectral_coords(self):
-        raise _not_ported("Focusr.view_aligned_smoothed_spectral_coords", "7")
+        from .utils.viz import view_point_sets
+
+        return view_point_sets([self.smoothed_target_coords,
+                                self.source_projected_on_target])
+
+    def _transformed_mesh(self, rebuild_nearest: bool):
+        """The transformed source mesh for a viewer: the weighted-average one,
+        else the nearest-neighbour one, built from their points when only
+        those exist (``rebuild_nearest`` recomputes the nearest points
+        first, as the reference's ``view_meshes`` does); None without
+        either."""
+        if self.weighted_avg_transformed_mesh is not None:
+            return self.weighted_avg_transformed_mesh
+        if self.nearest_neighbour_transformed_mesh is not None:
+            return self.nearest_neighbour_transformed_mesh
+        if self.weighted_avg_transformed_points is not None:
+            self.get_source_mesh_transformed_weighted_avg()
+            return self.weighted_avg_transformed_mesh
+        if self.nearest_neighbor_transformed_points is not None:
+            if rebuild_nearest:
+                self.get_nearest_neighbour_final_node_locations()
+            self.get_source_mesh_transformed_nearest_neighbour()
+            return self.nearest_neighbour_transformed_mesh
+        return None
+
+    def _ensure_average(self) -> bool:
+        """Build the average mesh from the weighted points, else the nearest
+        ones, when it is missing; False when neither exists."""
+        if self.average_mesh is None:
+            if self.weighted_avg_transformed_points is not None:
+                self.get_average_shape()
+            elif self.nearest_neighbor_transformed_points is not None:
+                self.get_average_shape(align_type="nearest")
+        return self.average_mesh is not None
 
     def view_meshes(self, include_target=True, include_source=True,
                     include_transformed_target=False, include_average=False,
                     shadow=True):
-        raise _not_ported("Focusr.view_meshes", "7")
+        from .utils.viz import view_meshes
+
+        geometries = []
+        if include_target:
+            geometries.append(self.graph_target.mesh)
+        if include_source:
+            geometries.append(self.graph_source.mesh)
+        if include_transformed_target:
+            transformed = self._transformed_mesh(rebuild_nearest=True)
+            if transformed is None:
+                raise Exception(
+                    "No corresponding points or meshes calculated. Try running: \n"
+                    "reg.get_weighted_final_node_locations()\n"
+                    "reg.get_nearest_neighbour_final_node_locations()\n"
+                    "or try re-running with the flags: \n"
+                    "return_average_final_points=True & return_transformed_mesh=True"
+                )
+            geometries.append(transformed)
+        if include_average:
+            if not self._ensure_average():
+                raise Exception(
+                    "No xyz correspondences calculated can't get average! Try:\n"
+                    "`reg.get_weighted_final_node_locations` or "
+                    "`reg.get_nearest_neighbour_final_node_locations`"
+                )
+            geometries.append(self.average_mesh)
+        return view_meshes(geometries, shadow=shadow)
 
     def export_viewer_html(self, file_path, include_target=True, include_source=True,
                            include_transformed=True, include_average=False,
                            include_spectral_coords=False,
                            color_by_correspondences=True, x_translation=0.0):
-        raise _not_ported("Focusr.export_viewer_html", "7")
+        """Write a standalone HTML/WebGL viewer of the registration result
+        (the dependency-free counterpart of ``view_meshes`` /
+        ``view_meshes_colored_by_spectral_correspondences``): the target,
+        the source, the transformed source (weighted-average when available,
+        else nearest-neighbour) and optionally the average mesh and the
+        aligned spectral point clouds, meshes colored by correspondence
+        index so matched regions share colors.  Runs in any WebGL browser
+        with no network access.  Returns the path written."""
+        from .utils.html_viewer import export_html
+
+        corr = self.corresponding_target_idx_for_each_source_pt
+
+        def _colored(mesh, idx_values):
+            if not color_by_correspondences or idx_values is None:
+                return mesh
+            return mesh.with_point_data("corresp_idx", to_numpy(idx_values, np.float32))
+
+        meshes, names = [], []
+        if include_target:
+            target = _colored(self.graph_target.mesh,
+                              np.arange(self.graph_target.n_points, dtype=np.float32))
+            if x_translation:
+                target = target.with_points(
+                    to_numpy(target.points, np.float32)
+                    + np.asarray([x_translation, 0.0, 0.0], np.float32))
+            meshes.append(target)
+            names.append("target")
+        if include_source:
+            meshes.append(_colored(self.graph_source.mesh, corr))
+            names.append("source")
+        if include_transformed:
+            transformed = self._transformed_mesh(rebuild_nearest=False)
+            if transformed is not None:
+                meshes.append(_colored(transformed, corr))
+                names.append("source transformed")
+        if include_average and self._ensure_average():
+            meshes.append(self.average_mesh)
+            names.append("average")
+
+        point_sets, ps_names = [], []
+        if include_spectral_coords:
+            for label, coords in (("target spectral", self.target_spectral_coords),
+                                  ("source spectral (aligned)",
+                                   self.source_spectral_coords)):
+                if coords is not None:
+                    point_sets.append(10.0 * to_numpy(coords)[:, :3])
+                    ps_names.append(label)
+        return export_html(file_path, meshes=meshes, mesh_names=names,
+                           point_sets=point_sets, point_set_names=ps_names,
+                           title="FOCUSR registration")
 
     @property
     def icp_transform(self):

@@ -1,10 +1,12 @@
 """Dependency-free reader/writer for legacy VTK PolyData files.
 
-A copy of ``pyfocusr_tpu/io/vtk_io.py`` (numpy only; the port imports
-nothing of the JAX package), without its native ASCII fast path
-(``_ByteKeywords`` / ``_read_ascii_native`` over ``native/fast_parse.cpp``,
-ROADMAP item 7b): every file takes the pure-python readers, which the JAX
-package falls back to and which give the same arrays.
+A copy of ``pyfocusr_tpu/io/vtk_io.py`` (the port imports nothing of the
+JAX package).  ASCII files take its native fast path (``_ByteKeywords`` /
+``_read_ascii_native``, :133-299): the numeric payloads go through the
+host library's parser (``native.py``, ``csrc/host/fast_parse.cpp``).  A
+file whose structure that path does not handle is read by the
+pure-python ``_read_ascii``, as in the JAX package; ``_read_ascii`` is
+also the plain version the tests hold the fast path to.
 
 The reference (pyfocusr) delegates mesh I/O to the VTK C++ library
 (``vtk_functions.py:5-9`` — ``vtkPolyDataReader``).  Here the I/O boundary is a
@@ -20,9 +22,12 @@ warning rather than an error so files written by other tools still load.
 
 from __future__ import annotations
 
+import ctypes
 import warnings
 
 import numpy as np
+
+from .. import native
 
 __all__ = ["read_vtk_polydata", "write_vtk_polydata"]
 
@@ -119,14 +124,158 @@ def read_vtk_polydata(path: str):
     Returns ``(points f64[N,3], triangles i32[F,3], point_data: dict[str, ndarray])``.
     Replaces ``vtk_functions.read_vtk_mesh`` (reference ``vtk_functions.py:5-9``).
 
-    ASCII files parse through the pure-python tokenizer (the JAX package's
-    native C++ fast path, ``native/fast_parse.cpp``, is ROADMAP item 7b).
+    ASCII files parse through the host library's tokenizer; a structure
+    that path does not handle falls to the pure-python reader.
     """
     with open(path, "rb") as f:
         raw = f.read()
     if _is_binary(raw[:512]):
         return _read_binary(raw)
-    return _read_ascii(raw.decode("ascii", errors="replace"))
+    native.get_lib()  # a failed build raises here, not inside the try below
+    try:
+        return _read_ascii_native(raw)
+    except Exception:  # any structural surprise -> the tolerant python reader
+        return _read_ascii(raw.decode("ascii", errors="replace"))
+
+
+class _ByteKeywords:
+    """Reads whitespace-delimited KEYWORD tokens from bytes; numeric payloads
+    are consumed by the native parser between keywords."""
+
+    def __init__(self, raw: bytes, pos: int):
+        self.raw = raw
+        self.pos = pos
+
+    def skip_ws(self):
+        raw, pos = self.raw, self.pos
+        while pos < len(raw) and raw[pos] in b" \t\r\n":
+            pos += 1
+        self.pos = pos
+
+    def next(self):
+        self.skip_ws()
+        raw, start = self.raw, self.pos
+        pos = start
+        while pos < len(raw) and raw[pos] not in b" \t\r\n":
+            pos += 1
+        self.pos = pos
+        if start == pos:
+            return None
+        return raw[start:pos].decode("ascii", errors="replace")
+
+
+def _read_ascii_native(raw: bytes):
+    """ASCII reader: keyword scan in python, numeric payloads through the
+    host library's parser (``native.parse_doubles`` / ``parse_longs``).
+    Raises on any structure it does not handle; :func:`read_vtk_polydata`
+    then reads the file with :func:`_read_ascii`."""
+    # The address of raw's buffer and an offset, not raw[pos:]: a slice
+    # would copy the rest of the file for every payload section.  ``raw``
+    # outlives every call in this function.
+    base = ctypes.cast(ctypes.c_char_p(raw), ctypes.c_void_p).value
+
+    def parse_f64(pos: int, count: int):
+        return native.parse_doubles(raw, base, pos, count)
+
+    def parse_i64(pos: int, count: int):
+        return native.parse_longs(raw, base, pos, count)
+
+    # Skip the two header lines.
+    pos = raw.index(b"\n") + 1
+    pos = raw.index(b"\n", pos) + 1
+    toks = _ByteKeywords(raw, pos)
+
+    points = None
+    triangles = np.zeros((0, 3), dtype=np.int32)
+    point_data: dict[str, np.ndarray] = {}
+    n_points = 0
+    n_attr = 0  # tuple count of the current POINT_DATA/CELL_DATA section
+    in_point_data = False
+
+    while True:
+        key = toks.next()
+        if key is None:
+            break
+        k = key.upper()
+        if k in ("ASCII", "BINARY"):
+            continue
+        elif k == "DATASET":
+            if toks.next().upper() != "POLYDATA":
+                raise ValueError("not POLYDATA")
+        elif k == "POINTS":
+            n_points = int(toks.next())
+            toks.next()  # dtype name
+            flat, toks.pos = parse_f64(toks.pos, n_points * 3)
+            points = flat.reshape(n_points, 3)
+        elif k == "POLYGONS":
+            n_polys = int(toks.next())
+            n_vals = int(toks.next())
+            save = toks.pos
+            peek = toks.next()
+            if peek and peek.upper() == "OFFSETS":
+                raise ValueError("5.1 layout -> python path")
+            toks.pos = save
+            data, toks.pos = parse_i64(toks.pos, n_vals)
+            triangles = _triangulate_polys(data)
+        elif k == "POINT_DATA":
+            if int(toks.next()) != n_points:
+                raise ValueError("POINT_DATA mismatch")
+            in_point_data = True
+            n_attr = n_points
+        elif k == "CELL_DATA":
+            # Size following attribute payloads by the CELL count (parsed
+            # to stay stream-aligned, then discarded).
+            n_attr = int(toks.next())
+            in_point_data = False
+        elif k == "SCALARS":
+            name = toks.next()
+            toks.next()  # dtype
+            save = toks.pos
+            maybe = toks.next()
+            n_comp = 1
+            if maybe and maybe.upper() != "LOOKUP_TABLE":
+                # Optional numComp is spec-restricted to 1..4 — anything
+                # else is the first data value (see the pure-python reader
+                # for the ambiguity discussion).
+                try:
+                    maybe_comp = int(maybe)
+                except ValueError:
+                    maybe_comp = None
+                if maybe_comp is not None and 1 <= maybe_comp <= 4:
+                    n_comp = maybe_comp
+                    save = toks.pos
+                    maybe = toks.next()
+            if maybe and maybe.upper() == "LOOKUP_TABLE":
+                toks.next()  # table name
+            else:
+                toks.pos = save
+            cnt = n_attr or n_points  # tolerate SCALARS before a section
+            vals, toks.pos = parse_f64(toks.pos, cnt * n_comp)
+            if in_point_data or not n_attr:
+                point_data[name] = (
+                    vals if n_comp == 1 else vals.reshape(cnt, n_comp)
+                )
+        elif k == "FIELD":
+            toks.next()
+            n_arrays = int(toks.next())
+            for _ in range(n_arrays):
+                name = toks.next()
+                n_comp = int(toks.next())
+                n_tuples = int(toks.next())
+                toks.next()  # dtype
+                vals, toks.pos = parse_f64(toks.pos, n_tuples * n_comp)
+                if in_point_data and n_tuples == n_points:
+                    point_data[name] = (
+                        vals if n_comp == 1 else vals.reshape(n_tuples, n_comp)
+                    )
+        else:
+            # METADATA, LOOKUP_TABLE definitions, strips, etc.: hand the whole
+            # file to the tolerant pure-python reader.
+            raise ValueError(f"unhandled section {key!r}")
+
+    if points is None:
+        raise ValueError("no POINTS")
+    return points, triangles, point_data
 
 
 def _read_ascii(text: str):

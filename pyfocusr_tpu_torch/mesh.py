@@ -1,17 +1,20 @@
-"""Triangle-mesh container and host-side topology (numpy).
+"""Triangle-mesh container and host-side topology.
 
 Counterpart of ``pyfocusr_tpu/mesh.py``: ``TriMesh`` (:36, with
-``with_points`` and ``with_point_data``), ``MeshTopology`` (:84), the numpy
-path of ``build_topology`` (:115, :178-264), ``as_trimesh`` (:267-360,
-with the duck-typed ``vtkPolyData`` branch, which imports no vtk) and
-``load_mesh`` / ``save_mesh`` (:363, :384) over the copies of the JAX
-package's readers and writers in ``io/``.  Topology
-is one vectorized numpy pass at load; the tensors the pipeline iterates on
-are made from it by ``pipeline.mesh_to_graph_arrays``.
+``with_points`` and ``with_point_data``), ``MeshTopology`` (:84),
+``build_topology`` (:115), ``as_trimesh`` (:267-360, with the duck-typed
+``vtkPolyData`` branch, which imports no vtk) and ``load_mesh`` /
+``save_mesh`` (:363, :384) over the copies of the JAX package's readers
+and writers in ``io/``.  The tensors the pipeline iterates on are made
+from the topology by ``pipeline.mesh_to_graph_arrays``.
 
-The JAX package's C++ fast path (``native/fast_topology.cpp``) is not
-ported: it is byte-identical to this numpy path by contract
-(``tests/test_native_topology.py``), so the tables are the same.
+``build_topology`` runs the host library's two C++ passes
+(``native.topo_edges`` / ``topo_fill``, ``csrc/host/fast_topology.cpp``),
+as the JAX package does when its library is built (:143-176).
+``build_topology_plain`` is the numpy path (JAX :178-264), the plain
+version the tests hold the C++ passes to byte for byte; ``build_topology``
+takes it only for an empty triangle array and for indices out of range
+(where it raises JAX's message).
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from . import native
 from .io.mesh_formats import read_any, write_any
 from .utils.device import to_numpy
 
-__all__ = ["TriMesh", "MeshTopology", "as_trimesh", "build_topology", "load_mesh",
-           "save_mesh"]
+__all__ = ["TriMesh", "MeshTopology", "as_trimesh", "build_topology",
+           "build_topology_plain", "load_mesh", "save_mesh"]
 
 
 def _array(values):
@@ -97,6 +101,20 @@ class MeshTopology:
         return self.edges.shape[0]
 
 
+def _ell_width(true_max: int, degree_cap: Optional[int],
+               pad_degree: Optional[int]) -> int:
+    """The ELL table's width: the largest degree, capped at ``degree_cap``,
+    widened to ``pad_degree``."""
+    max_deg = true_max
+    if degree_cap is not None and true_max > degree_cap:
+        max_deg = degree_cap
+    if pad_degree is not None:
+        if pad_degree < max_deg:
+            raise ValueError(f"pad_degree {pad_degree} < degree {max_deg}")
+        max_deg = pad_degree
+    return max_deg
+
+
 def build_topology(
     triangles: np.ndarray,
     n_points: int,
@@ -105,7 +123,36 @@ def build_topology(
 ) -> MeshTopology:
     """Unique undirected edges, the padded ELL neighbor table (degree capped
     at ``degree_cap``, the rest spilled to ``overflow_edges``) and connected
-    components — byte-identical to the JAX package's tables."""
+    components — byte-identical to the JAX package's tables.  The host
+    library's two passes; :func:`build_topology_plain` for no triangles or
+    out-of-range indices."""
+    tris = np.asarray(triangles, dtype=np.int64)
+    head = native.topo_edges(tris, n_points) if tris.size else None
+    if head is None:
+        return build_topology_plain(tris, n_points, pad_degree, degree_cap)
+    edges, edge_faces, true_max = head
+    max_deg = _ell_width(true_max, degree_cap, pad_degree)
+    neighbors, mask, overflow, labels, n_comp = native.topo_fill(edges, n_points, max_deg)
+    return MeshTopology(
+        edges=edges,
+        neighbors=neighbors,
+        nbr_mask=mask,
+        max_degree=max_deg,
+        edge_faces=edge_faces,
+        component_labels=labels,
+        n_components=n_comp if n_points else 0,
+        overflow_edges=overflow,
+    )
+
+
+def build_topology_plain(
+    triangles: np.ndarray,
+    n_points: int,
+    pad_degree: Optional[int] = None,
+    degree_cap: Optional[int] = 24,
+) -> MeshTopology:
+    """:func:`build_topology` in numpy (JAX ``mesh.py:178-264``): the plain
+    version of the host library's passes."""
     tris = np.asarray(triangles, dtype=np.int64)
     if tris.size and (tris.min() < 0 or tris.max() >= n_points):
         raise ValueError(
@@ -142,13 +189,7 @@ def build_topology(
     directed = np.concatenate([edges, edges[:, ::-1]], axis=0)
     counts = np.bincount(directed[:, 0], minlength=n_points)
     true_max = int(counts.max()) if counts.size and counts.max() > 0 else 1
-    max_deg = true_max
-    if degree_cap is not None and true_max > degree_cap:
-        max_deg = degree_cap
-    if pad_degree is not None:
-        if pad_degree < max_deg:
-            raise ValueError(f"pad_degree {pad_degree} < degree {max_deg}")
-        max_deg = pad_degree
+    max_deg = _ell_width(true_max, degree_cap, pad_degree)
 
     # ELL fill: stable sort directed edges by source; slots beyond the cap
     # spill into the overflow edge list.

@@ -8,16 +8,19 @@ the refine (``_refine_fine_level`` :296 and ``_refine_fine_level_staged``
 (:454), ``_run_fingerprint`` (:478) and ``register_pair_multires``
 (:514-860, with ``_save_coarse_and_finish`` and ``_finish_multires``):
 
-    decimate both meshes (host, numpy)  ->  register the coarse pair
+    decimate both meshes (host)  ->  register the coarse pair
     (``pipeline.register_pair``)  ->  prolong the correspondences through
     the cluster maps  ->  refine at full resolution (smoothing, one k=3
     query, inverse-distance locations).
 
-Decimation runs the numpy MIS of ``_luby_mis_numpy``, which equals the JAX
-package's native greedy pass byte for byte
-(``tests/test_native_topology.py``), and takes its edges from the caller's
-topology or the same scalar-key unique the JAX package falls back to: the
-port's ``decimate`` returns the JAX package's bits.
+Decimation runs as the JAX package's does with its library built
+(:150-183): edges from the caller's topology, else from the host library's
+``topo_edges``, and the MIS from its ``mis_greedy`` (``native.py``,
+``csrc/host/fast_topology.cpp``); cluster assignment and the coarse mesh
+stay numpy.  ``decimate_plain`` is the same rounds over the numpy MIS of
+``_luby_mis_numpy`` and the scalar-key edge unique of
+``_unique_edges_numpy`` (JAX's numpy paths), the plain version the tests
+hold it to: both return the JAX package's bits.
 
 The JAX package splits the refine into a fused program and a host-staged
 one above 600000 vertices, for two TPU reasons (only an untraced k-NN can
@@ -39,6 +42,7 @@ import os
 import numpy as np
 import torch
 
+from . import native
 from .mesh import TriMesh, build_topology
 from .ops import graph_ops
 from .ops.knn import idw_from_knn, knn3_masked
@@ -55,7 +59,7 @@ from .utils.checkpoint import StageCheckpointer
 from .utils.device import resolve_device
 from .utils.precision import f32_matmuls
 
-__all__ = ["subdivide", "decimate", "register_pair_multires"]
+__all__ = ["subdivide", "decimate", "decimate_plain", "register_pair_multires"]
 
 # Largest coarse vertex count for which the packed triangle-dedup key
 # (i*nc + j)*nc + k fits int64 (nc^3 < 2^63 needs nc <= ~2.09e6); above it
@@ -139,25 +143,40 @@ def _luby_mis_numpy(u, v, n, prio):
     return state
 
 
-def _aggregate_once(pts: np.ndarray, tris: np.ndarray, rng, edges=None):
+def _unique_edges_numpy(tris: np.ndarray, n: int):
+    """The mesh's unique undirected edges (u < v), sorted, by a scalar-key
+    unique: the plain version of ``native.topo_edges``'s edges."""
+    e = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]])
+    e = np.sort(e, axis=1)
+    ukey = np.unique(e[:, 0] * np.int64(n) + e[:, 1])
+    return ukey // n, ukey % n
+
+
+def _unique_edges_native(tris: np.ndarray, n: int):
+    head = native.topo_edges(tris, n)
+    if head is None:
+        raise ValueError(f"triangle indices out of range for {n} vertices")
+    return head[0][:, 0].astype(np.int64), head[0][:, 1].astype(np.int64)
+
+
+def _aggregate_once(pts: np.ndarray, tris: np.ndarray, rng, edges=None,
+                    plain: bool = False):
     """One MIS-aggregation round: seeds are an MIS of the mesh graph, every
     other vertex joins its nearest adjacent seed, coarse vertices are the
     cluster centroids and coarse triangles the deduplicated label-distinct
     images of the fine ones.  ``edges``: unique undirected edges (i < j) of
-    the mesh, else taken from the triangles.  Returns (coarse_pts,
-    coarse_tris, label)."""
+    the mesh, else taken from the triangles.  The edges and the MIS come
+    from the host library, or with ``plain`` from their numpy versions.
+    Returns (coarse_pts, coarse_tris, label)."""
     n = pts.shape[0]
     if edges is not None:
         u = np.asarray(edges[:, 0], np.int64)
         v = np.asarray(edges[:, 1], np.int64)
     else:
-        e = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]])
-        e = np.sort(e, axis=1)
-        ukey = np.unique(e[:, 0] * np.int64(n) + e[:, 1])  # scalar-key unique
-        u, v = ukey // n, ukey % n
+        u, v = (_unique_edges_numpy if plain else _unique_edges_native)(tris, n)
 
     prio = rng.permutation(n).astype(np.int64)
-    state = _luby_mis_numpy(u, v, n, prio)
+    state = (_luby_mis_numpy if plain else native.mis_greedy)(u, v, n, prio)
 
     is_seed = state == 1
     seeds = np.where(is_seed)[0]
@@ -213,7 +232,17 @@ def decimate(mesh: TriMesh, target_n: int, seed: int = 0, edges=None):
 
     Returns (coarse TriMesh, fine_to_coarse int64 [N], coarse_rep int64
     [Nc]), ``coarse_rep[j]`` the fine vertex nearest cluster j's centroid.
-    Host numpy; equal to the JAX package's ``decimate`` bit for bit."""
+    On the host, the edges and the MIS in the host library; equal to the
+    JAX package's ``decimate`` bit for bit."""
+    return _decimate(mesh, target_n, seed, edges, plain=False)
+
+
+def decimate_plain(mesh: TriMesh, target_n: int, seed: int = 0, edges=None):
+    """:func:`decimate` over the numpy edges and MIS: its plain version."""
+    return _decimate(mesh, target_n, seed, edges, plain=True)
+
+
+def _decimate(mesh: TriMesh, target_n: int, seed: int, edges, plain: bool):
     pts = np.asarray(mesh.points, np.float64)
     tris = np.asarray(mesh.triangles, np.int64)
     rng = np.random.default_rng(seed)
@@ -223,7 +252,7 @@ def decimate(mesh: TriMesh, target_n: int, seed: int = 0, edges=None):
     while cur_pts.shape[0] > 1.5 * target_n:
         before = cur_pts.shape[0]
         cur_pts, cur_tris, label = _aggregate_once(
-            cur_pts, cur_tris, rng, edges=first_edges
+            cur_pts, cur_tris, rng, edges=first_edges, plain=plain
         )
         first_edges = None
         fine_to_coarse = label[fine_to_coarse]

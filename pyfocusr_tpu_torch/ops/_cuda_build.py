@@ -9,6 +9,9 @@ flags (and of the headers under ``csrc/``, which a source may include), and
 loaded with ``ctypes``.  One library per source keeps the builds
 independent: several can compile at once (``nvcc`` runs in a subprocess, so
 threads that each call one kernel module's ``load_library`` overlap).
+``library_path`` and ``compile_once`` (the hashed name, the build into a
+temporary file renamed into place) also serve the host library of
+``native.py``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "CudaLibrary", "require_sm90"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "CudaLibrary", "compile_once",
+           "library_path", "require_sm90"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(
@@ -65,6 +69,35 @@ def _nvcc(what: str) -> str:
     )
 
 
+def library_path(stem: str, inputs: bytes, flags) -> Path:
+    """``BUILD_DIR/libpyfocusr_<stem>_<hash>.so``, the hash over ``inputs``
+    (the sources and whatever else decides the build) and ``flags``."""
+    digest = hashlib.sha256(inputs + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libpyfocusr_{stem}_{digest}.so"
+
+
+def compile_once(out: Path, command, what: str):
+    """Run ``command`` (a compiler command line without its output) with
+    ``-o`` a temporary file beside ``out`` and rename that to ``out``, unless
+    ``out`` exists.  The rename is atomic, so processes that build the same
+    library at once never load half a file.  Returns (seconds in the
+    compiler, its output); a failed build raises ``RuntimeError``."""
+    if out.exists():
+        return 0.0, ""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([*command, "-o", str(tmp)], capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{Path(command[0]).name} failed ({proc.returncode}) building {what}:\n{log}")
+    os.replace(tmp, out)
+    return seconds, log
+
+
 class CudaLibrary:
     """One ``csrc/<source>`` built into ``libpyfocusr_<stem>_<hash>.so``.
 
@@ -94,25 +127,13 @@ class CudaLibrary:
 
     def _build_and_load(self):
         headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
-        digest = hashlib.sha256(
-            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"libpyfocusr_{self.stem}_{digest}.so"
-        self.build_seconds = 0.0
+        out = library_path(self.stem, self.source.read_bytes() + headers, NVCC_FLAGS)
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(self.what), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {self.source}:\n"
-                    f"{self.build_log}"
-                )
-            os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+            command = [_nvcc(self.what), *NVCC_FLAGS, str(self.source)]
+            self.build_seconds, self.build_log = compile_once(out, command,
+                                                              str(self.source))
+        else:
+            self.build_seconds = 0.0
         lib = ctypes.CDLL(str(out))
         for name, argtypes in self.functions.items():
             fn = getattr(lib, name)

@@ -1,7 +1,8 @@
 """Linear assignment, on the device and on the host.
 
 Counterpart of ``pyfocusr_tpu/ops/assignment.py``: ``lap_host`` (:43, the
-numpy Jonker-Volgenant loop), ``exact_lap_small``
+host library's C++ Jonker-Volgenant, with the numpy loop as its plain
+version ``lap_host_plain``), ``exact_lap_small``
 (:509, the k x k eigsort matching for k <= 8), ``_sinkhorn_duals`` (:214),
 ``_greedy_complete`` (:242), ``_bulk_match`` (:263), ``_jv_device`` (:284)
 and ``sinkhorn_jv_lap`` (:406), the exact solver behind 'hungarian'
@@ -17,8 +18,7 @@ The two TPU kernels on that path are CUDA kernels here:
 the kernels' plain versions (each wrapper dispatches on where its tensors
 lie; nothing here looks at the device).
 
-Not ported: ``auction_lap`` / ``sinkhorn_auction_lap`` (superseded by JV)
-and ``lap_host``'s native C++ fast path (``pyfocusr_tpu/native.py``).
+Not ported: ``auction_lap`` / ``sinkhorn_auction_lap`` (superseded by JV).
 """
 
 from __future__ import annotations
@@ -29,25 +29,48 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .. import native
 from . import jv_kernel, sinkhorn_kernel
 
-__all__ = ["exact_lap_small", "lap_host", "linear_sum_assignment", "sinkhorn_jv_lap"]
+__all__ = ["exact_lap_small", "lap_host", "lap_host_plain", "linear_sum_assignment",
+           "sinkhorn_jv_lap"]
+
+
+def _host_cost(cost):
+    """``cost`` as f64 numpy; non-finite entries raise (scipy's contract: a
+    NaN row would never select an augmenting column)."""
+    cost = np.asarray(cost, dtype=np.float64)
+    if not np.isfinite(cost).all():
+        raise ValueError("cost matrix contains non-finite entries")
+    return cost
+
+
+def _untranspose(rows, cols):
+    order = np.argsort(cols)
+    return cols[order], rows[order]
 
 
 def lap_host(cost):
-    """Jonker-Volgenant shortest-augmenting-path LAP on the host (numpy,
-    f64).  Returns (row_ind, col_ind) minimizing cost[row_ind,
-    col_ind].sum(), rows in order: the scipy contract.  A cost with more
-    rows than columns is solved transposed."""
-    cost = np.asarray(cost, dtype=np.float64)
-    if not np.isfinite(cost).all():
-        # scipy's contract; a NaN row would never select an augmenting column.
-        raise ValueError("cost matrix contains non-finite entries")
+    """Jonker-Volgenant shortest-augmenting-path LAP on the host (the host
+    library's C++ solver, f64).  Returns (row_ind, col_ind) minimizing
+    cost[row_ind, col_ind].sum(), rows in order: the scipy contract.  A
+    cost with more rows than columns is solved transposed."""
+    cost = _host_cost(cost)
     n_rows, n_cols = cost.shape
     if n_rows > n_cols:
-        rows, cols = lap_host(cost.T)
-        order = np.argsort(cols)
-        return cols[order], rows[order]
+        return _untranspose(*lap_host(cost.T))
+    if n_rows == 0:
+        return np.arange(0), np.zeros(0, np.int64)
+    return np.arange(n_rows), native.lap_jv(cost)
+
+
+def lap_host_plain(cost):
+    """:func:`lap_host` as a numpy loop (the JAX package's, :70-108): the
+    plain version of the C++ solver."""
+    cost = _host_cost(cost)
+    n_rows, n_cols = cost.shape
+    if n_rows > n_cols:
+        return _untranspose(*lap_host_plain(cost.T))
 
     u = np.zeros(n_rows + 1)
     v = np.zeros(n_cols + 1)
@@ -91,18 +114,24 @@ def lap_host(cost):
     return np.arange(n_rows), col_ind
 
 
-def linear_sum_assignment(cost, device_threshold: int | None = 0):
+# Square CUDA costs of more rows than this go to the card (see
+# linear_sum_assignment).
+DEVICE_THRESHOLD = 642
+
+
+def linear_sum_assignment(cost, device_threshold: int | None = DEVICE_THRESHOLD):
     """(row_ind, col_ind) as numpy arrays, the scipy contract.  A square
     CUDA tensor of more than ``device_threshold`` rows is solved on the card
     by :func:`sinkhorn_jv_lap` (the Sinkhorn and JV kernels); numpy arrays,
     CPU tensors and rectangular costs go to :func:`lap_host`, the
-    counterpart of the JAX package's CPU-backend gate.  The default 0 keeps
-    every square cost that lies on the card there: on an H100 the card's
-    solve takes 1.0-1.2 ms from 2 to 64 rows, so ``lap_host`` is faster
-    only below 64 rows and by under 1 ms, and the card is 5-90x faster
-    from 64 to 2048 rows (``chip_smoke.py``'s ``lap_dispatch`` sweep); the
-    JAX package's 2048, set on a TPU against a native C++ host solver, does
-    not carry over.  ``device_threshold=None`` takes the host at every
+    counterpart of the JAX package's CPU-backend gate.  The default
+    ``DEVICE_THRESHOLD`` = 642 is the largest size of ``chip_smoke.py``'s
+    ``lap_dispatch`` sweep (uniform costs, 2 to 2048 rows) at which
+    ``lap_host`` beat the card's solve on an NVIDIA H100 80GB HBM3 at a
+    700 W power limit and its host: 24.7 against 27.5 ms at 642 rows,
+    72 against 30 ms at 1024 (the card's solve takes 1.2-1.7 ms up to 64
+    rows, where ``lap_host`` takes under 0.3 ms).  The JAX package's 2048
+    was set on a TPU.  ``device_threshold=None`` takes the host at every
     size."""
     n_rows, n_cols = cost.shape
     on_card = torch.is_tensor(cost) and cost.device.type == "cuda"

@@ -2,9 +2,9 @@
 subsampling and smoothing.
 
 Counterpart of ``pyfocusr_tpu/spectral/graph.py``: ``features_dictionary``
-(:57) and ``Graph`` (:64) with every public method but the viewers
-(``view_mesh_*``, ``export_viewer_html``), which raise
-``NotImplementedError`` naming their ROADMAP item.  The graph is the ELL
+(:57) and ``Graph`` (:64) with every public method, the viewers
+(``view_mesh_*`` over the optional itkwidgets, ``export_viewer_html``;
+:423-460) included.  The graph is the ELL
 neighbour table of ``mesh.build_topology`` with its weights, degrees and G
 as tensors on one device: the device of the mesh's points when they are a
 tensor, else the CUDA card (``utils.device.resolve_device``).
@@ -33,7 +33,7 @@ from ..mesh import MeshTopology, TriMesh, as_trimesh, build_topology
 from ..ops import graph_ops
 from ..ops.curvature import principal_curvatures
 from ..ops.eigen import narrow_or_lanczos
-from ..pipeline import _NARROW_EXTRA, _not_ported
+from ..pipeline import _NARROW_EXTRA
 from ..utils.device import resolve_device
 
 __all__ = ["Graph", "features_dictionary", "eig_start_draws", "MIN_EIG_VAL"]
@@ -371,14 +371,37 @@ class Graph:
             iterations, self._overflow, self._ov_w,
         )
 
+    # Viewers (reference ``graph.py:296-314``): optional itkwidgets, or the
+    # standalone HTML export.
     def view_mesh_existing_scalars(self):
-        raise _not_ported("Graph.view_mesh_existing_scalars", "7")
+        from ..utils.viz import view_mesh
+
+        return view_mesh(self.mesh)
 
     def view_mesh_eig_vec(self, eig_vec: int = 0):
-        raise _not_ported("Graph.view_mesh_eig_vec", "7")
+        from ..utils.viz import view_mesh
+
+        return view_mesh(self.mesh.with_point_data("eig_vec", self.eig_vecs[:, eig_vec]))
 
     def view_mesh_features(self, feature_idx: int = 0):
-        raise _not_ported("Graph.view_mesh_features", "7")
+        from ..utils.viz import view_mesh
+
+        return view_mesh(self.mesh.with_point_data("feature",
+                                                   self.node_features[feature_idx]))
 
     def export_viewer_html(self, file_path, eig_vec=None, feature_idx=None):
-        raise _not_ported("Graph.export_viewer_html", "7")
+        """Standalone HTML/WebGL export of the graph's mesh, the
+        dependency-free counterpart of the three ``view_mesh_*`` viewers:
+        the existing point-data scalars, plus an ``eig_vec`` column and / or
+        a node ``feature`` as further colorings.  Returns the path
+        written."""
+        from ..utils.html_viewer import export_html
+
+        mesh = self.mesh
+        if eig_vec is not None:
+            mesh = mesh.with_point_data(f"eig_vec_{eig_vec}", self.eig_vecs[:, eig_vec])
+        if feature_idx is not None:
+            mesh = mesh.with_point_data(f"feature_{feature_idx}",
+                                        self.node_features[feature_idx])
+        return export_html(file_path, meshes=[mesh], mesh_names=["mesh"],
+                           title="Graph mesh")

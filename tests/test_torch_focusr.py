@@ -76,6 +76,7 @@ Gates, and why:
 
 import dataclasses
 import inspect
+import json
 import types
 
 import jax
@@ -198,21 +199,30 @@ def test_signatures_match_jax(name):
         assert p.kind == want.parameters[p.name].kind, p.name
 
 
-def test_class_api_exports_and_unported_viewers(bones_642):
+def test_class_api_exports_and_unported_viewers(bones_642, tmp_path):
+    """The class API's exports and its viewers (ported since this test's
+    name): without itkwidgets each ``view_*`` raises the reference's
+    ImportError, and ``export_viewer_html`` writes the standalone viewer
+    (``tests/test_torch_viewers.py`` holds its payloads to JAX's)."""
     t, s, _, _ = bones_642
     for name in ("Focusr", "Graph", "eigsort", "linear_sum_assignment",
                  "affine_registration", "deformable_registration"):
         assert name in TP.__all__
     g = TP.Graph(t.with_points(torch.tensor(t.points)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        g.view_mesh_eig_vec()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        g.export_viewer_html("x.html")
+    with pytest.raises(ImportError, match="itkwidgets"):
+        g.view_mesh_existing_scalars()
     reg = TP.Focusr(t, s, icp_register_first=False, list_features_to_calc=(),
                     device="cpu")
-    for call in (lambda: reg.view_meshes(), lambda: reg.export_viewer_html("x.html")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
+    with pytest.raises(ImportError, match="itkwidgets"):
+        reg.view_meshes()
+    for path, owner, n_meshes in ((tmp_path / "g.html", g, 1),
+                                  (tmp_path / "r.html", reg, 2)):
+        out = owner.export_viewer_html(path)
+        text = open(out, encoding="utf-8").read()
+        body = text.split('<script id="scene" type="application/json">')[1]
+        data = json.loads(body.split("</script>")[0])
+        assert [m["n"] for m in data["meshes"]] == [t.n_points] * n_meshes
+        assert all(m["f"] == t.n_triangles for m in data["meshes"])
 
 
 def test_as_trimesh_duck_typed_polydata(bones_642):
