@@ -81,7 +81,22 @@ after:
   ``get_weighted_final_node_locations`` at k = 8 and 32 (the k = 4..128
   kernel), ``transfer_point_data`` and a ``save_mesh`` / ``load_mesh``
   round trip in .vtk and .vtp, first call and warm; CUDA against CPU at
-  2562.
+  2562;
+* the command line (``cli``): every subcommand of
+  ``pyfocusr_tpu_torch/cli.py`` through ``cli.main`` in this process, on
+  the 'kd' pair written to .vtk files (the cohort and the SSM on 2562-vertex
+  bones), each invocation's seconds and kernel launches: ``info``,
+  ``convert`` there and back, ``register`` under the bench configuration
+  against ``register_pair``, two sources with ``--save-prepared``, then
+  ``--prepared`` and ``--warm-from``, the options (html, quality, landmarks,
+  curvature features, transfer), all points in CPD, ``cohort``, ``ssm`` and
+  ``warmup --export``;
+* the serving artifacts (``aot``, the counterpart of ``bench.py:436-554``
+  at 10242 vertices): both formats of ``utils/aot.py`` exported, loaded and
+  served in this process and by fresh processes, with the libraries built,
+  with an empty build directory (portable: nvcc and g++ run), and with an
+  empty build directory and no compiler reachable (compiled: nothing may
+  be built); a changed config refused with exit 2.
 
 Every CPD EM loop and every ICP on the card runs as one captured iteration
 replayed as a CUDA graph, the host reading the stop flag every 8
@@ -3457,6 +3472,369 @@ def phase_wide_coords(torch, tp, kernels, smi, device="cuda", levels=5,
     return warm["launches"]
 
 
+# --- The command line (``pyfocusr_tpu_torch/cli.py``) and the serving
+# artifacts (``utils/aot.py``) -------------------------------------------
+
+# The config fields the CLI's registering subcommands set by flag.
+CLI_FIELDS = ("n_spectral_features", "n_extra_spectral", "non_rigid_alpha",
+              "non_rigid_beta", "non_rigid_max_iterations", "non_rigid_n_eigens",
+              "graph_smoothing_iterations", "projection_smooth_iterations",
+              "n_coords_spectral_registration", "n_coords_spectral_ordering")
+# The small bones' seeds: the cohort's template and three subjects (the
+# SSM's four meshes), then the SSM's held-out mesh.
+CLI_SMALL_SEEDS = (2, 1, 3, 4, 5)
+CLI_LANDMARKS = 10
+CLI_COHORT_MIN_UNIQUE = 0.5
+
+
+def cli_flags(tp, cfg_kw):
+    """The flags that make the CLI build ``PipelineConfig(**cfg_kw)``;
+    fails where a field is neither a flag's nor at its default."""
+    default = tp.PipelineConfig()
+    for name, value in cfg_kw.items():
+        check(name in CLI_FIELDS or getattr(default, name) == value,
+              f"the CLI has no flag for {name}={value!r}")
+    return [x for name in CLI_FIELDS if name in cfg_kw
+            for x in ("--" + name.replace("_", "-"), str(cfg_kw[name]))]
+
+
+def same_or_gates(torch, a, b, deterministic, what):
+    """Two runs' correspondences: equal bit for bit where two plain calls
+    on the card were (``deterministic``), else at the CUDA-vs-CPU gates.
+    Returns the agreement."""
+    a, b = (torch.as_tensor(x).long().cpu() for x in (a, b))
+    check(a.shape == b.shape, f"{what}: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    agree = float((a == b).double().mean())
+    if deterministic:
+        check(agree == 1.0, f"{what}: not bit-equal ({agree})")
+    else:
+        check(agree >= CORR_AGREE_MIN, f"{what}: agreement {agree}")
+        du = abs(len(torch.unique(a)) - len(torch.unique(b))) / a.shape[0]
+        check(du <= UNIQUE_DIFF_MAX, f"{what}: unique fractions differ by {du}")
+    return agree
+
+
+def phase_cli(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
+              small_levels=4):
+    """Every subcommand of the port's CLI through ``cli.main`` in this
+    process, on the 'kd' pair (``levels``: 10242 vertices) written to .vtk
+    files, each invocation's kernel launches counted from 0: ``info``;
+    ``convert`` .vtk -> .ply -> .vtk with equal arrays; ``register`` under
+    the bench configuration, its correspondences against an in-process
+    ``register_pair`` from the same generator (bit for bit where
+    ``deterministic``, else the CUDA-vs-CPU gates); two sources with
+    ``--save-prepared``, then ``--prepared`` (equal to the two-source run's
+    pair) and a never-seen pair ``--warm-from`` the save; ``--html
+    --quality --landmarks --features curvature --transfer-point-data``;
+    all points in CPD; ``cohort`` (template + 3) and ``ssm`` (4 meshes, 2
+    rounds, 2 samples, one projected, html) on the ``small_levels`` bones
+    under the cohort configuration; ``warmup --export`` of a compiled
+    artifact, whose sidecar proves the flags are the bench config.
+    Returns the launches of all invocations by kernel."""
+    from pyfocusr_tpu_torch import cli
+    from pyfocusr_tpu_torch.utils import aot
+
+    dev = [] if device == "cuda" else ["--device", device]
+    bench = cli_flags(tp, BENCH_CFG) + dev
+    runs = []
+
+    def run(name, argv, expect_rc=0):
+        sync(torch, device)
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        sync(torch, device)
+        runs.append({"name": name, "seconds": time.perf_counter() - t0, "rc": rc,
+                     "launches": {k: m.LAUNCHES for k, m in kernels.items()}})
+        check(rc == expect_rc, f"cli {name}: exit {rc}: {err.getvalue()[-800:]}")
+        return out.getvalue()
+
+    with tempfile.TemporaryDirectory(prefix="cli_") as d:
+        f = {name: os.path.join(d, f"{name}.vtk") for name in ("t", "s", "s2")}
+        for name, seed in (("t", 2), ("s", 1), ("s2", 3)):
+            tp.save_mesh(f[name], synthetic_bone(tp, seed, levels=levels))
+        small = [os.path.join(d, f"c{i}.vtk") for i in range(len(CLI_SMALL_SEEDS))]
+        for path, seed in zip(small, CLI_SMALL_SEEDS):
+            mesh = synthetic_bone(tp, seed, levels=small_levels)
+            tp.save_mesh(path, mesh)
+        n_small = mesh.n_points
+        target, source = tp.load_mesh(f["t"]), tp.load_mesh(f["s"])
+        n_t, n_s = target.n_points, source.n_points
+
+        info = json.loads(run("info", ["info", f["t"]]))
+        check(info["points"] == n_t and info["euler_characteristic"] == 2,
+              f"cli info: {info}")
+        run("convert_to_ply", ["convert", f["t"], os.path.join(d, "t.ply")])
+        run("convert_to_vtk", ["convert", os.path.join(d, "t.ply"), os.path.join(d, "t2.vtk")])
+        back = tp.load_mesh(os.path.join(d, "t2.vtk"))
+        check(np.array_equal(back.points, target.points)
+              and np.array_equal(back.triangles, target.triangles)
+              and sorted(back.point_data) == sorted(target.point_data)
+              and all(np.array_equal(back.point_data[k], v)
+                      for k, v in target.point_data.items()),
+              "cli convert: .vtk -> .ply -> .vtk changed the arrays")
+
+        def corr(sub, stem=""):
+            return np.load(os.path.join(d, sub, f"{stem}correspondences.npy"))
+
+        summary = json.loads(run("register", ["register", f["t"], f["s"], "-o",
+                                              os.path.join(d, "reg")] + bench))
+        cfg = tp.PipelineConfig(**BENCH_CFG)
+        on = "cpu" if device == "cpu" else None
+        ref = tp.register_pair(tp.mesh_to_graph_arrays(target, device=on),
+                               tp.mesh_to_graph_arrays(source, device=on), cfg,
+                               generator=torch.Generator().manual_seed(0))
+        agree = same_or_gates(torch, corr("reg"), ref["correspondences"], deterministic,
+                              "cli register against register_pair")
+        check(summary["n_source_points"] == n_s, f"cli register: {summary}")
+
+        run("register_two_sources", ["register", f["t"], f["s"], f["s2"], "-o",
+                                     os.path.join(d, "multi"), "--save-prepared",
+                                     os.path.join(d, "prep.npz")] + bench)
+        run("register_prepared", ["register", f["t"], f["s"], "-o",
+                                  os.path.join(d, "prepared"), "--prepared",
+                                  os.path.join(d, "prep.npz")] + bench)
+        same_or_gates(torch, corr("prepared"), corr("multi", "s_"), deterministic,
+                      "cli --prepared against the two-source run")
+        warm = json.loads(run("register_warm_from", [
+            "register", f["s2"], f["s"], "-o", os.path.join(d, "warm"), "--warm-from",
+            os.path.join(d, "prep.npz")] + bench))
+        check(warm["unique_correspondences"] / n_s > 0.6,
+              f"cli --warm-from: {warm}")
+
+        with open(os.path.join(d, "lm.txt"), "w") as fh:
+            for i in range(CLI_LANDMARKS):
+                v = i * (min(n_t, n_s) // CLI_LANDMARKS)
+                fh.write(f"{v} {v}\n")
+        opts = json.loads(run("register_options", [
+            "register", f["t"], f["s"], "-o", os.path.join(d, "opts"), "--html",
+            "--quality", "--landmarks", os.path.join(d, "lm.txt"), "--features",
+            "curvature", "--transfer-point-data", "all"] + bench))
+        moved = tp.load_mesh(os.path.join(d, "opts", "transformed_source.vtk"))
+        check(opts["landmarks"] == CLI_LANDMARKS and "quality" in opts
+              and "viewer.html" in opts["outputs"] and FEATURE in moved.point_data
+              and os.path.getsize(os.path.join(d, "opts", "viewer.html")) > 0,
+              f"cli register options: {opts}")
+        fullres = json.loads(run("register_fullres", [
+            "register", f["t"], f["s"], "-o", os.path.join(d, "fullres")] + bench
+            + ["--n-coords-spectral-registration", str(n_s)]))
+        check(fullres["unique_correspondences"] / n_s > 0.6, f"cli full resolution: {fullres}")
+
+        cohort_flags = cli_flags(tp, COHORT_CFG) + dev
+        coh = json.loads(run("cohort", ["cohort", *small[:4], "-o",
+                                        os.path.join(d, "cohort")] + cohort_flags))
+        check(coh["n_subjects"] == 3 and min(coh["unique_fraction_per_subject"])
+              > CLI_COHORT_MIN_UNIQUE, f"cli cohort: {coh}")
+        ssm = json.loads(run("ssm", ["ssm", *small[:4], "-o", os.path.join(d, "ssm"),
+                                     "--iterations", "2", "--sample", "2", "--project",
+                                     small[4], "--html"] + cohort_flags))
+        check(ssm["iterations"] == 2 and len(ssm["projections"]) == 1
+              and all(np.isfinite(ssm["mode_variances"]))
+              and all(os.path.exists(os.path.join(d, "ssm", o)) for o in ssm["outputs"]),
+              f"cli ssm: {ssm}")
+
+        art = os.path.join(d, "w" + aot.EXEC_EXT)
+        warmup = json.loads(run("warmup_export", ["warmup", f["t"], f["s"], "--export",
+                                                  art] + bench))
+        with open(art + ".meta.json") as fh:
+            meta = json.load(fh)
+        check(meta["cfg_fingerprint"] == aot._program_fingerprint(cfg),
+              "the CLI's flags did not give the bench configuration")
+        check(len(meta["libraries"]) == (7 if device == "cuda" else 1),
+              f"warmup --export carries {len(meta['libraries'])} libraries")
+
+    totals = {k: sum(r["launches"][k] for r in runs) for k in kernels}
+    if device == "cuda":
+        for name in ("knn", "umeyama3"):
+            check(all(r["launches"][name] > 0 for r in runs if r["name"].startswith(
+                ("register", "cohort", "ssm", "warmup"))),
+                  f"a registering CLI invocation launched no {name} kernel")
+        check(next(r for r in runs if r["name"] == "register_fullres")
+              ["launches"]["cpd_estep"] > 0, "cli full resolution launched no E-step kernel")
+    emit({"phase": "cli", "nvidia_smi": smi, "n_target": n_t, "n_source": n_s,
+          "n_small": n_small,
+          "config": "bench.py:122-134 (register), bench.py cohort ccfg (cohort, ssm)",
+          "register_agreement_with_register_pair": agree,
+          "warmup": warmup, "invocations": runs, "launches": totals})
+    return totals
+
+
+# A fresh serving process (``python -c SERVE_CODE fmt artifact target source
+# out.npy device``): load the artifact, then the meshes, two registrations
+# (seeds 7 and 8); one JSON line with the seconds from its first statement.
+SERVE_CODE = """
+import time
+t00 = time.perf_counter()
+import json, shutil, sys
+import numpy as np
+import torch
+import pyfocusr_tpu_torch as tp
+from pyfocusr_tpu_torch import native
+from pyfocusr_tpu_torch.utils import aot
+fmt, art, t_path, s_path, out_path, device = sys.argv[1:]
+on = None if device == "cuda" else device
+def sync():
+    if device == "cuda":
+        torch.cuda.synchronize()
+import_s = time.perf_counter() - t00
+t0 = time.perf_counter()
+load = aot.load_registration_exec if fmt == "compiled" else aot.load_registration
+run = load(art, device=on)
+load_s = time.perf_counter() - t0
+tg = tp.mesh_to_graph_arrays(tp.load_mesh(t_path), device=on)
+sg = tp.mesh_to_graph_arrays(tp.load_mesh(s_path), device=on)
+t0 = time.perf_counter()
+res = run(tg, sg, torch.Generator().manual_seed(7))
+sync()
+first_call_s = time.perf_counter() - t0
+cold = time.perf_counter() - t00
+t0 = time.perf_counter()
+run(tg, sg, torch.Generator().manual_seed(8))
+sync()
+steady_s = time.perf_counter() - t0
+np.save(out_path, res["correspondences"].cpu().numpy())
+built = {m.__name__.rsplit(".", 1)[1]: m.BUILD_SECONDS for m in aot._kernel_modules()}
+built["host"] = native.build_seconds()
+print("SERVE" + json.dumps({
+    "cold_process_serve_s": cold, "import_s": import_s, "load_s": load_s,
+    "first_call_s": first_call_s, "steady_s": steady_s, "build_seconds": built,
+    "nvcc": shutil.which("nvcc"), "gxx": shutil.which("g++")}))
+"""
+
+
+def serve_fresh(fmt, art, t_path, s_path, out_path, device, env):
+    """``SERVE_CODE`` in a fresh interpreter; its JSON line plus the
+    process's wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SERVE_CODE, fmt, art, t_path, s_path,
+                           out_path, device], capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"fresh {fmt} serve: {proc.stderr[-1500:]}")
+    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("SERVE"))
+    return {**json.loads(line[len("SERVE"):]), "process_wall_s": wall}
+
+
+def phase_aot(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
+              steady_reps=3):
+    """The serving artifacts on the 'kd' pair under the bench configuration,
+    the port's counterpart of ``bench.py:436-554`` (aot_serving_15k) at
+    ``levels`` (10242 vertices): for each format, the artifact's size, its
+    export, load, first and steady calls in this process (the runner's
+    result against ``register_pair`` from the same generator: bit for bit
+    where ``deterministic``, else the CUDA-vs-CPU gates), and a fresh
+    process serving it (seconds from its first statement to the first
+    result): (a) with the libraries built, both formats; (b) the portable
+    format with an empty build directory (the nvcc and g++ builds
+    included); (c) the compiled format with an empty build directory and
+    neither nvcc nor g++ reachable (PATH and CUDA_HOME an empty
+    directory), which must build nothing.  Then a fresh ``register --aot``
+    with another ``--non-rigid-max-iterations`` must exit 2 with "different
+    PipelineConfig"."""
+    from pyfocusr_tpu_torch.utils import aot
+
+    on = "cpu" if device == "cpu" else None
+    cfg = tp.PipelineConfig(**BENCH_CFG)
+    out = {"phase": "aot", "nvidia_smi": smi, "config": "bench.py:122-134"}
+    with tempfile.TemporaryDirectory(prefix="aot_") as d:
+        paths = {k: os.path.join(d, f"{k}.vtk") for k in ("t", "s")}
+        tp.save_mesh(paths["t"], synthetic_bone(tp, 2, levels=levels))
+        tp.save_mesh(paths["s"], synthetic_bone(tp, 1, levels=levels))
+        tg = tp.mesh_to_graph_arrays(tp.load_mesh(paths["t"]), device=on)
+        sg = tp.mesh_to_graph_arrays(tp.load_mesh(paths["s"]), device=on)
+        out.update(n_target=tg.n_points, n_source=sg.n_points)
+        ref = tp.register_pair(tg, sg, cfg, generator=torch.Generator().manual_seed(7))
+        arts = {}
+        for fmt, name, export, load in (
+                ("portable", "reg.pt", aot.export_registration, aot.load_registration),
+                ("compiled", "reg" + aot.EXEC_EXT, aot.export_registration_exec,
+                 aot.load_registration_exec)):
+            art = arts[fmt] = os.path.join(d, name)
+            t0 = time.perf_counter()
+            export(cfg, tg, sg, art)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            runner = load(art, cfg=cfg, target=tg, source=sg)
+            load_s = time.perf_counter() - t0
+            for mod in kernels.values():
+                mod.LAUNCHES = 0
+            res, first_s = timed(torch, lambda: runner(
+                tg, sg, torch.Generator().manual_seed(7)), device)
+            launches = {k: m.LAUNCHES for k, m in kernels.items()}
+            agree = same_or_gates(torch, res["correspondences"], ref["correspondences"],
+                                  deterministic, f"{fmt} runner against register_pair")
+            if deterministic:
+                check(not outputs_differ(torch, res, ref),
+                      f"{fmt} runner: outputs differ from register_pair")
+            steady = [timed(torch, lambda: runner(
+                tg, sg, torch.Generator().manual_seed(8)), device)[1]
+                for _ in range(steady_reps)]
+            out[fmt] = {"artifact_mb": os.path.getsize(art) / 1e6, "export_s": export_s,
+                        "load_s": load_s, "first_call_s": first_s,
+                        "steady_s": statistics.median(steady), "steady_s_all": steady,
+                        "agreement_with_register_pair": agree, "launches": launches}
+            if device == "cuda":
+                check(launches["knn"] > 0 and launches["umeyama3"] > 0,
+                      f"the {fmt} runner launched no k-NN or close kernel: {launches}")
+
+        empty = os.path.join(d, "empty")
+        os.makedirs(empty)
+        setups = (
+            ("a_built", "portable", {}),
+            ("a_built", "compiled", {}),
+            ("b_empty_build_dir", "portable",
+             {"PYFOCUSR_TPU_TORCH_BUILD_DIR": os.path.join(d, "build_b")}),
+            ("c_no_compilers", "compiled",
+             {"PYFOCUSR_TPU_TORCH_BUILD_DIR": os.path.join(d, "build_c"),
+              "PATH": empty, "CUDA_HOME": empty}),
+        )
+        for setup, fmt, env in setups:
+            npy = os.path.join(d, f"{setup}_{fmt}.npy")
+            got = serve_fresh(fmt, arts[fmt], paths["t"], paths["s"], npy, device,
+                              {**os.environ, **env})
+            # Another process may pick other library algorithms (and on
+            # the CPU another thread count): the gates, not the bits.
+            got["agreement_with_register_pair"] = same_or_gates(
+                torch, np.load(npy), ref["correspondences"], False,
+                f"fresh {setup} {fmt} serve against register_pair")
+            out[fmt][f"cold_process_{setup}"] = got
+            if setup == "c_no_compilers":
+                check(got["nvcc"] is None and got["gxx"] is None,
+                      f"nvcc or g++ reachable in setup (c): {got}")
+                built = {k: v for k, v in got["build_seconds"].items()
+                         if device == "cuda" or k == "host"}
+                check(all(v == 0.0 for v in built.values()),
+                      f"setup (c) built a library: {got['build_seconds']}")
+                with open(arts[fmt] + ".meta.json") as fh:
+                    want = sorted(lib["name"] for lib in json.load(fh)["libraries"])
+                # Besides the libraries: the k-NN route's record (ops/knn_routing.py).
+                libs = sorted(n for n in os.listdir(env["PYFOCUSR_TPU_TORCH_BUILD_DIR"])
+                              if n.endswith(".so"))
+                check(libs == want, f"setup (c)'s build directory holds other libraries "
+                      f"than the artifact's: {libs}")
+            if setup == "b_empty_build_dir" and device == "cuda":
+                check(all(s > 0 for s in got["build_seconds"].values()),
+                      f"setup (b) found a library built: {got['build_seconds']}")
+
+        # A changed config is refused by a fresh CLI process with exit 2.
+        argv = (["register", paths["t"], paths["s"], "-o", os.path.join(d, "refused"),
+                 "--aot", arts["compiled"]] + cli_flags(tp, BENCH_CFG)
+                + ["--non-rigid-max-iterations", "299"]
+                + ([] if device == "cuda" else ["--device", device]))
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; from pyfocusr_tpu_torch.cli import main; "
+             f"sys.exit(main({argv!r}))"], capture_output=True, text=True, cwd=ROOT,
+            timeout=600)
+        check(proc.returncode == 2 and "different PipelineConfig" in proc.stderr,
+              f"a changed config was not refused: {proc.returncode} {proc.stderr[-500:]}")
+        out["changed_config_exit"] = proc.returncode
+    emit(out)
+    return out
+
+
 def main():
     import torch
 
@@ -3718,6 +4096,10 @@ def main():
     torch.cuda.empty_cache()
     gw_launches = phase_groupwise(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
+    cli_launches = phase_cli(torch, tp, kernels, smi, deterministic)
+    torch.cuda.empty_cache()
+    phase_aot(torch, tp, kernels, smi, deterministic)
+    torch.cuda.empty_cache()
 
     knn_by_case = {r["case"]: r for r in knn_results}
     knn_main, knn_icp = knn_by_case["xyz_k1"], knn_by_case["icp_k1"]
@@ -3734,7 +4116,7 @@ def main():
     est_first = next(r for r in est_results if r["case"] == f"{n_t}_d3_initial")
     est_5000 = next(r for r in est_results if r["case"] == "5000_d3_late")
     topk_main = next(r for r in topk_results if r["case"] == "xyz_k8")
-    emit({"kernels": [
+    kernel_entries = [
         {
             "name": "knn",
             "route": "cuda",
@@ -3924,7 +4306,10 @@ def main():
                 for r in icp_results},
             "shape": "cov 3x3 f32, one thread, the 'kd' pair's first ICP iteration",
         },
-    ]})
+    ]
+    for entry in kernel_entries:  # every CLI invocation of the cli phase
+        entry["launches_cli"] = cli_launches[entry["name"]]
+    emit({"kernels": kernel_entries})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -20,8 +20,10 @@ with the same hash, and the code gains nothing from it (``lap_jv`` only
 subtracts, the topology and the MIS are integer code, the parse is
 ``strtod``).  A missing compiler or a failed build raises
 ``RuntimeError``; nothing falls back to numpy because the library is
-missing.  The numpy paths stay as the plain versions the tests compare
-with: ``mesh.build_topology_plain``, ``multires._luby_mis_numpy`` /
+missing.  ``use_prebuilt`` serves a library installed from a compiled
+artifact (``utils/aot.py``) under its recorded name, with no compiler.
+The numpy paths stay as the plain versions the tests compare with:
+``mesh.build_topology_plain``, ``multires._luby_mis_numpy`` /
 ``_unique_edges_numpy`` / ``decimate_plain``, ``ops.assignment.
 lap_host_plain`` and ``io.vtk_io._read_ascii``.
 """
@@ -39,7 +41,8 @@ import numpy as np
 from .ops._cuda_build import compile_once, library_path
 
 __all__ = ["HOST_SOURCES", "CXX_FLAGS", "HostLibrary", "build_seconds", "get_lib", "lap_jv",
-           "topo_edges", "topo_fill", "mis_greedy", "parse_doubles", "parse_longs"]
+           "library_file", "topo_edges", "topo_fill", "mis_greedy", "parse_doubles",
+           "parse_longs", "use_prebuilt"]
 
 HOST_SOURCES = tuple(
     Path(__file__).resolve().parent / "csrc" / "host" / name
@@ -76,8 +79,18 @@ class HostLibrary:
         self.sources = tuple(Path(s) for s in sources)
         self.compiler = compiler
         self.build_seconds = None
+        self.loaded_path = None
+        self._prebuilt = None
         self._lib = None
         self._lock = threading.Lock()
+
+    def use_prebuilt(self, path) -> None:
+        """Load ``path`` instead of the hashed build at the next ``load()``:
+        a library installed from a compiled artifact (``utils/aot.py``),
+        whose name was recorded where it was built, so neither the compiler
+        nor its version line is needed here.  No effect once loaded."""
+        with self._lock:
+            self._prebuilt = Path(path)
 
     def _what(self) -> str:
         return "the host library from " + ", ".join(str(s) for s in self.sources)
@@ -99,14 +112,17 @@ class HostLibrary:
     def load(self):
         with self._lock:
             if self._lib is None:
-                out = self.path()
-                command = [self._cxx(), *CXX_FLAGS, *map(str, self.sources)]
-                self.build_seconds, _ = compile_once(out, command, self._what())
+                if self._prebuilt is not None:
+                    out, self.build_seconds = self._prebuilt, 0.0
+                else:
+                    out = self.path()
+                    command = [self._cxx(), *CXX_FLAGS, *map(str, self.sources)]
+                    self.build_seconds, _ = compile_once(out, command, self._what())
                 lib = ctypes.CDLL(str(out))
                 for name, (restype, argtypes) in _FUNCTIONS.items():
                     fn = getattr(lib, name)
                     fn.restype, fn.argtypes = restype, argtypes
-                self._lib = lib
+                self._lib, self.loaded_path = lib, out
             return self._lib
 
 
@@ -121,6 +137,18 @@ def get_lib():
 def build_seconds():
     """Seconds the first ``get_lib`` spent in the compiler (0.0: cached)."""
     return _HOST.build_seconds
+
+
+def library_file() -> Path:
+    """The file of the package's host library, built at first use."""
+    get_lib()
+    return _HOST.loaded_path
+
+
+def use_prebuilt(path) -> None:
+    """Serve the package's host library from ``path`` (see
+    ``HostLibrary.use_prebuilt``)."""
+    _HOST.use_prebuilt(path)
 
 
 def _ptr(a: np.ndarray, ctype):

@@ -125,9 +125,14 @@ class CudaLibrary:
                 self._lib = self._build_and_load()
             return self._lib
 
-    def _build_and_load(self):
+    def path(self) -> Path:
+        """The library's file, named by a hash of the source, the headers
+        under ``csrc/`` and the flags (no compiler is asked)."""
         headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
-        out = library_path(self.stem, self.source.read_bytes() + headers, NVCC_FLAGS)
+        return library_path(self.stem, self.source.read_bytes() + headers, NVCC_FLAGS)
+
+    def _build_and_load(self):
+        out = self.path()
         if not out.exists():
             command = [_nvcc(self.what), *NVCC_FLAGS, str(self.source)]
             self.build_seconds, self.build_log = compile_once(out, command,
