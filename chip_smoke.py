@@ -116,7 +116,6 @@ script exits non-zero before printing anything.
 
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
 import io
 import json
@@ -3485,6 +3484,10 @@ CLI_FIELDS = ("n_spectral_features", "n_extra_spectral", "non_rigid_alpha",
 CLI_SMALL_SEEDS = (2, 1, 3, 4, 5)
 CLI_LANDMARKS = 10
 CLI_COHORT_MIN_UNIQUE = 0.5
+# ``register --multires``: an intermediate level (10242 > 2 x 2500) and
+# JAX's bound on its unique fraction (tests/test_cli.py:66).
+CLI_MULTIRES_LEVEL_RATIO = 2.0
+CLI_MULTIRES_MIN_UNIQUE = 0.4
 
 
 def cli_flags(tp, cfg_kw):
@@ -3526,7 +3529,10 @@ def phase_cli(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
     ``--save-prepared``, then ``--prepared`` (equal to the two-source run's
     pair) and a never-seen pair ``--warm-from`` the save; ``--html
     --quality --landmarks --features curvature --transfer-point-data``;
-    all points in CPD; ``cohort`` (template + 3) and ``ssm`` (4 meshes, 2
+    all points in CPD; ``--multires`` with ``--level-ratio`` and
+    ``--checkpoint-dir``, then the same invocation again, which resumes
+    (the same correspondences; on the card the refine's k-NN launches and
+    no ICP close); ``cohort`` (template + 3) and ``ssm`` (4 meshes, 2
     rounds, 2 samples, one projected, html) on the ``small_levels`` bones
     under the cohort configuration; ``warmup --export`` of a compiled
     artifact, whose sidecar proves the flags are the bench config.
@@ -3622,6 +3628,17 @@ def phase_cli(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
             "register", f["t"], f["s"], "-o", os.path.join(d, "fullres")] + bench
             + ["--n-coords-spectral-registration", str(n_s)]))
         check(fullres["unique_correspondences"] / n_s > 0.6, f"cli full resolution: {fullres}")
+        multires = ["register", f["t"], f["s"], "--multires", str(MULTIRES_MULTI_COARSE_N),
+                    "--level-ratio", str(CLI_MULTIRES_LEVEL_RATIO), "--checkpoint-dir",
+                    os.path.join(d, "checkpoints")] + bench
+        mr = json.loads(run("register_multires",
+                            multires + ["-o", os.path.join(d, "multires")]))
+        check(mr["unique_correspondences"] / n_s > CLI_MULTIRES_MIN_UNIQUE
+              and os.path.exists(os.path.join(d, "checkpoints", "coarse.npz")),
+              f"cli --multires: {mr}")
+        run("multires_resume", multires + ["-o", os.path.join(d, "multires_resume")])
+        check(np.array_equal(corr("multires_resume"), corr("multires")),
+              "cli --multires: the resume changed the correspondences")
 
         cohort_flags = cli_flags(tp, COHORT_CFG) + dev
         coh = json.loads(run("cohort", ["cohort", *small[:4], "-o",
@@ -3654,6 +3671,9 @@ def phase_cli(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
                   f"a registering CLI invocation launched no {name} kernel")
         check(next(r for r in runs if r["name"] == "register_fullres")
               ["launches"]["cpd_estep"] > 0, "cli full resolution launched no E-step kernel")
+        resume = next(r for r in runs if r["name"] == "multires_resume")["launches"]
+        check(resume["knn"] > 0 and resume["umeyama3"] == 0,
+              f"cli --multires resume: the refine's k-NN only, no coarse ICP: {resume}")
     emit({"phase": "cli", "nvidia_smi": smi, "n_target": n_t, "n_source": n_s,
           "n_small": n_small,
           "config": "bench.py:122-134 (register), bench.py cohort ccfg (cohort, ssm)",
@@ -3663,8 +3683,9 @@ def phase_cli(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
 
 
 # A fresh serving process (``python -c SERVE_CODE fmt artifact target source
-# out.npy device``): load the artifact, then the meshes, two registrations
-# (seeds 7 and 8); one JSON line with the seconds from its first statement.
+# out.pt device``): load the artifact, then the meshes, two registrations
+# (seeds 7 and 8; the first's outputs saved); one JSON line with the seconds
+# from its first statement.
 SERVE_CODE = """
 import time
 t00 = time.perf_counter()
@@ -3695,7 +3716,7 @@ t0 = time.perf_counter()
 run(tg, sg, torch.Generator().manual_seed(8))
 sync()
 steady_s = time.perf_counter() - t0
-np.save(out_path, res["correspondences"].cpu().numpy())
+torch.save({k: v.cpu() for k, v in res.items()}, out_path)
 built = {m.__name__.rsplit(".", 1)[1]: m.BUILD_SECONDS for m in aot._kernel_modules()}
 built["host"] = native.build_seconds()
 print("SERVE" + json.dumps({
@@ -3727,7 +3748,9 @@ def phase_aot(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
     result against ``register_pair`` from the same generator: bit for bit
     where ``deterministic``, else the CUDA-vs-CPU gates), and a fresh
     process serving it (seconds from its first statement to the first
-    result): (a) with the libraries built, both formats; (b) the portable
+    result, its outputs against ``register_pair``'s: bit for bit on the card
+    where ``deterministic``, else the gates): (a) with the libraries built,
+    both formats; (b) the portable
     format with an empty build directory (the nvcc and g++ builds
     included); (c) the compiled format with an empty build directory and
     neither nvcc nor g++ reachable (PATH and CUDA_HOME an empty
@@ -3791,15 +3814,22 @@ def phase_aot(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
              {"PYFOCUSR_TPU_TORCH_BUILD_DIR": os.path.join(d, "build_c"),
               "PATH": empty, "CUDA_HOME": empty}),
         )
+        # On the card a fresh process serves register_pair's bits where two
+        # plain calls give equal bits; on the CPU another process may take
+        # another thread count, so there the gates.
+        bits = deterministic and device == "cuda"
         for setup, fmt, env in setups:
-            npy = os.path.join(d, f"{setup}_{fmt}.npy")
-            got = serve_fresh(fmt, arts[fmt], paths["t"], paths["s"], npy, device,
+            saved = os.path.join(d, f"{setup}_{fmt}.pt")
+            got = serve_fresh(fmt, arts[fmt], paths["t"], paths["s"], saved, device,
                               {**os.environ, **env})
-            # Another process may pick other library algorithms (and on
-            # the CPU another thread count): the gates, not the bits.
+            served = torch.load(saved, weights_only=True)
+            what = f"fresh {setup} {fmt} serve against register_pair"
             got["agreement_with_register_pair"] = same_or_gates(
-                torch, np.load(npy), ref["correspondences"], False,
-                f"fresh {setup} {fmt} serve against register_pair")
+                torch, served["correspondences"], ref["correspondences"], bits, what)
+            if bits:
+                differ = outputs_differ(torch, served, ref)
+                check(not differ, f"{what}: outputs differ {differ}")
+            got["bit_equal"] = not outputs_differ(torch, served, ref)
             out[fmt][f"cold_process_{setup}"] = got
             if setup == "c_no_compilers":
                 check(got["nvcc"] is None and got["gxx"] is None,
@@ -3872,14 +3902,16 @@ def main():
     })
     check(cap == (9, 0), f"compute capability {cap}, the kernels are built for sm_90a")
 
-    # One nvcc per source, all started together (nvcc runs in a subprocess).
+    # One nvcc per source, all started together (nvcc runs in a subprocess),
+    # and the host library: what a pair on the card loads.
+    from pyfocusr_tpu_torch.utils import aot
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        for fut in [pool.submit(mod.load_library) for mod in kernels.values()]:
-            fut.result()
+    built = aot.build_libraries("cuda")
     emit({
         "phase": "build",
         "seconds": time.perf_counter() - t0,
+        "host_gxx_seconds": built["host"],
         "libraries": {
             name: {"nvcc_seconds": mod.BUILD_SECONDS,
                    "ptxas": [ln.strip() for ln in mod.BUILD_LOG.splitlines()

@@ -602,6 +602,7 @@ def main(argv=None):
                 # the config fingerprint normalizes landmark_weight out
                 # (pipeline._cfg_fingerprint).
                 cfg = dataclasses.replace(cfg, landmark_weight=args.landmark_weight)
+        installed = None
         if args.aot:
             from .utils import aot
 
@@ -610,7 +611,7 @@ def main(argv=None):
                 # mesh parser among them, are installed before any mesh
                 # is read, so that a fresh process builds nothing.
                 try:
-                    aot.install_libraries(args.aot, device=device)
+                    installed = aot.install_libraries(args.aot, device=device)
                 except ValueError as exc:
                     print(f"--aot: {exc}", file=sys.stderr)
                     return 2
@@ -833,7 +834,8 @@ def main(argv=None):
                     # fail loudly).
                     if aot_runner is None:
                         aot_runner = _load(
-                            args.aot, cfg=cfg, target=tg, source=sg_arr
+                            args.aot, cfg=cfg, target=tg, source=sg_arr,
+                            **({"installed": installed} if exec_fmt else {}),
                         )
                     else:
                         aot.validate_artifact(

@@ -38,7 +38,7 @@ pinned:
   and compute capability, or ``"cpu"``); a mismatch raises.
 
 Every check that refuses an artifact (config, shapes, sources, device,
-versions, a library's hash) runs before any file is installed, so a
+versions, a library's name and hash) runs before any file is installed, so a
 refused artifact leaves the build directory as it was, and no library of
 other sources is ever installed beside this tree's builds.
 
@@ -80,6 +80,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import threading
 import zipfile
 from pathlib import Path
@@ -108,6 +109,9 @@ _EXEC_MAGIC = b"#pyfocusr_tpu_torch.ptexec.v1\n"
 _JAX_EXTS = (".jaxexp", ".jaxexec")
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 _SOURCE_SUFFIXES = (".py", ".cu", ".cuh", ".cpp")
+# The file name ``native.py`` gives the host library (``_cuda_build.
+# library_path``): a plain name in the build directory, never a path.
+_HOST_LIBRARY_NAME = re.compile(r"libpyfocusr_host_[0-9a-f]{16}\.so")
 
 
 def _meta_path(path: str) -> str:
@@ -170,10 +174,11 @@ def _check_shapes(path: str, meta: dict, target=None, source=None) -> None:
             )
 
 
-def _check(path: str, meta: dict, cfg=None, target=None, source=None,
+def _check(path: str, meta: dict, sources: str, cfg=None, target=None, source=None,
            device=None) -> None:
     """Raise ``ValueError`` where ``meta`` (a sidecar or an artifact's own
-    manifest) does not fit these inputs, this tree or this host."""
+    manifest) does not fit these inputs, this tree (whose
+    :func:`source_hash` is ``sources``) or this host."""
     if cfg is not None and meta.get("cfg_fingerprint") != _program_fingerprint(cfg):
         raise ValueError(
             f"AOT artifact {path} was exported under a different "
@@ -181,7 +186,7 @@ def _check(path: str, meta: dict, cfg=None, target=None, source=None,
             "matching config)"
         )
     _check_shapes(path, meta, target, source)
-    if meta.get("source_hash") != source_hash():
+    if meta.get("source_hash") != sources:
         raise ValueError(
             f"AOT artifact {path} was exported from other pyfocusr_tpu_torch "
             "sources than this tree's; re-export with this tree"
@@ -213,12 +218,16 @@ def validate_artifact(path: str, cfg=None, target=None, source=None,
     The device is the target graph's, else ``device``, else the card.
     Shared by both loaders and by callers that hold a loaded runner and
     only need to re-check a new input (the CLI's per-source loop)."""
+    _validate(path, source_hash(), cfg=cfg, target=target, source=source, device=device)
+
+
+def _validate(path: str, sources: str, **inputs) -> None:
     mp = _meta_path(path)
     if not os.path.exists(mp):
         return
     with open(mp) as f:
         meta = json.load(f)
-    _check(path, meta, cfg=cfg, target=target, source=source, device=device)
+    _check(path, meta, sources, **inputs)
 
 
 def _kernel_modules():
@@ -337,7 +346,8 @@ def load_registration(path: str, cfg=None, target=None, source=None, device=None
     the libraries the serving device (the target's, else ``device``, else
     the card) loads, where they are missing."""
     _refuse_jax(path)
-    validate_artifact(path, cfg=cfg, target=target, source=source, device=device)
+    sources = source_hash()
+    _validate(path, sources, cfg=cfg, target=target, source=source, device=device)
     with open(path, "rb") as f:
         raw = f.read()
     if raw.startswith(_EXEC_MAGIC):
@@ -350,7 +360,7 @@ def load_registration(path: str, cfg=None, target=None, source=None, device=None
             "re-export with export_registration"
         )
     manifest = json.loads(raw[len(_MANIFEST_MAGIC):])
-    _check(path, manifest)
+    _check(path, manifest, sources)
     build_libraries(_serving_device(target, device))
     return _runner(manifest, path)
 
@@ -381,11 +391,17 @@ def install_libraries(path: str, device=None) -> dict:
     """Check a compiled artifact and install its libraries; returns its
     manifest.  The header is checked before anything is opened; then the
     sources, the device (``device``, else the card), the torch and CUDA
-    versions, each CUDA library's name against the one this tree would
-    build, and each library's sha256, all before any file is written.  Each
-    library goes into the build directory under its recorded name (a file
-    already there is kept: the same name is the same build), and the host
-    library is served from there without ``g++``.  Safe to call again."""
+    versions, each library's name (a CUDA library's must be the one this
+    tree would build, the host library's a plain file name of
+    ``native.py``'s form) and each library's sha256, all before any file is
+    written.  Each library goes into the build directory under its recorded
+    name (a file already there is kept: the same name is the same build),
+    and the host library is served from there without ``g++``.  Safe to
+    call again."""
+    return _install(path, device, source_hash())
+
+
+def _install(path: str, device, sources: str) -> dict:
     from .. import native
     from ..ops import _cuda_build
 
@@ -402,13 +418,17 @@ def install_libraries(path: str, device=None) -> dict:
         body = f.read()
     with zipfile.ZipFile(io.BytesIO(body)) as zf:
         manifest = json.loads(zf.read("manifest.json"))
-        _check(path, manifest, device=device)
+        _check(path, manifest, sources, device=device)
         ours = {mod._LIBRARY.path().name for mod in _kernel_modules()}
         blobs = []
         for lib in manifest["libraries"]:
             if lib["kind"] == "cuda" and lib["name"] not in ours:
                 raise ValueError(f"{path}: library {lib['name']} is not one this "
                                  "tree builds; re-export")
+            if lib["kind"] != "cuda" and not (lib["kind"] == "host"
+                                              and _HOST_LIBRARY_NAME.fullmatch(lib["name"])):
+                raise ValueError(f"{path}: {lib['kind']!r} library {lib['name']!r} is not "
+                                 "a library file this tree builds; re-export")
             data = zf.read(f"lib/{lib['name']}")
             if hashlib.sha256(data).hexdigest() != lib["sha256"]:
                 raise ValueError(f"{path}: library {lib['name']} does not match its "
@@ -424,18 +444,22 @@ def install_libraries(path: str, device=None) -> dict:
     return manifest
 
 
-def load_registration_exec(path: str, cfg=None, target=None, source=None, device=None):
+def load_registration_exec(path: str, cfg=None, target=None, source=None, device=None,
+                           installed=None):
     """Load a compiled artifact: validate its sidecar (as
     :func:`validate_artifact`), install its libraries
     (:func:`install_libraries`) and load them; returns the same
     ``runner(target, source, generator=None, draws=None)`` as
-    :func:`load_registration`, with nothing built.
+    :func:`load_registration`, with nothing built.  ``installed``: the
+    manifest :func:`install_libraries` returned for ``path`` in this
+    process, which skips the install.
 
     .. warning:: the artifact carries shared libraries, and loading it runs
        code from the file; see the module's trust-boundary warning."""
     _refuse_jax(path)
-    validate_artifact(path, cfg=cfg, target=target, source=source, device=device)
+    sources = source_hash()
+    _validate(path, sources, cfg=cfg, target=target, source=source, device=device)
     serving = _serving_device(target, device)
-    manifest = install_libraries(path, device=serving)
+    manifest = installed if installed is not None else _install(path, serving, sources)
     build_libraries(serving)
     return _runner(manifest, path)

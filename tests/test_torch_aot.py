@@ -183,14 +183,26 @@ def test_compiled_pins_and_checks(graphs, tmp_path, monkeypatch):
     def other_device(manifest, files):
         manifest["device"] = {"name": "NVIDIA H100 80GB HBM3", "capability": [9, 0]}
 
+    def renamed(name):
+        def edit(manifest, files):
+            lib = manifest["libraries"][0]
+            files[f"lib/{name}"] = files.pop(f"lib/{lib['name']}")
+            lib["name"] = name
+        edit.__name__ = "renamed_" + hashlib.sha256(name.encode()).hexdigest()[:8]
+        return edit
+
+    escapes = ["../escaped.so", str(tmp_path / "escaped.so"),
+               "libpyfocusr_host_0123.so", "libpyfocusr_host_0123456789abcdef.so.x"]
     for edit, match in ((corrupt, "sha256"), (foreign, "not one this tree builds"),
-                        (other_device, "compiled for device")):
+                        (other_device, "compiled for device"),
+                        *((renamed(n), "not a library file this tree builds")
+                          for n in escapes)):
         p = str(tmp_path / f"{edit.__name__}.ptexec")
         open(p, "wb").write(open(path, "rb").read())
         _rewrite(p, edit)
         with pytest.raises(ValueError, match=match):
             aot.install_libraries(p, device="cpu")
-        assert not build_dir.exists()
+        assert not build_dir.exists() and not (tmp_path / "escaped.so").exists()
 
     # A good artifact installs under its recorded name; a second install
     # keeps the file.
@@ -201,6 +213,11 @@ def test_compiled_pins_and_checks(graphs, tmp_path, monkeypatch):
     stat = installed.stat()
     aot.install_libraries(path, device="cpu")
     assert installed.stat().st_mtime_ns == stat.st_mtime_ns
+    # A loader given the manifest of that install does not install again.
+    monkeypatch.setattr(aot, "_install", lambda *a: pytest.fail("installed twice"))
+    runner = aot.load_registration_exec(path, cfg=cfg, target=tg, source=sg,
+                                        installed=manifest)
+    assert callable(runner)
 
 
 def test_header_checked_before_anything_is_opened(tmp_path, monkeypatch):
