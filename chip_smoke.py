@@ -96,7 +96,18 @@ after:
   served in this process and by fresh processes, with the libraries built,
   with an empty build directory (portable: nvcc and g++ run), and with an
   empty build directory and no compiler reachable (compiled: nothing may
-  be built); a changed config refused with exit 2.
+  be built); a changed config refused with exit 2;
+* the sharded paths (``sharded``, ``parallel/distributed.py`` over
+  ``torch.distributed``): the vertex-sharded refine at the multires
+  phase's 655362 fine level, ``register_cohort`` on the 8 x 10242 cohort,
+  ``register_all_pairs`` on four subjects (12 pairs) and
+  ``register_pair_multires(device_mesh=)`` at 163842, each against the
+  same call on one device, (a) over a world of one NCCL rank in this
+  process, (b) on four gloo ranks spawned on the one card (smaller sizes;
+  six pairs padded to eight) and (c) on one NCCL rank a card where more
+  than one card is visible (else a line says why not); lanes bit for bit
+  where two plain calls agree, the refines at ``tests/test_bigmesh.py``'s
+  gates; each rank's launches in the kernels line (``launches_sharded``).
 
 Every CPD EM loop and every ICP on the card runs as one captured iteration
 replayed as a CUDA graph, the host reading the stop flag every 8
@@ -2620,7 +2631,9 @@ def phase_multires(torch, tp, kernels, smi, device="cuda", levels=MULTIRES_LEVEL
     routes at ``route_levels`` (the refine's inputs and the source's points
     against the target's), and CUDA against CPU at ``check_levels`` with the
     same coarse draws.  The phase's line is printed before its gates are
-    read.  Returns the first call's launches."""
+    read.  Returns the first call's launches and the last call's refine
+    inputs (``_refine_fine_level``'s target, source, initial
+    correspondences and config)."""
     from pyfocusr_tpu_torch import multires
     from pyfocusr_tpu_torch.utils.checkpoint import StageCheckpointer
 
@@ -2675,6 +2688,7 @@ def phase_multires(torch, tp, kernels, smi, device="cuda", levels=MULTIRES_LEVEL
                     target, source, cfg, gen(), coarse_n=coarse_n, device=device)
             sync(torch, device)
             third = split.summary(time.perf_counter() - t0)
+            refine_args = split.refine_args
             routes = knn3_routes(torch, *split.knn3["inputs"])
             q = quality_and_checks(tp, target, source, fine, n_s, min_unique=None)
         finally:
@@ -2809,7 +2823,7 @@ def phase_multires(torch, tp, kernels, smi, device="cuda", levels=MULTIRES_LEVEL
         agreement_checks(cpu["coarse"], "multires coarse CUDA vs CPU")
     for ok, what in gates:
         check(ok, what)
-    return launches
+    return launches, refine_args
 
 
 def topology_equal(a, b) -> bool:
@@ -3175,11 +3189,17 @@ def phase_cohort(torch, tp, kernels, smi, deterministic, device="cuda", levels=5
     plain()
     _, plain_s = timed(torch, plain, device)
 
-    # Every lane against register_pair_prepared_source on its own draws.
-    prep = tp.prepare_source(template, cfg, draws["template_block"])
+    # Every lane against register_pair_prepared_source on its own draws and
+    # its own generator (``lane_generator``, as register_cohort gives it).
+    from pyfocusr_tpu_torch.parallel.cohort import lane_generator
+
+    prep = tp.prepare_source(template, cfg, draws["template_block"],
+                             generator=lane_generator({"template_block":
+                                                       draws["template_block"]}))
     lane_diffs = []
     for i, g in enumerate(graphs):
         one = tp.register_pair_prepared_source(prep, g, template, cfg,
+                                               generator=lane_generator(draws["pairs"][i]),
                                                draws=draws["pairs"][i])
         lane = {k: v[i] for k, v in res.items()}
         diff = outputs_differ(torch, one, lane)
@@ -3211,13 +3231,16 @@ def phase_cohort(torch, tp, kernels, smi, deterministic, device="cuda", levels=5
     p_draws = tp.make_cohort_draws(1, cfg, template, p_targets)
     (p_res, _), p_s = timed(torch, lambda: tp.register_cohort(
         template, p_targets, cfg, draws=p_draws), device)
-    p_prep = tp.prepare_source(template, cfg, p_draws["template_block"])
+    p_prep = tp.prepare_source(template, cfg, p_draws["template_block"],
+                               generator=lane_generator({"template_block":
+                                                         p_draws["template_block"]}))
     padded_vs_unpadded = []
     for i, (m, real) in enumerate(zip(p_meshes, reals)):
         if real == n_pad:
             continue
         alone = tp.register_pair_prepared_source(
             p_prep, tp.mesh_to_graph_arrays(m, device=device), template, cfg,
+            generator=lane_generator(p_draws["pairs"][i]),
             draws=unpadded_draws(p_draws["pairs"][i], real))
         lane = real_rows({k: v[i] for k, v in p_res.items()}, real, n_s)
         check(int(lane["correspondences"].max()) < real,
@@ -3865,6 +3888,336 @@ def phase_aot(torch, tp, kernels, smi, deterministic, device="cuda", levels=5,
     return out
 
 
+# --- The sharded paths (parallel/distributed.py): every device_mesh of the
+# JAX package, on torch.distributed.  Setup (a): a world of one NCCL rank in
+# this process; (b): SHARDED_GLOO_RANKS gloo ranks spawned on the one card
+# (times of ranks that share a card are correctness runs, not scale-out
+# figures); (c): one NCCL rank a card, where more than one is visible.
+SHARDED_MULTIRES_LEVELS = 7  # (a): register_pair_multires at 163842
+SHARDED_GLOO_RANKS = 4
+SHARDED_GLOO_REFINE_LEVELS = 7  # (b): the refine at 163842
+SHARDED_GLOO_MULTIRES_LEVELS = 6  # (b): register_pair_multires at 40962
+SHARDED_GLOO_SUBJECTS = 4  # (b): the cohort, one subject a rank
+SHARDED_GLOO_PAIR_SUBJECTS = 3  # (b): 6 pairs on 4 ranks, padded to 8
+# tests/test_bigmesh.py's gates of a sharded refine against one device.
+SHARDED_REFINE_AGREE_MIN = 0.99
+SHARDED_REFINE_RTOL = 2e-4
+SHARDED_REFINE_ATOL = 2e-5
+SHARDED_REFINE_KEYS = ("weighted_points", "average_points", "smoothed_target_coords",
+                       "source_projected_on_target")
+# The cohort mean: the all-reduced sum over the batch against the mean.
+SHARDED_MEAN_RTOL = 1e-6
+
+
+def kernel_modules():
+    """The kernel wrappers by name, each with its ``LAUNCHES`` count."""
+    from pyfocusr_tpu_torch.ops import (
+        cpd_estep_kernel,
+        jv_kernel,
+        knn_kernel,
+        knn_topk_kernel,
+        sinkhorn_kernel,
+        umeyama_kernel,
+    )
+
+    return {"knn": knn_kernel, "knn_topk": knn_topk_kernel, "lse_rows": sinkhorn_kernel,
+            "jv": jv_kernel, "cpd_estep": cpd_estep_kernel, "umeyama3": umeyama_kernel}
+
+
+def sharded_inputs(tp, subjects, pair_subjects, multires_levels, levels=5,
+                   cfg_kw=BENCH_CFG, cohort_cfg_kw=COHORT_CFG, coarse_n=MULTIRES_COARSE_N):
+    """The inputs of the sharded calls: the cohort phase's template and
+    jittered subjects, the groupwise phase's warped subjects (at
+    ``levels``), the multires pair at ``multires_levels``, and the
+    configurations."""
+    return {
+        "cfg": cfg_kw, "cohort_cfg": cohort_cfg_kw, "coarse_n": coarse_n,
+        "template": synthetic_bone(tp, 2, levels),
+        "subjects": jittered_cohort(tp, synthetic_bone(tp, 1, levels), subjects,
+                                    COHORT_JITTER_MM),
+        "pair_subjects": [warped_bone(tp, levels, a, ph)
+                          for a, ph in GROUPWISE_WARPS[:pair_subjects]],
+        "multires": (synthetic_bone(tp, 2, multires_levels),
+                     synthetic_bone(tp, 1, multires_levels)),
+    }
+
+
+def refine_inputs(torch, tp, levels, device="cuda", cfg_kw=BENCH_CFG,
+                  coarse_n=MULTIRES_COARSE_N):
+    """The inputs of ``_refine_fine_level`` in ``register_pair_multires`` of
+    the 'kd' pair at ``levels`` (target, source, initial correspondences,
+    config)."""
+    with MultiresSplit(torch, tp, device) as split:
+        tp.register_pair_multires(synthetic_bone(tp, 2, levels), synthetic_bone(tp, 1, levels),
+                                  tp.PipelineConfig(**cfg_kw),
+                                  torch.Generator(device=device).manual_seed(0),
+                                  coarse_n=coarse_n, device=device)
+    return split.refine_args[:4]
+
+
+def _to(x, device):
+    """A tensor or GraphArrays on ``device``; anything else as it is."""
+    return x.to(device) if hasattr(x, "to") else x
+
+
+def _cpu(x):
+    """Tensors of a nested result moved to the CPU."""
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cpu(v) for v in x)
+    return x.cpu() if hasattr(x, "cpu") else x
+
+
+def sharded_calls(torch, tp, kernels, inputs, refine_args, mesh_of, device):
+    """The sharded phase's four calls on ``device``: the refine
+    (``refine_fine_level_sharded``, or ``_refine_fine_level`` without a
+    mesh), ``register_cohort`` under the cohort configuration,
+    ``register_all_pairs`` and ``register_pair_multires`` under the bench
+    configuration, with ``mesh_of(axis)`` the device mesh of each ('verts',
+    'cohort', 'pairs'; None: one device).  The kernels' counts are set to 0
+    just before the calls and read just after.  Returns ({call: result on
+    the CPU}, {call: wall seconds}, launches)."""
+    from pyfocusr_tpu_torch import multires
+    from pyfocusr_tpu_torch.parallel import groupwise as G
+    from pyfocusr_tpu_torch.parallel.bigmesh import refine_fine_level_sharded
+
+    cfg = tp.PipelineConfig(**inputs["cfg"])
+    ccfg = tp.PipelineConfig(**inputs["cohort_cfg"])
+    meshes = {axis: mesh_of(axis) for axis in ("verts", "cohort", "pairs")}
+    template = tp.mesh_to_graph_arrays(inputs["template"], device=device)
+    targets = tp.stack_graph_arrays([tp.mesh_to_graph_arrays(m, device=device)
+                                     for m in inputs["subjects"]])
+    cohort_draws = tp.make_cohort_draws(0, ccfg, template, targets)
+    pair_graphs = tp.pad_cohort(inputs["pair_subjects"], device=device)
+    pair_draws = G.make_all_pairs_draws(1, cfg, pair_graphs)
+    tg, sg, init, fcfg = (_to(x, device) for x in refine_args)
+
+    def refine():
+        if meshes["verts"] is None:
+            return multires._refine_fine_level(tg, sg, init, fcfg)
+        return refine_fine_level_sharded(tg, sg, init, fcfg, meshes["verts"])
+
+    calls = {
+        "refine": refine,
+        "cohort": lambda: tp.register_cohort(template, targets, ccfg,
+                                             device_mesh=meshes["cohort"], draws=cohort_draws),
+        "all_pairs": lambda: G.register_all_pairs(pair_graphs, cfg, device_mesh=meshes["pairs"],
+                                                  draws=pair_draws),
+        "multires": lambda: tp.register_pair_multires(
+            *inputs["multires"], cfg, torch.Generator(device=device).manual_seed(0),
+            coarse_n=inputs["coarse_n"], device_mesh=meshes["verts"], device=device),
+    }
+    out, seconds = {}, {}
+    sync(torch, device)
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    for name, fn in calls.items():  # the sharded calls run here
+        res, seconds[name] = timed(torch, fn, device)
+        out[name] = _cpu(res)
+    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    return out, seconds, launches
+
+
+def sharded_rank(inputs, refine_args, device_type):
+    """One spawned rank of the sharded phase (``distributed.spawn``): the
+    four calls over one-axis meshes of every rank, on the rank's device."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import pyfocusr_tpu_torch as tp
+    from pyfocusr_tpu_torch.parallel.distributed import rank_device
+
+    def mesh_of(axis):
+        return init_device_mesh(device_type, (dist.get_world_size(),),
+                                mesh_dim_names=(axis,))
+
+    device = rank_device(mesh_of("verts"))
+    out, seconds, launches = sharded_calls(torch, tp, kernel_modules(), inputs, refine_args,
+                                           mesh_of, device)
+    return {"results": out, "seconds": seconds, "launches": launches,
+            "device": str(device), "backend": dist.get_backend()}
+
+
+def sharded_checks(torch, one, got, deterministic, what):
+    """Gates of one setup's results ``got`` against the one-device results
+    ``one`` (both on the CPU): the refine and multires fine level at
+    tests/test_bigmesh.py's gates (the multires coarse level bit for bit
+    where ``deterministic``); cohort and all-pairs lanes bit for bit where
+    ``deterministic``, else at the CUDA-vs-CPU gates; the cohort mean
+    within ``SHARDED_MEAN_RTOL`` of its largest coordinate (else median <=
+    1e-3 mm and mean <= 0.1 mm).  Returns what was compared."""
+    summary = {}
+
+    def refine_gates(a, b, name):
+        agree = float((a["correspondences"] == b["correspondences"]).float().mean())
+        diffs = {k: float((a[k] - b[k]).abs().max()) for k in SHARDED_REFINE_KEYS}
+        close = all(torch.allclose(b[k], a[k], rtol=SHARDED_REFINE_RTOL,
+                                   atol=SHARDED_REFINE_ATOL) for k in SHARDED_REFINE_KEYS)
+        check(agree >= SHARDED_REFINE_AGREE_MIN and close,
+              f"{what} {name}: agreement {agree}, max differences {diffs}")
+        check(list(a) == list(b) and all(a[k].shape == b[k].shape for k in a),
+              f"{what} {name}: keys or shapes differ")
+        return {"correspondence_agreement": agree, "max_abs_diff": diffs,
+                "bit_equal": not outputs_differ(torch, a, b)}
+
+    def lanes(a, b, name):
+        n = a["correspondences"].shape[0]
+        differ = [outputs_differ(torch, {k: v[i] for k, v in a.items()},
+                                 {k: v[i] for k, v in b.items()}) for i in range(n)]
+        if deterministic:
+            check(not any(differ), f"{what} {name}: lanes differ from one device: {differ}")
+        else:
+            for i in range(n):
+                agreement_checks(compare_runs({k: v[i] for k, v in b.items()},
+                                              {k: v[i] for k, v in a.items()}),
+                                 f"{what} {name} lane {i}")
+        return {"lanes": n, "lanes_bit_equal": sum(not d for d in differ)}
+
+    summary["refine"] = refine_gates(one["refine"], got["refine"], "refine")
+    (res1, mean1), (res2, mean2) = one["cohort"], got["cohort"]
+    summary["cohort"] = lanes(res1, res2, "cohort")
+    mean_diff = (mean1 - mean2).norm(dim=1)
+    if deterministic:
+        ok = float(mean_diff.max()) <= SHARDED_MEAN_RTOL * float(mean1.abs().max())
+    else:  # tests/test_torch_cohort.py's gates of a mean shape
+        ok = float(mean_diff.median()) <= 1e-3 and float(mean_diff.mean()) <= 0.1
+    check(ok, f"{what} cohort mean differs by up to {float(mean_diff.max())} mm")
+    summary["cohort"]["mean_max_diff_mm"] = float(mean_diff.max())
+    (corr1, index1, pairs1), (corr2, index2, pairs2) = one["all_pairs"], got["all_pairs"]
+    check(index1 == index2, f"{what} all-pairs pair order")
+    summary["all_pairs"] = lanes(pairs1, pairs2, "all-pairs")
+    summary["all_pairs"]["corr_equal"] = bool(np.array_equal(corr1, corr2))
+    check(summary["all_pairs"]["corr_equal"] or not deterministic,
+          f"{what} all-pairs correspondence arrays differ")
+    (fine1, coarse1), (fine2, coarse2) = one["multires"], got["multires"]
+    summary["multires"] = refine_gates(fine1, fine2, "multires")
+    summary["multires"]["coarse_bit_equal"] = not outputs_differ(torch, coarse1, coarse2)
+    check(summary["multires"]["coarse_bit_equal"] or not deterministic,
+          f"{what} multires coarse level differs")
+    return summary
+
+
+def phase_sharded(torch, tp, kernels, smi, deterministic, refine_args=None, device="cuda",
+                  levels=5, refine_levels=MULTIRES_LEVELS,
+                  multires_levels=SHARDED_MULTIRES_LEVELS,
+                  gloo_refine_levels=SHARDED_GLOO_REFINE_LEVELS,
+                  gloo_multires_levels=SHARDED_GLOO_MULTIRES_LEVELS, cfg_kw=BENCH_CFG,
+                  cohort_cfg_kw=COHORT_CFG, coarse_n=MULTIRES_COARSE_N):
+    """Every ``device_mesh`` path on the card, each against the same call on
+    one device in this process (``sharded_calls``, ``sharded_checks``):
+
+    (a) a world of one NCCL rank in this process: the refine at the
+        multires phase's fine level (``refine_args``; 655362), the cohort
+        of ``COHORT_SUBJECTS`` x 10242, all pairs of four subjects (12) and
+        multires at ``SHARDED_MULTIRES_LEVELS``;
+    (b) ``SHARDED_GLOO_RANKS`` gloo ranks sharing the card: the refine at
+        ``SHARDED_GLOO_REFINE_LEVELS``, a cohort of one subject a rank,
+        three subjects' six pairs (padded to eight), multires at
+        ``SHARDED_GLOO_MULTIRES_LEVELS``;
+    (c) one NCCL rank a card with (b)'s inputs, where more than one card is
+        visible; else a line says it was not run.
+
+    On the card each rank must launch the k-NN and close kernels.  Returns
+    the launch counts per setup, one list entry a rank.  Rehearsed on the
+    CPU with ``device="cpu"`` (gloo in place of NCCL), small levels and
+    configurations, as the cohort phase is."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from pyfocusr_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    dtype = torch.device(device).type
+    one_backend = "nccl" if dtype == "cuda" else "gloo"
+    kw = dict(levels=levels, cfg_kw=cfg_kw, cohort_cfg_kw=cohort_cfg_kw, coarse_n=coarse_n)
+    if refine_args is None:
+        refine_args = refine_inputs(torch, tp, refine_levels, device, cfg_kw, coarse_n)
+    launches = {}
+
+    def launched(counts, what):
+        check(dtype != "cuda" or (counts["knn"] > 0 and counts["umeyama3"] > 0),
+              f"{what} launched no k-NN or close kernel: {counts}")
+
+    # (a) One NCCL rank in this process.
+    inputs_a = sharded_inputs(tp, COHORT_SUBJECTS, len(GROUPWISE_WARPS), multires_levels,
+                              **kw)
+    one_a, one_a_s, _ = sharded_calls(torch, tp, kernels, inputs_a, refine_args,
+                                      lambda axis: None, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group(one_backend, rank=0, world_size=1,
+                                store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            init_s = time.perf_counter() - t0
+            got_a, got_a_s, launches_a = sharded_calls(
+                torch, tp, kernels, inputs_a, refine_args,
+                lambda axis: init_device_mesh(dtype, (1,), mesh_dim_names=(axis,)), device)
+        finally:
+            dist.destroy_process_group()
+    launched(launches_a, f"(a) the {one_backend} rank")
+    launches["nccl_one_rank"] = [launches_a]
+    summary_a = sharded_checks(torch, one_a, got_a, deterministic, "(a) NCCL world of one")
+    emit({"phase": "sharded_nccl_one_rank", "nvidia_smi": smi, "backend": one_backend,
+          "ranks": 1, "n_refine": refine_args[1].n_points,
+          "n_multires": inputs_a["multires"][1].n_points,
+          "cohort_subjects": len(inputs_a["subjects"]),
+          "pairs": len(got_a["all_pairs"][1]), "init_process_group_s": init_s,
+          "one_device_s": one_a_s, "sharded_s": got_a_s, "launches": launches_a,
+          "checks": summary_a})
+    del one_a, got_a, inputs_a
+
+    # (b) gloo ranks sharing the card; (c) one NCCL rank a card.
+    inputs_b = sharded_inputs(tp, SHARDED_GLOO_SUBJECTS, SHARDED_GLOO_PAIR_SUBJECTS,
+                              gloo_multires_levels, **kw)
+    refine_b = [_to(x, "cpu") for x in refine_inputs(torch, tp, gloo_refine_levels, device,
+                                                      cfg_kw, coarse_n)]
+    # The host's cores shared among the ranks (torch's default of one
+    # thread a core in each rank oversubscribes them); the one-device
+    # reference runs with as many, so host-side reductions sum alike.
+    threads, threads_before = max(1, (os.cpu_count() or 1) // SHARDED_GLOO_RANKS), \
+        torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        one_b, one_b_s, _ = sharded_calls(torch, tp, kernels, inputs_b, refine_b,
+                                          lambda axis: None, device)
+    finally:
+        torch.set_num_threads(threads_before)
+    n_cards = torch.cuda.device_count() if dtype == "cuda" else 0
+    setups = [("gloo_shared_card", "gloo", SHARDED_GLOO_RANKS)]
+    if n_cards > 1:
+        setups.append(("nccl_per_card", "nccl", n_cards))
+    else:
+        launches["nccl_per_card"] = None
+        emit({"phase": "sharded_nccl_per_card", "run": False,
+              "why": f"{n_cards} CUDA device visible: one NCCL rank a card needs two or more"})
+    for name, backend, n_ranks in setups:
+        t0 = time.perf_counter()
+        ranks = distributed.spawn(sharded_rank, n_ranks, backend, dtype,
+                                  args=(inputs_b, refine_b, dtype), threads=threads)
+        wall_s = time.perf_counter() - t0
+        for r, out in enumerate(ranks):
+            launched(out["launches"], f"({name}) rank {r}")
+        launches[name] = [out["launches"] for out in ranks]
+        summaries = [sharded_checks(torch, one_b, out["results"], deterministic,
+                                    f"({name}) rank {r}") for r, out in enumerate(ranks)]
+        emit({"phase": f"sharded_{name}", "nvidia_smi": smi, "backend": backend,
+              "ranks": n_ranks, "threads_per_rank": threads,
+              "devices": [out["device"] for out in ranks],
+              "label": ("correctness run: the ranks share one card, not a scale-out figure"
+                        if name == "gloo_shared_card" else "one rank a card"),
+              "n_refine": refine_b[1].n_points,
+              "n_multires": inputs_b["multires"][1].n_points,
+              "cohort_subjects": len(inputs_b["subjects"]),
+              "pairs": len(ranks[0]["results"]["all_pairs"][1]),
+              "spawn_and_run_wall_s": wall_s, "one_device_s": one_b_s,
+              "sharded_s_per_rank": [out["seconds"] for out in ranks],
+              "launches_per_rank": launches[name], "checks_rank0": summaries[0]})
+    emit({"phase": "sharded", "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main():
     import torch
 
@@ -3877,17 +4230,10 @@ def main():
     from pyfocusr_tpu_torch.ops import assignment as TA
     from pyfocusr_tpu_torch.ops import icp as icp_ops
     from pyfocusr_tpu_torch.ops import cpd as cpd_ops
-    from pyfocusr_tpu_torch.ops import (
-        cpd_estep_kernel,
-        jv_kernel,
-        knn_kernel,
-        knn_topk_kernel,
-        sinkhorn_kernel,
-        umeyama_kernel,
-    )
 
-    kernels = {"knn": knn_kernel, "knn_topk": knn_topk_kernel, "lse_rows": sinkhorn_kernel,
-               "jv": jv_kernel, "cpd_estep": cpd_estep_kernel, "umeyama3": umeyama_kernel}
+    kernels = kernel_modules()
+    knn_kernel, knn_topk_kernel, sinkhorn_kernel, jv_kernel, cpd_estep_kernel, \
+        umeyama_kernel = kernels.values()
     smi = nvidia_smi_line()
     cap = torch.cuda.get_device_capability(0)
     emit({
@@ -4122,7 +4468,7 @@ def main():
                                first_ms=FIRST_WIDE_ESTEP_KERNEL_MS)
     torch.cuda.empty_cache()
     phase_native(tp, smi)
-    mr_launches = phase_multires(torch, tp, kernels, smi)
+    mr_launches, mr_refine_args = phase_multires(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
     co_launches = phase_cohort(torch, tp, kernels, smi, deterministic)
     torch.cuda.empty_cache()
@@ -4131,6 +4477,9 @@ def main():
     cli_launches = phase_cli(torch, tp, kernels, smi, deterministic)
     torch.cuda.empty_cache()
     phase_aot(torch, tp, kernels, smi, deterministic)
+    torch.cuda.empty_cache()
+    sharded_launches = phase_sharded(torch, tp, kernels, smi, deterministic, mr_refine_args)
+    del mr_refine_args
     torch.cuda.empty_cache()
 
     knn_by_case = {r["case"]: r for r in knn_results}
@@ -4341,6 +4690,10 @@ def main():
     ]
     for entry in kernel_entries:  # every CLI invocation of the cli phase
         entry["launches_cli"] = cli_launches[entry["name"]]
+        # The sharded phase's runs, one count a rank of each setup.
+        entry["launches_sharded"] = {
+            setup: None if per_rank is None else [c[entry["name"]] for c in per_rank]
+            for setup, per_rank in sharded_launches.items()}
     emit({"kernels": kernel_entries})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,7 @@ Entry points:
   :class:`eigsort`, the cycpd-compatible :class:`affine_registration` and
   :class:`deformable_registration`, and :func:`linear_sum_assignment`;
 * cohort registration and the statistical shape model
-  (``pyfocusr_tpu/parallel/cohort.py``, on one card): :func:`pad_cohort`
+  (``pyfocusr_tpu/parallel/cohort.py``): :func:`pad_cohort`
   and :func:`stack_graph_arrays` (padded graphs, ``mesh_to_graph_arrays
   (pad_n_points=...)``), :func:`register_cohort` (the template's solve
   hoisted, one pair per subject), :func:`make_cohort_draws`,
@@ -55,8 +55,14 @@ Entry points:
   ``features_dictionary``;
 * the viewers (``Focusr.view_*`` / ``export_viewer_html`` and ``Graph``'s,
   over ``utils/viz.py`` and ``utils/html_viewer.py``), and groupwise
-  registration on one card in ``parallel/groupwise.py`` (not exported
-  here, as in the JAX package).
+  registration in ``parallel/groupwise.py`` (not exported here, as in the
+  JAX package);
+* every ``device_mesh`` of the JAX package, over ``torch.distributed``
+  (``parallel/distributed.py``: a ``DeviceMesh`` named with JAX's axis
+  names, one process a rank, ``spawn`` to start them): the vertex-sharded
+  fine refine of ``parallel/bigmesh.py`` (``register_pair_multires``), the
+  cohort over ``'cohort'`` and all-pairs over ``'pairs'``, and the CLI's
+  sharded commands.
 
 The host-side fast paths (topology, the decimator's MIS, ``lap_host``, the
 ASCII ``.vtk`` parse) run in C++ compiled with g++ at first use

@@ -17,9 +17,14 @@ What differs:
   named.  ``info`` and ``convert`` run on the host.
 * ``--seed s`` becomes ``torch.Generator().manual_seed(s)`` where JAX takes
   ``PRNGKey(s)``; the entry points draw from it (``pipeline.draw_seed``).
-* One card: where JAX shards over several devices (``register --multires``,
-  ``cohort``, ``ssm``), the port runs on one card and prints a note naming
-  ROADMAP Queue 1 item 9 when more are visible.
+* Several cards: where JAX shards over its devices (``register
+  --multires`` over 'verts', ``cohort`` and ``ssm`` over 'cohort' when the
+  device count divides the subjects), the port spawns one rank a visible
+  card over NCCL (``parallel/distributed.spawn``, the kernels built
+  first) when ``--device`` is the card, each running the command on a
+  one-axis ``DeviceMesh``; the first rank writes the files and prints the
+  JSON (``cohort``'s ``devices_used`` is the rank count, as JAX's).
+  ``--device cpu`` or ``cuda:N`` runs on that one device.
 * ``--aot`` / ``warmup --export`` write and serve ``utils/aot.py``'s
   artifacts: ``.ptexec`` selects the compiled format (the built libraries
   travel in the file: a fresh process builds nothing), any other extension
@@ -216,21 +221,54 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _one_card_note(device, n_items=None) -> None:
-    """Where JAX shards over every visible device, say once that the port
-    uses one card (``n_items``: the cohort size, which JAX shards only
-    when the devices divide it)."""
+def _shard_axis(args, device):
+    """The mesh axis JAX's CLI shards this command over, or None: with more
+    than one visible card and ``--device`` the card (no index), ``register
+    --multires`` over 'verts' (the fine refine; not with
+    ``--features-in-adjacency``, which says so), ``ssm`` and ``cohort``
+    over 'cohort' where the card count divides the subjects."""
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n_dev > 1 and (n_items is None or n_items % n_dev == 0):
-        print(
-            f"note: {n_dev} CUDA devices are visible; pyfocusr_tpu_torch runs "
-            f"on one card ({device}): multi-device runs are ROADMAP Queue 1 "
-            "item 9",
-            file=sys.stderr,
-        )
+    if n_dev < 2 or device.index is not None:
+        return None
+    if args.cmd == "register" and args.multires:
+        if args.features_in_adjacency:
+            # The sharded refine builds featureless smoothing weights; run
+            # the refine on one device instead.
+            print(
+                "note: --features-in-adjacency disables the multi-device "
+                "fine refine",
+                file=sys.stderr,
+            )
+            return None
+        return "verts"
+    if args.cmd in ("ssm", "cohort"):
+        n_items = len(args.meshes if args.cmd == "ssm" else args.subjects)
+        if n_items % n_dev == 0:
+            return "cohort"
+    return None
 
 
-def main(argv=None):
+def _rank_main(argv, axis: str, device_type: str) -> int:
+    """One rank of a sharded command (``parallel/distributed.spawn``): the
+    command on a one-axis mesh over every rank, on the rank's device.  Only
+    the mesh's first rank prints and writes the outputs."""
+    import contextlib
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from .parallel.distributed import is_first_rank, rank_device
+
+    mesh = init_device_mesh(device_type, (dist.get_world_size(),), mesh_dim_names=(axis,))
+    args = _parser().parse_args(argv)
+    if is_first_rank(mesh):
+        return _run(args, rank_device(mesh), mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+            contextlib.redirect_stderr(null):
+        return _run(args, rank_device(mesh), mesh)
+
+
+def _parser():
     parser = argparse.ArgumentParser(prog="pyfocusr-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -438,8 +476,11 @@ def main(argv=None):
     )
     p_conv.add_argument("input")
     p_conv.add_argument("output")
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
 
     from .mesh import load_mesh, save_mesh
 
@@ -491,11 +532,34 @@ def main(argv=None):
         )
         return 0
 
-    from . import pipeline
-    from .pipeline import PipelineConfig, mesh_to_graph_arrays, register_pair
-    from .utils.device import resolve_device, to_numpy
+    from .utils.device import resolve_device
 
     device = resolve_device(args.device)
+    axis = _shard_axis(args, device)
+    if axis is None:
+        return _run(args, device)
+    # One rank a card over NCCL; the kernels are built here first, so the
+    # ranks load them and do not race the first nvcc.
+    from .parallel.distributed import spawn
+    from .utils import aot
+
+    aot.build_libraries("cuda")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return spawn(_rank_main, torch.cuda.device_count(), "nccl", "cuda",
+                 args=(argv, axis, "cuda"))[0]
+
+
+def _run(args, device, device_mesh=None) -> int:
+    """The registering subcommands on ``device``; with ``device_mesh`` (one
+    rank of a sharded command) sharded as JAX's CLI shards, and only the
+    mesh's first rank writes the outputs."""
+    from . import pipeline
+    from .mesh import load_mesh, save_mesh
+    from .parallel.distributed import axis_size, is_first_rank
+    from .pipeline import PipelineConfig, mesh_to_graph_arrays, register_pair
+    from .utils.device import to_numpy
+
+    write = device_mesh is None or is_first_rank(device_mesh)
     cfg = PipelineConfig(
         icp_register_first=not args.no_icp,
         n_spectral_features=args.n_spectral_features,
@@ -781,11 +845,11 @@ def main(argv=None):
             if args.multires:
                 from .multires import register_pair_multires
 
-                _one_card_note(device)
                 try:
                     res, _ = register_pair_multires(
                         target, source, cfg, _generator(args.seed),
                         coarse_n=args.multires,
+                        device_mesh=device_mesh,
                         landmark_pairs=lm_pairs,
                         node_features=(
                             (feats_target, feats_source)
@@ -871,6 +935,8 @@ def main(argv=None):
                 )
             _sync(device)
             dt = time.perf_counter() - t0
+            if not write:
+                continue
             # int32, as JAX writes the file.
             corr = to_numpy(res["correspondences"]).astype(np.int32)
             stem = src_stem + "_" if multi else ""
@@ -945,7 +1011,8 @@ def main(argv=None):
                 q.pop("n_source_points")
                 summary["quality"] = q
             summaries.append(summary)
-        print(json.dumps(summaries[0] if not multi else summaries))
+        if write:
+            print(json.dumps(summaries[0] if not multi else summaries))
         return 0
 
     if args.cmd == "ssm":
@@ -953,14 +1020,16 @@ def main(argv=None):
 
         meshes = [load_mesh(p) for p in args.meshes]
         cfg = clamp_cohort_cfg(cfg, meshes)
-        _one_card_note(device, len(meshes))
         t0 = time.perf_counter()
         template_mesh, results, motions = build_ssm_template(
             meshes, cfg, _generator(args.seed),
             n_iterations=args.iterations,
             template_index=args.template_index,
+            device_mesh=device_mesh,
             device=device,
         )
+        if not write:
+            return 0
         # Rows are in TEMPLATE vertex order; rows past the template's real
         # vertex count are cohort padding.  Slice BEFORE the PCA so
         # ssm_modes.npz shapes match the exported ssm_template.vtk (which is
@@ -1074,13 +1143,14 @@ def main(argv=None):
         cfg = clamp_cohort_cfg(cfg, [template_mesh] + subject_meshes)
         template = mesh_to_graph_arrays(template_mesh, device=device)
         subjects = stack_graph_arrays(pad_cohort(subject_meshes, device=device))
-        _one_card_note(device, len(subject_meshes))
         t0 = time.perf_counter()
         results, mean_shape = register_cohort(
-            template, subjects, cfg, _generator(args.seed)
+            template, subjects, cfg, _generator(args.seed), device_mesh
         )
         _sync(device)
         dt = time.perf_counter() - t0
+        if not write:
+            return 0
         mean_mesh = template_mesh.with_points(mean_shape)
         save_mesh(os.path.join(args.out_dir, "mean_shape.vtk"), mean_mesh)
         # int32, as JAX writes the file.
@@ -1093,7 +1163,8 @@ def main(argv=None):
                 {
                     "seconds": round(dt, 3),
                     "n_subjects": len(subject_meshes),
-                    "devices_used": 1,
+                    "devices_used": (1 if device_mesh is None
+                                     else axis_size(device_mesh, "cohort")),
                     "unique_fraction_per_subject": [
                         round(len(np.unique(corr_all[b])) / corr_all.shape[1], 4)
                         for b in range(corr_all.shape[0])

@@ -29,7 +29,8 @@ remote worker).  PyTorch traces nothing, so there is one refine; its k=3
 query takes the grid where ``ops/knn.py`` routes it.  The stage
 checkpoints of the staged refine are kept: above
 ``PYFOCUSR_TPU_STAGED_REFINE_N`` vertices (default 600000) both smoothings
-are saved.
+are saved.  With a ``device_mesh`` the refine is the vertex-sharded one of
+``parallel/bigmesh.py`` (JAX :840-845), which saves no stage.
 """
 
 from __future__ import annotations
@@ -50,11 +51,11 @@ from .pipeline import (
     GraphArrays,
     PipelineConfig,
     _normed_points,
-    _not_ported,
     _smooth_fn,
     mesh_to_graph_arrays,
     register_pair,
 )
+from .parallel.distributed import is_first_rank, rank_device
 from .utils.checkpoint import StageCheckpointer
 from .utils.device import resolve_device
 from .utils.precision import f32_matmuls
@@ -405,11 +406,8 @@ def _run_fingerprint(target_mesh, source_mesh, cfg, generator, coarse_n, seed,
 
 def _check_inputs(target_mesh, source_mesh, cfg, node_features, device_mesh,
                   checkpoint_dir, draws):
-    """The JAX package's input checks (:593-643); returns the fine features
+    """The JAX package's input checks (:593-654); returns the fine features
     as f32 numpy (or Nones)."""
-    if device_mesh is not None:
-        raise _not_ported("register_pair_multires(device_mesh=...), the "
-                          "vertex-sharded refine of parallel/bigmesh", "9")
     if checkpoint_dir is not None and draws is not None:
         raise ValueError(
             "checkpoint_dir cannot be combined with a draws callable: the "
@@ -432,6 +430,12 @@ def _check_inputs(target_mesh, source_mesh, cfg, node_features, device_mesh,
             "feature-weighted configs need node_features=(target_feats, "
             "source_feats) — fine-resolution normalized [N, K] arrays; "
             "decimation aggregates them per cluster for the coarse level"
+        )
+    if device_mesh is not None and cfg.include_features_in_adj_matrix:
+        raise ValueError(
+            "include_features_in_adj_matrix is not supported with "
+            "device_mesh (the sharded fine refine builds featureless "
+            "smoothing weights); drop device_mesh or that option"
         )
     if node_features is None:
         return None, None
@@ -495,8 +499,16 @@ def register_pair_multires(target_mesh: TriMesh, source_mesh: TriMesh,
     ``load_results``, but a JAX run's fingerprint never matches a port
     run's, so a run does not resume from the other package's stages.
 
-    ``device``: where the registration runs, the CUDA card when None.
-    ``device_mesh`` (a sharded refine) is not ported and raises.
+    ``device_mesh``: a one-axis ``DeviceMesh`` (``parallel/distributed``)
+    over which the fine refine is vertex-sharded
+    (``parallel/bigmesh.refine_fine_level_sharded``; every level's refine
+    where intermediate levels run).  Every rank calls this function with
+    the same inputs, runs the coarse stage itself and returns the same
+    global results; with a checkpoint directory only the coarse stage is
+    saved, by the mesh's first rank.
+
+    ``device``: where the registration runs, the CUDA card when None (the
+    rank's device, ``distributed.rank_device``, with a mesh).
 
     Returns (fine results: the refine's seven keys at full resolution,
     coarse results: ``register_pair``'s dict, or the next level's fine
@@ -505,7 +517,8 @@ def register_pair_multires(target_mesh: TriMesh, source_mesh: TriMesh,
     feats_t, feats_s = _check_inputs(target_mesh, source_mesh, cfg,
                                      node_features, device_mesh,
                                      checkpoint_dir, draws)
-    device = resolve_device(device)
+    device = (rank_device(device_mesh) if device_mesh is not None and device is None
+              else resolve_device(device))
     if topologies is not None:
         topo_t, topo_s = topologies
     else:
@@ -524,7 +537,7 @@ def register_pair_multires(target_mesh: TriMesh, source_mesh: TriMesh,
             init_fine = saved.pop("__init_fine__")
             cs_n = int(saved.pop("__coarse_source_n__"))
             return _finish(target_mesh, source_mesh, cfg, init_fine, cs_n, saved,
-                           topo_t, topo_s, feats_t, feats_s, ckpt, device)
+                           topo_t, topo_s, feats_t, feats_s, ckpt, device, device_mesh)
 
     n_fine = max(target_mesh.n_points, source_mesh.n_points)
     if level_ratio and n_fine > level_ratio * max(coarse_n, 1):
@@ -545,7 +558,7 @@ def register_pair_multires(target_mesh: TriMesh, source_mesh: TriMesh,
                                         target_mesh, source_mesh)
             mid_res, _ = register_pair_multires(
                 mt_mesh, ms_mesh, cfg, generator, coarse_n=coarse_n, seed=seed,
-                landmark_pairs=mid_lm, node_features=mid_feats,
+                device_mesh=device_mesh, landmark_pairs=mid_lm, node_features=mid_feats,
                 checkpoint_dir=(None if checkpoint_dir is None else os.path.join(
                     checkpoint_dir, f"level_{mt_mesh.n_points}")),
                 level_ratio=level_ratio, draws=draws, device=device,
@@ -553,7 +566,7 @@ def register_pair_multires(target_mesh: TriMesh, source_mesh: TriMesh,
             init_fine = _prolong(mrep_t, mid_res["correspondences"], mmap_s, device)
             return _save_coarse_and_finish(
                 target_mesh, source_mesh, cfg, init_fine, ms_mesh.n_points,
-                mid_res, topo_t, topo_s, feats_t, feats_s, ckpt, device)
+                mid_res, topo_t, topo_s, feats_t, feats_s, ckpt, device, device_mesh)
         # Decimation stalled short of a useful level: one jump instead.
 
     ct_mesh, map_t, rep_t = decimate(target_mesh, coarse_n, seed, edges=topo_t.edges)
@@ -586,7 +599,7 @@ def register_pair_multires(target_mesh: TriMesh, source_mesh: TriMesh,
     init_fine = _prolong(rep_t, coarse_res["correspondences"], map_s, device)
     return _save_coarse_and_finish(
         target_mesh, source_mesh, cfg, init_fine, cs_mesh.n_points, coarse_res,
-        topo_t, topo_s, feats_t, feats_s, ckpt, device)
+        topo_t, topo_s, feats_t, feats_s, ckpt, device, device_mesh)
 
 
 def _prolong(rep_t, coarse_corr, map_s, device):
@@ -598,21 +611,22 @@ def _prolong(rep_t, coarse_corr, map_s, device):
 
 def _save_coarse_and_finish(target_mesh, source_mesh, cfg, init_fine, cs_n,
                             coarse_res, topo_t, topo_s, feats_t, feats_s, ckpt,
-                            device):
+                            device, device_mesh):
     """Save the "coarse" stage (the coarse dict, the prolonged initial
     correspondences and the coarse source size that sets the smoothing
-    budget), then run the fine half."""
-    if ckpt is not None:
+    budget; with a mesh, on its first rank), then run the fine half."""
+    if ckpt is not None and (device_mesh is None or is_first_rank(device_mesh)):
         ckpt.save("coarse", {**coarse_res, "__init_fine__": init_fine,
                              "__coarse_source_n__": np.int64(cs_n)})
     return _finish(target_mesh, source_mesh, cfg, init_fine, cs_n, coarse_res,
-                   topo_t, topo_s, feats_t, feats_s, ckpt, device)
+                   topo_t, topo_s, feats_t, feats_s, ckpt, device, device_mesh)
 
 
 def _finish(target_mesh, source_mesh, cfg, init_fine, cs_n, coarse_res, topo_t,
-            topo_s, feats_t, feats_s, ckpt, device):
+            topo_s, feats_t, feats_s, ckpt, device, device_mesh):
     """The fine half of :func:`register_pair_multires`, entered from the
-    coarse solve or from its checkpoint."""
+    coarse solve or from its checkpoint; with a mesh the refine is
+    vertex-sharded and saves no stage."""
     # The prolonged correspondences are constant over clusters of ~ratio
     # fine vertices, so the projection smoothing must diffuse far enough to
     # separate them: ~5 ratio iterations, capped at max(100, ratio); a
@@ -625,6 +639,12 @@ def _finish(target_mesh, source_mesh, cfg, init_fine, cs_n, coarse_res, topo_t,
                               device=device)
     sg = mesh_to_graph_arrays(source_mesh, topology=topo_s, node_features=feats_s,
                               device=device)
+    if device_mesh is not None:
+        from .parallel.bigmesh import refine_fine_level_sharded
+
+        fine_res = refine_fine_level_sharded(tg, sg, init_fine.to(device), fine_cfg,
+                                             device_mesh)
+        return fine_res, coarse_res
     staged = _STAGED_REFINE_N > 0 and max(tg.n_points, sg.n_points) >= _STAGED_REFINE_N
     fine_res = _refine_fine_level(tg, sg, init_fine.to(device), fine_cfg,
                                   ckpt=ckpt if staged else None)

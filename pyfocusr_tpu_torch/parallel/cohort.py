@@ -12,14 +12,22 @@ Counterpart of ``pyfocusr_tpu/parallel/cohort.py``: ``pad_cohort`` (:62),
 * randomness is an input, as everywhere in the port: where JAX takes a
   ``key``, these take a ``generator`` (a ``torch.Generator`` that seeds the
   draws) or explicit ``draws`` (:func:`make_cohort_draws`);
-* ``device_mesh`` must be None.  The JAX package shards the cohort axis
-  over chips with one ``psum`` for the mean; the port runs on one card, and
-  a mesh raises ``NotImplementedError`` naming ROADMAP Queue 1 item 9
-  (``torch.distributed``).
+* each lane (subject) draws its eigensolver refill noise from a generator
+  of its own, seeded from a hash of the lane's draws
+  (:func:`lane_generator`), as JAX splits its key per lane (:207): a
+  lane's result does not depend on the lanes run before it, nor on the
+  rank that runs it.
 
 JAX vmaps one ``register_pair`` program over the cohort axis
 (:108-118).  The port loops over the subjects on the device and stacks
-their results on a leading axis: the same values, lane by lane.  Functions
+their results on a leading axis: the same values, lane by lane.  With a
+``device_mesh`` (``parallel/distributed.py``: a ``DeviceMesh`` with a
+``'cohort'`` dimension) every rank calls the function with the same
+inputs, makes the whole cohort's draws, prepares the template itself and
+registers the contiguous block of subjects it owns on its device; the
+lanes are all-gathered and the mean is the all-reduced sum of the
+``weighted_points`` over the batch (:239-247), so every rank returns the
+global results.  Functions
 that build tensors from meshes or arrays take ``device`` (the CUDA card
 when None, see ``utils.device.resolve_device``); tensors are used where
 they lie.
@@ -28,6 +36,7 @@ they lie.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 from typing import List, Sequence
 
@@ -40,7 +49,6 @@ from ..ops.knn import nn_query
 from ..pipeline import (
     GraphArrays,
     PipelineConfig,
-    _not_ported,
     _start_width,
     draw_seed,
     make_draws,
@@ -50,8 +58,17 @@ from ..pipeline import (
     register_pair_prepared_source,
     source_spectrum_hoistable,
 )
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_numpy
 from ..utils.precision import full_f32
+from .distributed import (
+    axis_rank,
+    axis_size,
+    check_axis,
+    gather_results,
+    is_first_rank,
+    psum,
+    rank_device,
+)
 
 __all__ = [
     "stack_graph_arrays",
@@ -67,14 +84,28 @@ __all__ = [
     "fit_subject_to_ssm",
     "cohort_mean_shape",
     "all_pairs_surface_errors",
+    "lane_generator",
 ]
 
 
-def _check_no_mesh(device_mesh, what: str):
-    if device_mesh is not None:
-        raise _not_ported(
-            f"{what}(device_mesh=...), the cohort sharded over chips with "
-            "torch.distributed,", "9")
+# Bytes of each draw that seed a lane's generator: the leading rows of a
+# draw are as random as the rest, and hashing a 10242-row start block
+# whole took 7.5 ms a lane on the host.
+_LANE_SEED_BYTES = 1 << 16
+
+
+def lane_generator(draws) -> torch.Generator:
+    """The generator one lane of a many-pair call draws its eigensolver
+    refill noise from: a CPU generator seeded from a hash of the lane's own
+    draws (a mapping name -> array; each draw's name, dtype, shape and
+    first ``_LANE_SEED_BYTES`` bytes), so the same draws give the same
+    noise wherever and after whatever the lane runs."""
+    h = hashlib.sha256()
+    for name in sorted(draws):
+        a = np.ascontiguousarray(to_numpy(draws[name]))
+        h.update(f"{name}:{a.dtype.str}:{a.shape}".encode())
+        h.update(a.reshape(-1).view(np.uint8)[:_LANE_SEED_BYTES])
+    return torch.Generator().manual_seed(int.from_bytes(h.digest()[:8], "little") >> 1)
 
 
 def _device_of(*arrays, device=None) -> torch.device:
@@ -195,13 +226,29 @@ def register_cohort(template: GraphArrays, targets: GraphArrays,
     it where :func:`pipeline.source_spectrum_hoistable` allows, True
     forces it (raising where it does not), False solves per pair.
     ``draws``: from :func:`make_cohort_draws`; when None they are drawn
-    from ``generator`` (a fresh one seeded 0 when that is None too), which
-    also feeds each pair's eigensolver refill noise."""
-    _check_no_mesh(device_mesh, "register_cohort")
+    from ``generator`` (a fresh one seeded 0 when that is None too).  Each
+    lane's refill noise comes from :func:`lane_generator` of its draws, the
+    template's from that of ``draws["template_block"]``.
+
+    ``device_mesh``: shard the subjects over its ``'cohort'`` dimension
+    (the batch must be divisible by its size); every rank passes the same
+    arguments and gets the global results on its device."""
     batch = targets.points.shape[0]
     real_s, real_t = _real_counts(template, targets)
     check_cohort_config(min(min(real_t), real_s), cfg,
                         padded_size=max(template.n_points, targets.points.shape[1]))
+    lanes = range(batch)
+    if device_mesh is not None:
+        check_axis(device_mesh, "cohort", "register_cohort")
+        n_dev = axis_size(device_mesh, "cohort")
+        if batch % n_dev != 0:
+            raise ValueError(
+                f"cohort size {batch} must be divisible by device count {n_dev}"
+            )
+        per = batch // n_dev
+        lanes = range(axis_rank(device_mesh, "cohort") * per,
+                      (axis_rank(device_mesh, "cohort") + 1) * per)
+        template = template.to(rank_device(device_mesh))
     if draws is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -211,20 +258,27 @@ def register_cohort(template: GraphArrays, targets: GraphArrays,
             f"draws hold {len(draws['pairs'])} pairs for a cohort of {batch}")
     if prepared_template is None:
         prepared_template = source_spectrum_hoistable(cfg)
-    prep = (prepare_source(template, cfg, draws["template_block"], generator=generator)
+    prep = (prepare_source(template, cfg, draws["template_block"],
+                           generator=lane_generator({"template_block": draws["template_block"]}))
             if prepared_template else None)
     rows = []
-    for i in range(batch):
-        lane = _lane(targets, i)
+    for i in lanes:
+        lane = _lane(targets, i).to(template.device)
+        lane_draws = draws["pairs"][i]
         if prep is None:
-            rows.append(register_pair(lane, template, cfg, generator=generator,
-                                      draws=draws["pairs"][i]))
+            rows.append(register_pair(lane, template, cfg,
+                                      generator=lane_generator(lane_draws),
+                                      draws=lane_draws))
         else:
             rows.append(register_pair_prepared_source(
-                prep, lane, template, cfg, generator=generator,
-                draws=draws["pairs"][i]))
+                prep, lane, template, cfg, generator=lane_generator(lane_draws),
+                draws=lane_draws))
     results = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-    return results, results["weighted_points"].mean(dim=0)
+    if device_mesh is None:
+        return results, results["weighted_points"].mean(dim=0)
+    total = psum(results["weighted_points"].sum(dim=0), device_mesh, "cohort")
+    gathered = gather_results(results, device_mesh, "cohort")
+    return {k: gathered[k] for k in results}, total / batch
 
 
 def iterate_template(template: GraphArrays, targets: GraphArrays,
@@ -244,17 +298,21 @@ def iterate_template(template: GraphArrays, targets: GraphArrays,
     ``checkpoint_dir`` writes ``template_round_{round:03d}.npz`` (``points``,
     ``motion`` so far) after each round.  ``draws``: one
     :func:`make_cohort_draws` result per round; when None each round draws
-    from ``generator``.
+    from ``generator``.  ``device_mesh``: each round's
+    :func:`register_cohort` is sharded over it; every rank runs the rounds
+    on its device (the template moves there) and the mesh's first rank
+    writes the checkpoints.
 
     Returns ``(template, results of the last round, motions)``."""
-    _check_no_mesh(device_mesh, "iterate_template")
+    if device_mesh is not None:
+        template = template.to(rank_device(device_mesh))
     valid = template.valid_mask
     n_valid = torch.clamp(valid.sum(), min=1.0)
     motions: List[float] = []
     results = None
     for r in range(int(n_iterations)):
         results, mean_shape = register_cohort(
-            template, targets, cfg, generator=generator,
+            template, targets, cfg, generator=generator, device_mesh=device_mesh,
             draws=None if draws is None else draws[r])
         if procrustes:
             with full_f32():
@@ -266,7 +324,7 @@ def iterate_template(template: GraphArrays, targets: GraphArrays,
                        / n_valid)
         template = dataclasses.replace(template, points=new_pts)
         motions.append(motion)
-        if checkpoint_dir:
+        if checkpoint_dir and (device_mesh is None or is_first_rank(device_mesh)):
             os.makedirs(checkpoint_dir, exist_ok=True)
             np.savez(
                 os.path.join(checkpoint_dir, f"template_round_{len(motions):03d}.npz"),
@@ -286,14 +344,17 @@ def build_ssm_template(meshes: Sequence[TriMesh], cfg: PipelineConfig,
     stays a subject), run :func:`iterate_template`, and return
     ``(template_mesh, results, motions)``, ``template_mesh`` a
     :class:`TriMesh` on the seed subject's topology with the converged
-    geometry."""
-    _check_no_mesh(device_mesh, "build_ssm_template")
+    geometry.  ``device_mesh``: the rounds are sharded over its
+    ``'cohort'`` dimension, on each rank's device unless ``device`` is
+    given."""
+    if device_mesh is not None and device is None:
+        device = rank_device(device_mesh)
     meshes = list(meshes)
     graphs = pad_cohort(meshes, device=device)
     template, results, motions = iterate_template(
         graphs[template_index], stack_graph_arrays(graphs), cfg,
-        generator=generator, n_iterations=n_iterations, tolerance=tolerance,
-        procrustes=procrustes, draws=draws)
+        generator=generator, n_iterations=n_iterations, device_mesh=device_mesh,
+        tolerance=tolerance, procrustes=procrustes, draws=draws)
     n_real = meshes[template_index].n_points
     template_mesh = TriMesh(template.points[:n_real].cpu().numpy(),
                             meshes[template_index].triangles)

@@ -1,4 +1,4 @@
-"""Symmetric and groupwise (all-pairs) registration on one card.
+"""Symmetric and groupwise (all-pairs) registration.
 
 Counterpart of ``pyfocusr_tpu/parallel/groupwise.py``: ``_symmetrize``
 (:73), ``register_pair_symmetric`` (:106), ``register_all_pairs`` (:167),
@@ -11,13 +11,18 @@ with the JAX package's names and arguments save two, as in
   ``generator`` (a ``torch.Generator`` that seeds the draws) or explicit
   draws (:func:`make_symmetric_draws`, :func:`make_all_pairs_draws`,
   :func:`make_basis_blocks`);
-* ``device_mesh`` must be None.  A mesh, and JAX's padding of the pairs to
-  the device count (:227-245), raise ``NotImplementedError`` naming
-  ROADMAP Queue 1 item 9 (``torch.distributed``).
+* each registration (a pair, a direction) draws its eigensolver refill
+  noise from a generator of its own, ``cohort.lane_generator`` of its
+  draws, as JAX splits its key per pair (:147, :210).
 
 JAX vmaps the B(B-1) registrations of ``register_all_pairs`` (:208-215);
 the port loops over the pairs on the graphs' device and stacks their
-results on a leading axis, as ``register_cohort`` does.  The O(B^3)
+results on a leading axis, as ``register_cohort`` does.  With a
+``device_mesh`` (a ``DeviceMesh`` with a ``'pairs'`` dimension, its other
+dimensions replicating), the pairs are padded to a multiple of the
+``'pairs'`` size with replicas of pair 0, each rank registers its
+contiguous block on its device, the blocks are all-gathered along
+``'pairs'`` and the padding dropped (:217-248).  The O(B^3)
 gathers, the block ``eigh`` and the polar SVDs stay on the host in numpy,
 as JAX's do; the snaps (``nn_query``) and the k = 3 pulls
 (``idw_pull_k3``) run on the device the graphs or points lie on: on the
@@ -41,7 +46,6 @@ from ..pipeline import (
     GraphArrays,
     PipelineConfig,
     _n_real_vertices,
-    _not_ported,
     _solver,
     _spectrum,
     _tensor_to,
@@ -51,7 +55,16 @@ from ..pipeline import (
 )
 from ..utils.device import to_numpy
 from ..utils.precision import f32_matmuls
-from .cohort import _device_of, _f32, _lane, check_cohort_config, pad_cohort, stack_graph_arrays
+from .cohort import (
+    _device_of,
+    _f32,
+    _lane,
+    check_cohort_config,
+    lane_generator,
+    pad_cohort,
+    stack_graph_arrays,
+)
+from .distributed import axis_rank, axis_size, check_axis, gather_results, rank_device
 
 __all__ = [
     "register_pair_symmetric",
@@ -117,8 +130,9 @@ def register_pair_symmetric(target: GraphArrays, source: GraphArrays,
     """Register source -> target and target -> source, then fuse.
 
     ``draws``: from :func:`make_symmetric_draws`; when None they are drawn
-    from ``generator`` (a fresh one seeded 0 when that is None too), which
-    also feeds both registrations' eigensolver refill noise.
+    from ``generator`` (a fresh one seeded 0 when that is None too).  Each
+    direction's refill noise comes from ``cohort.lane_generator`` of its
+    draws.
 
     Returns a dict with the JAX package's keys: ``forward`` / ``backward``
     (the two ``register_pair`` results), ``sym_points`` f32 [Ns, 3] (the
@@ -129,11 +143,12 @@ def register_pair_symmetric(target: GraphArrays, source: GraphArrays,
     ``fb_consistency`` (mean |F - inv(G)| over real source vertices, mm)
     and ``cycle_error`` (mean |G(F_idx(i)) - x_i| over real source
     vertices, mm)."""
-    generator = _generator(generator)
     if draws is None:
-        draws = make_symmetric_draws(draw_seed(generator), cfg, target, source)
-    fwd = register_pair(target, source, cfg, generator=generator, draws=draws["forward"])
-    bwd = register_pair(source, target, cfg, generator=generator, draws=draws["backward"])
+        draws = make_symmetric_draws(draw_seed(_generator(generator)), cfg, target, source)
+    fwd = register_pair(target, source, cfg, generator=lane_generator(draws["forward"]),
+                        draws=draws["forward"])
+    bwd = register_pair(source, target, cfg, generator=lane_generator(draws["backward"]),
+                        draws=draws["backward"])
     sym_pts, sym_corr, fb = _symmetrize(
         fwd["weighted_points"], bwd["weighted_points"], source.points, target.points,
         source.valid_mask, target.valid_mask)
@@ -182,8 +197,14 @@ def register_all_pairs(meshes: Sequence[TriMesh] | Sequence[GraphArrays],
     (:func:`cohort.pad_cohort`, on ``device``: the card when None);
     graphs must share their shapes already.  ``draws``: from
     :func:`make_all_pairs_draws`; when None they are drawn from
-    ``generator`` (seeded 0 when None), which also feeds every pair's
-    eigensolver refill noise.
+    ``generator`` (seeded 0 when None).  Each pair's refill noise comes
+    from ``cohort.lane_generator`` of its draws.
+
+    ``device_mesh``: shard the pairs over its ``'pairs'`` dimension (a
+    ``ValueError`` without one); every rank passes the same arguments,
+    registers its block of the pairs (padded with replicas of pair 0 to a
+    multiple of the ``'pairs'`` size) on its device and returns the global
+    results.
 
     Returns ``(corr, pair_index, results)``: ``corr`` int64 numpy [B, B,
     N_pad] with ``corr[j, i, v]`` the vertex of mesh i corresponding to
@@ -191,8 +212,9 @@ def register_all_pairs(meshes: Sequence[TriMesh] | Sequence[GraphArrays],
     (target i, source j) of each pair in stacking order; ``results`` each
     ``register_pair`` key stacked over the pairs on axis 0."""
     if device_mesh is not None:
-        raise _not_ported("register_all_pairs(device_mesh=...), the pairs sharded "
-                          "over chips with torch.distributed,", "9")
+        check_axis(device_mesh, "pairs", "register_all_pairs")
+        if device is None:
+            device = rank_device(device_mesh)
     meshes = list(meshes)
     graphs = (pad_cohort(meshes, device=device) if meshes and isinstance(meshes[0], TriMesh)
               else meshes)
@@ -203,15 +225,31 @@ def register_all_pairs(meshes: Sequence[TriMesh] | Sequence[GraphArrays],
     n_pad = stacked.points.shape[1]
     check_cohort_config(min(_n_real_vertices(*graphs)), cfg, padded_size=n_pad)
     pair_index = _pair_index(batch)
-    generator = _generator(generator)
     if draws is None:
-        draws = make_all_pairs_draws(draw_seed(generator), cfg, graphs)
+        draws = make_all_pairs_draws(draw_seed(_generator(generator)), cfg, graphs)
     if len(draws) != len(pair_index):
         raise ValueError(f"draws hold {len(draws)} pairs; {batch} meshes make "
                          f"{len(pair_index)}")
-    rows = [register_pair(_lane(stacked, i), _lane(stacked, j), cfg, generator=generator,
-                          draws=d) for (i, j), d in zip(pair_index, draws)]
+    mine = range(len(pair_index))
+    if device_mesh is not None:
+        # Replicas of pair 0 fill the last block so every rank along
+        # 'pairs' registers as many pairs; dropped after the gather.
+        n_dev = axis_size(device_mesh, "pairs")
+        per = -(-len(pair_index) // n_dev)
+        rank = axis_rank(device_mesh, "pairs")
+        mine = [p if p < len(pair_index) else 0 for p in range(rank * per, (rank + 1) * per)]
+        stacked = stacked.to(rank_device(device_mesh))
+
+    def register(p):
+        (i, j), d = pair_index[p], draws[p]
+        return register_pair(_lane(stacked, i), _lane(stacked, j), cfg,
+                             generator=lane_generator(d), draws=d)
+
+    rows = [register(p) for p in mine]
     results = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    if device_mesh is not None:
+        gathered = gather_results(results, device_mesh, "pairs")
+        results = {k: gathered[k][:len(pair_index)] for k in results}
     corr = np.tile(np.arange(n_pad, dtype=np.int64), (batch, batch, 1))
     got = to_numpy(results["correspondences"])
     for p, (i, j) in enumerate(pair_index):

@@ -707,13 +707,6 @@ def _hungarian(ref_pts, query_pts):
     return sinkhorn_jv_lap(cost)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to pyfocusr_tpu_torch yet (ROADMAP Queue 1 "
-        f"item {item})"
-    )
-
-
 def _n_reg(cfg: PipelineConfig, target: GraphArrays, source: GraphArrays) -> int:
     """Size of the CPD control subsample."""
     return min(cfg.n_coords_spectral_registration, target.n_points,

@@ -659,15 +659,6 @@ def test_device_defaults_to_the_card(files, monkeypatch):
     assert _port_cli(["info", files["sphere"]])[0] == 0
 
 
-def test_one_card_note(monkeypatch, capsys):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    TCLI._one_card_note(torch.device("cuda"), 8)
-    TCLI._one_card_note(torch.device("cuda"), 6)  # 4 does not divide 6: JAX stays on one
-    TCLI._one_card_note(torch.device("cpu"))
-    err = capsys.readouterr().err
-    assert err.count("note:") == 1 and "item 9" in err
-
-
 def test_main_reexports_print_header(capsys):
     from pyfocusr_tpu_torch import main as TMAIN
 

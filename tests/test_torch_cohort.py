@@ -667,24 +667,6 @@ def test_cohort_and_padding_guards_match_jax(meshes, which):
     assert _message(tcall) == _message(jcall), name
 
 
-@pytest.mark.parametrize("call", ["register_cohort", "iterate_template",
-                                  "build_ssm_template"])
-def test_device_mesh_raises_naming_item_9(meshes, call):
-    tm, _ = meshes
-    tg = TP.pad_cohort(tm[1:], device="cpu")
-    stacked = TP.stack_graph_arrays(tg)
-    run = {
-        "register_cohort": lambda: TP.register_cohort(tg[0], stacked, TCFG,
-                                                      device_mesh=object()),
-        "iterate_template": lambda: TP.iterate_template(tg[0], stacked, TCFG,
-                                                        device_mesh=object()),
-        "build_ssm_template": lambda: TP.build_ssm_template(tm, TCFG, device_mesh=object(),
-                                                            device="cpu"),
-    }[call]
-    with pytest.raises(NotImplementedError, match=f"{call}.*item 9"):
-        run()
-
-
 def test_cohort_functions_take_jax_arguments():
     """Each public function of the JAX module has its counterpart, with
     JAX's parameters in JAX's order; ``key`` becomes ``generator`` and the

@@ -327,8 +327,6 @@ def test_make_all_pairs_draws(graphs):
     assert [b.shape for b in blocks] == [(642, N_BASIS + 8)] * 3  # the narrow solver
 
 
-def test_device_mesh_raises_naming_item_9(meshes):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TG.register_all_pairs(meshes[0], TCFG, device_mesh=object(), device="cpu")
+def test_all_pairs_needs_two_meshes(meshes):
     with pytest.raises(ValueError, match="at least two"):
         TG.register_all_pairs(meshes[0][:1], TCFG, device="cpu")

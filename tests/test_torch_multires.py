@@ -26,8 +26,8 @@ Gates:
 * checkpoints: a resume returns the first call's bits without re-solving
   or re-smoothing, a changed input recomputes, and stage files load in the
   other package's ``load_results``;
-* JAX's input errors, with JAX's messages; ``device_mesh`` raises
-  ``NotImplementedError`` naming ROADMAP item 9.
+* JAX's input errors, with JAX's messages (the sharded refine itself:
+  ``tests/test_torch_sharded.py``, ``tests/test_torch_bigmesh.py``).
 """
 
 import dataclasses
@@ -397,10 +397,20 @@ def test_input_errors_match_jax(bones, name):
 
 
 def test_device_mesh_and_draws_with_checkpoints_raise(bones, tmp_path):
+    """A mesh with ``include_features_in_adj_matrix`` raises JAX's error
+    before anything runs (any mesh object: the check reads the config)."""
     t, s = bones[3]
     cfg = TP.PipelineConfig()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TP.register_pair_multires(t, s, cfg, device_mesh=object(), device="cpu")
+    feats = tuple(np.ones((m.n_points, 1), np.float32) for m in (t, s))
+    fcfg = dataclasses.replace(cfg, include_features_in_adj_matrix=True)
+    with pytest.raises(ValueError) as want:
+        JMR.register_pair_multires(_jmesh(t), _jmesh(s), JP.PipelineConfig(
+            include_features_in_adj_matrix=True), jax.random.PRNGKey(0),
+            device_mesh=object(), node_features=feats)
+    with pytest.raises(ValueError) as got:
+        TP.register_pair_multires(t, s, fcfg, device_mesh=object(), node_features=feats,
+                                  device="cpu")
+    assert str(got.value) == str(want.value) and "device_mesh" in str(got.value)
     with pytest.raises(ValueError, match="draws callable"):
         TP.register_pair_multires(t, s, cfg, checkpoint_dir=str(tmp_path),
                                   draws=lambda *a: {}, device="cpu")

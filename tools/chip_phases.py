@@ -2,13 +2,17 @@
 """Chosen kernel phases of ``chip_smoke.py`` on one CUDA card, without the
 paths around them: a quick check of a kernel after a change.
 
-    python3 tools/chip_phases.py [topk] [estep_wide] [--sweep] [--topk-variant SPEC]...
+    python3 tools/chip_phases.py [topk] [estep_wide] [sharded] [--sweep] [--topk-variant SPEC]...
 
 ``topk`` runs ``phase_knn_topk`` (the k = 4..128 kernel against
 ``knn_plain``, bit for bit, and its times), ``estep_wide`` runs
 ``phase_cpd_estep`` on ``wide_estep_cases`` and ``wide_estep_edge_cases``
 (the E-step's D > 16 instance against ``cpd_estep_plain``); both by
-default.  ``--sweep`` also times both grids of the top-k kernel (1 and 4
+default.  ``sharded`` runs ``phase_sharded`` (every ``device_mesh`` path over
+``torch.distributed`` against one device: a world of one NCCL rank, gloo
+ranks sharing the card, one NCCL rank a card where several are visible),
+its lanes held bit for bit where two plain 'kd' pairs agree; it builds
+every library first and makes its own refine inputs at 655362 vertices.  ``--sweep`` also times both grids of the top-k kernel (1 and 4
 queries a warp; 4 only up to k = 32) and every split of the E-step's other
 cloud (both passes alike) at the timed shapes, each as one call from a CUDA
 graph of 20 (``chip_smoke.graph_ms``), so the planner's choice can be read
@@ -157,6 +161,19 @@ def main():
                            first_ms=cs.FIRST_WIDE_ESTEP_KERNEL_MS)
         if "--sweep" in sys.argv:
             cs.emit({"phase": "estep_split_sweep", "cases": sweep_estep(torch, EK)})
+    if "sharded" in phases:
+        from pyfocusr_tpu_torch.utils import aot
+
+        aot.build_libraries("cuda")
+        cfg = tp.PipelineConfig(**cs.BENCH_CFG)
+        tg = tp.mesh_to_graph_arrays(cs.synthetic_bone(tp, 2))
+        sg = tp.mesh_to_graph_arrays(cs.synthetic_bone(tp, 1))
+        draws = tp.make_draws(0, cfg, tg.n_points, sg.n_points)
+        a, b = (tp.register_pair(tg, sg, cfg, draws=draws) for _ in range(2))
+        deterministic = not cs.outputs_differ(torch, a, b)
+        cs.emit({"phase": "environment", "torch": torch.__version__, "cuda": torch.version.cuda,
+                 "device_count": torch.cuda.device_count(), "deterministic": deterministic})
+        cs.phase_sharded(torch, tp, cs.kernel_modules(), smi, deterministic)
     print(json.dumps({"nvidia_smi": smi}), flush=True)
     return 0
 
