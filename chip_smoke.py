@@ -127,6 +127,7 @@ script exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -1379,33 +1380,51 @@ def close_sweeps() -> int:
         return int(re.search(r"constexpr int kSweeps = (\d+);", f.read()).group(1))
 
 
+# (2^-53)^2: the close skips a rotation whose off-diagonal entry apq of
+# cov^T cov has apq^2 <= this |app aqq| (kNegligible2 in csrc/umeyama3.cu).
+CLOSE_NEGLIGIBLE2 = 2.0 ** -106
+
+
 def close_emulated(cov, var_s, mu_s, mu_d, with_scale, sweeps):
-    """The close kernel's steps in numpy float64 (``1 / sqrt`` for the card's
-    ``rsqrt``) with ``sweeps`` Jacobi sweeps: out f32 [13] = (s, R, t) and
-    the rotations that ran (those whose off-diagonal entry was not 0)."""
+    """The close kernel's steps (``close3`` in csrc/umeyama3.cu) in numpy
+    float64 (``1 / sqrt`` for the card's ``rsqrt``, no FMA contraction),
+    with at most ``sweeps`` Jacobi sweeps and the kernel's stop rule (a
+    rotation skipped where its entry is negligible, the sweeps ended by one
+    that rotated nothing): out f32 [13] = (s, R, t) and the rotations that
+    ran."""
     A = np.asarray(cov, np.float64).reshape(3, 3)
     S, V = A.T @ A, np.eye(3)
     rotations = 0
     for _ in range(sweeps):
+        ran = False
         for p, q in ((0, 1), (0, 2), (1, 2)):
             apq = S[p, q]
-            if apq == 0.0:
+            if apq == 0.0 or apq * apq <= CLOSE_NEGLIGIBLE2 * abs(S[p, p] * S[q, q]):
                 continue
             rotations += 1
+            ran = True
             r = 3 - p - q
-            theta = (S[q, q] - S[p, p]) / (2.0 * apq)
-            t = (0.5 / theta if abs(theta) > 1e150 else
-                 (1.0 if theta >= 0 else -1.0) / (abs(theta) + np.sqrt(theta * theta + 1.0)))
-            c = 1.0 / np.sqrt(t * t + 1.0)
-            sn = t * c
+            d = S[q, q] - S[p, p]
+            h = 2.0 * apq
+            hh = h * h
+            root = np.sqrt(d * d + hh)
+            ad = abs(d)
+            den = ad + root
+            g = 1.0 / np.sqrt(den * den + hh)
+            sg = 1.0 if d >= 0.0 else -1.0
+            c = den * g
+            sn = sg * h * g
+            tapq = sg * 0.5 * (root - ad)
             srp, srq = S[r, p], S[r, q]
-            S[p, p] -= t * apq
-            S[q, q] += t * apq
+            S[p, p] -= tapq
+            S[q, q] += tapq
             S[p, q] = S[q, p] = 0.0
             S[r, p] = S[p, r] = c * srp - sn * srq
             S[r, q] = S[q, r] = sn * srp + c * srq
             vp, vq = V[:, p].copy(), V[:, q].copy()
             V[:, p], V[:, q] = c * vp - sn * vq, sn * vp + c * vq
+        if not ran:
+            break
     lam = np.diag(S).copy()
     for a, b in ((0, 1), (0, 2), (1, 2)):
         if lam[a] < lam[b]:
@@ -1413,17 +1432,17 @@ def close_emulated(cov, var_s, mu_s, mu_d, with_scale, sweeps):
             V[:, [a, b]] = V[:, [b, a]]
     v1, v2 = V[:, 0], V[:, 1]
     b1, b2 = A @ v1, A @ v2
-    n1 = np.linalg.norm(b1)
-    u1 = b1 / n1 if n1 > 0 else v1
+    n1sq = b1 @ b1
+    u1 = b1 * (1.0 / np.sqrt(n1sq)) if n1sq > 0 else v1
     b2 = b2 - (u1 @ b2) * u1
-    n2 = np.linalg.norm(b2)
-    if n2 > 1e-300 and n2 > 1e-15 * n1:
-        u2 = b2 / n2
+    n2sq = b2 @ b2
+    if n2sq > 0 and n2sq > 1e-30 * n1sq:
+        u2 = b2 * (1.0 / np.sqrt(n2sq))
     else:
         e = np.zeros(3)
         e[int(np.argmin(np.abs(u1)))] = 1.0
         u2 = np.cross(u1, e)
-        u2 /= np.linalg.norm(u2)
+        u2 *= 1.0 / np.sqrt(u2 @ u2)
     R = np.outer(u1, v1) + np.outer(u2, v2) + np.outer(np.cross(u1, u2), np.cross(v1, v2))
     sc = float((R * A).sum()) / max(float(var_s), 1e-30) if with_scale else 1.0
     t = np.asarray(mu_d, np.float64) - sc * (R @ np.asarray(mu_s, np.float64))
@@ -1431,46 +1450,94 @@ def close_emulated(cov, var_s, mu_s, mu_d, with_scale, sweeps):
 
 
 def close_chain(moments, with_scale, kernel_out):
-    """What the close needs on these moments: the fewest Jacobi sweeps whose
-    rounded result (``close_emulated``) equals that of the kernel's sweeps,
-    the rotations they run, and whether the emulation gives the kernel's
-    bits."""
+    """What the close does on these moments: the rotations the kernel runs
+    (``close_emulated`` under its cap), the fewest sweeps whose rounded
+    result already equals the kernel's and the rotations they take, and
+    whether the emulation gives the kernel's bits."""
     args = [x.detach().cpu().numpy() for x in moments]
     kernel_sweeps = close_sweeps()
-    full, _ = close_emulated(*args, with_scale, kernel_sweeps)
+    full, rotations_run = close_emulated(*args, with_scale, kernel_sweeps)
     for sweeps in range(kernel_sweeps + 1):
         out, rotations = close_emulated(*args, with_scale, sweeps)
         if np.array_equal(out, full):
             break
-    return {"sweeps_needed": sweeps, "rotations": rotations,
+    return {"rotations_run": rotations_run, "sweeps_needed": sweeps, "rotations": rotations,
             "emulated_equals_kernel": bool(np.array_equal(
                 full, kernel_out.detach().cpu().numpy()))}
 
 
-def umeyama_bound(rotations: int):
-    """Least time of the close, in ms: one thread's chain of dependent f64
-    operations, each at its latency (F64_CLOCKS), for the rotations these
-    moments need (``close_chain``).  A rotation waits on two divisions, a
-    square root, a reciprocal square root and seven FMA-class steps (theta,
-    t, c, s, the update of the entries the next rotation reads); then the
-    sort, the two left singular vectors (two norms, three divisions), R, s
-    and t: about 25 FMA-class steps."""
+def umeyama_bound(rotations: int, with_scale: bool = False):
+    """Least time of the close, in ms: the longest path of dependent f64
+    operations in one thread, each at its latency (F64_CLOCKS), operations
+    that do not depend on each other side by side and a sum of many terms
+    as a tree, for the rotations these moments need (``close_chain``'s
+    ``rotations``: those of the fewest sweeps that give the kernel's
+    rounded result).  First cov^T cov (three FMA-class steps).  A rotation
+    waits on the entry the last one updated: h^2 and d^2 + h^2 (two), a
+    square root, |d| + r and (|d| + r)^2 + h^2 (two), a reciprocal square
+    root, c and s (one) and the entries the next rotation reads (two): a
+    square root, a reciprocal square root and seven FMA-class steps (its
+    negligibility test runs beside them).  Then the sort (three), B = cov V
+    (three), u1 (a squared norm of three, a reciprocal square root, one
+    product), u2 (the projection, three and one, its squared norm, three, a
+    reciprocal square root, one), u1 x u2 (two), R (three) and t (three):
+    twenty-nine FMA-class steps and two reciprocal square roots; with scale
+    t's last step (one) waits on the trace, nine products summed as a tree
+    (four), and a division: thirty-one and the division."""
     c = F64_CLOCKS
-    rotation = 2 * c["div"] + c["sqrt"] + c["rsqrt"] + 7 * c["fma"]
-    tail = 3 * c["div"] + 2 * c["sqrt"] + 25 * c["fma"]
+    rotation = c["sqrt"] + c["rsqrt"] + 7 * c["fma"]
+    tail = 2 * c["rsqrt"] + (31 * c["fma"] + c["div"] if with_scale else 29 * c["fma"])
     cycles = rotations * rotation + tail
     return {"bound_ms": cycles / SM_CLOCK_HZ * 1e3, "bound_by": "operations",
             "chain_clocks": cycles}
 
 
-def phase_umeyama(torch, icp_ops, UK, icp_call):
+def icp_step_emulated(target, idx, src, mask, wn, mu_s, var_s, state, ctrl, threshold,
+                      max_iterations, with_scale, sweeps=None):
+    """The ICP step kernel's arithmetic (``icp_step_kernel`` in
+    csrc/umeyama3.cu) in numpy on numpy inputs, the arguments of
+    ``umeyama_kernel.icp_step_plain``: ``state`` = (s, R, t, moved, delta)
+    and ``ctrl`` = (count, flag).  The one-pass f64 sums, ``close_emulated``
+    under the kernel's cap (or ``sweeps``), the moved rows in f64 rounded
+    once, the masked motion in f64 and the flag.  Returns (new state, new
+    ctrl, the close's rotations); on a set flag the state and ctrl as given,
+    and 0."""
+    s, R, t, moved, delta = (np.asarray(x, np.float32) for x in state)
+    count, done = (int(x) for x in ctrl)
+    if done:
+        return (s, R, t, moved, delta), (count, done), 0
+    f64 = np.float64
+    m = np.asarray(target, f64)[np.asarray(idx).reshape(-1)]
+    w = np.asarray(wn, f64)
+    x = np.asarray(src, f64)
+    ms = np.asarray(mu_s, f64)
+    sc = x - ms
+    wm = m * w[:, None]
+    mu_d = wm.sum(axis=0)
+    cov = wm.T @ sc - np.outer(mu_d, (sc * w[:, None]).sum(axis=0))
+    out, rotations = close_emulated(cov, float(var_s), ms, mu_d, with_scale,
+                                    close_sweeps() if sweeps is None else sweeps)
+    new_s, new_R, new_t = out[0], out[1:10].reshape(3, 3), out[10:13]
+    with np.errstate(over="ignore", invalid="ignore"):
+        new_moved = ((x @ new_R.astype(f64).T) * f64(new_s) + new_t.astype(f64)).astype(np.float32)
+        step = np.sqrt(((new_moved.astype(f64) - moved.astype(f64)) ** 2).sum(axis=1))
+        motion = np.where(np.asarray(mask) > 0, step * w, 0.0).sum()
+    new_delta = np.float32(motion)
+    count += 1
+    done = int(not (new_delta > np.float32(threshold)) or count >= max_iterations)
+    return (new_s, new_R, new_t, new_moved, new_delta), (count, done), rotations
+
+
+def phase_umeyama(torch, icp_ops, UK, icp_call, class_source=None):
     """The close kernel against ``umeyama_close_plain`` (``torch.linalg.svd``
     and ``det`` in f64 on the card, rounded once to f32) on the moments of
     CLOSE_CASES and of the 'kd' pair's first ICP iteration: R within
     CLOSE_R_ATOL, s within CLOSE_S_RTOL, t within CLOSE_T_OF_SCALE of the
-    coordinates' scale.  Times: the kernel's device time from a CUDA graph
-    of 20 calls, the plain close and ``torch.linalg.svd`` alone between CUDA
-    events; the bound from the sweeps each case needs (``close_chain``)."""
+    coordinates' scale, and ``close_emulated`` giving the kernel's bits.
+    Times: the kernel's device time from a CUDA graph of 20 calls, the plain
+    close and ``torch.linalg.svd`` alone between CUDA events; the bound from
+    the rotations these moments need (``close_chain``).  Then the ICP step
+    (``phase_icp_step``).  Returns (close results, step results)."""
     dev = "cuda"
     inputs = []
     for case in CLOSE_CASES:
@@ -1500,15 +1567,252 @@ def phase_umeyama(torch, icp_ops, UK, icp_call):
                    *moments, with_scale, out=out)),
                "plain_ms": cuda_ms(torch, lambda: UK.umeyama_close_plain(*moments, with_scale)),
                "svd_ms": cuda_ms(torch, lambda: torch.linalg.svd(moments[0])),
-               "sweeps": close_sweeps(), **chain, **umeyama_bound(chain["rotations"])}
+               "sweeps": close_sweeps(), **chain,
+               **umeyama_bound(chain["rotations"], with_scale)}
         check(errs["R"] <= CLOSE_R_ATOL and errs["s_rel"] <= CLOSE_S_RTOL
-              and errs["t_of_scale"] <= CLOSE_T_OF_SCALE,
-              f"Umeyama close kernel disagrees with its plain version: {res}")
+              and errs["t_of_scale"] <= CLOSE_T_OF_SCALE and chain["emulated_equals_kernel"],
+              f"Umeyama close kernel disagrees with its plain version or its emulation: {res}")
         results.append(res)
     emit({"phase": "umeyama_kernel_vs_plain", "cases": results,
           "tolerance": {"R": CLOSE_R_ATOL, "s_rel": CLOSE_S_RTOL, "t_of_scale": CLOSE_T_OF_SCALE},
           "svd_ms": "torch.linalg.svd of the 3x3 covariance alone (the plain close also "
                     "takes two det and the products)"})
+    return results, phase_icp_step(torch, icp_ops, UK, icp_call, class_source)
+
+
+# The ICP step kernel against its plain version (the same inputs): s, R, t
+# within the close's limits above (the step's close is the close kernel's on
+# f64 moments summed in another order: the f32 results differ at most at a
+# rounding boundary); the moved rows, which both compute in f64 from the
+# same rounded s, R, t and round once, within CLOSE_T_OF_SCALE of the
+# coordinates' scale; the mean motion, an f64 sum rounded once, within
+# STEP_DELTA_RTOL; the count and the flag equal.
+STEP_DELTA_RTOL = 1e-6
+# Sentinel rows of the sentinel case: target rows at the sentinel the k-NN
+# never matches, and source rows the mask drops, at 1e30 (their steps are
+# ~1e30 or inf and must add exactly 0).
+STEP_SENTINEL = 1e30
+
+
+def icp_step_inputs(torch, icp_ops, src, tgt, mask, with_scale, idx=None, ctrl=(0, 0)):
+    """The arguments of ``umeyama_kernel.icp_step`` for ICP's first
+    iteration of src [n, 3] onto tgt [M, 3] under ``mask`` [n]: ICP's start
+    (``icp._start``), the matches of ``knn_plain`` from the moved source
+    where ``idx`` is None, the state (1, I, t0, moved, inf), ``ctrl``,
+    max_iterations 100.  A dict of keyword arguments on src's device."""
+    from pyfocusr_tpu_torch.ops import knn_kernel
+
+    wn, mu_s, var_s, threshold, t0, moved = icp_ops._start(src, tgt, mask)
+    if idx is None:
+        idx = knn_kernel.knn_plain(tgt, moved.contiguous(), 1)[1]
+    dev = src.device
+    state = (torch.ones((), device=dev), torch.eye(3, device=dev), t0.clone(),
+             moved.contiguous(), torch.tensor(float("inf"), device=dev))
+    return dict(target=tgt.contiguous(), idx=idx.to(torch.int32).reshape(-1, 1).contiguous(),
+                src=src.contiguous(), mask=mask.contiguous(), wn=wn, mu_s=mu_s, var_s=var_s,
+                state=state, ctrl=torch.tensor(ctrl, dtype=torch.int32, device=dev),
+                threshold=threshold, max_iterations=100, with_scale=with_scale)
+
+
+def icp_step_case_inputs(torch, icp_ops, icp_call, class_source=None, device="cuda"):
+    """(name, arguments) of the step cases: each of CLOSE_CASES (its dst as
+    the target, rows matched to themselves, its weights as the mask), the
+    'kd' pair's first ICP iteration rigid and similarity, the same with the
+    flag already set (count 3), a sentinel case (64 target rows at
+    STEP_SENTINEL, a tenth of the source rows at it and dropped by the
+    mask) and, where ``class_source`` is given, all its rows against the
+    target (the class defaults' ICP shape)."""
+    cases = []
+    for case in CLOSE_CASES:
+        src, dst, w = (torch.tensor(x, device=device) for x in close_case_points(case))
+        idx = torch.arange(src.shape[0], device=device)
+        cases.append((case[0], icp_step_inputs(torch, icp_ops, src, dst, w, case[3], idx=idx)))
+    (src, tgt), _ = icp_call
+    src, tgt = src.to(device), tgt.to(device)
+    ones = torch.ones(src.shape[0], device=device)
+    for with_scale in (False, True):
+        cases.append((f"kd_first_iteration_scale_{with_scale}",
+                      icp_step_inputs(torch, icp_ops, src, tgt, ones, with_scale)))
+    cases.append(("flag_set", icp_step_inputs(torch, icp_ops, src, tgt, ones, False,
+                                              ctrl=(3, 1))))
+    rng = np.random.default_rng(7)
+    drop = torch.tensor(rng.choice(src.shape[0], src.shape[0] // 10, replace=False),
+                        device=device)
+    s_src, s_mask = src.clone(), ones.clone()
+    s_src[drop] = STEP_SENTINEL
+    s_mask[drop] = 0.0
+    s_tgt = torch.cat([tgt, torch.full((64, 3), STEP_SENTINEL, device=device)])
+    cases.append(("sentinel_rows", icp_step_inputs(torch, icp_ops, s_src, s_tgt, s_mask, False)))
+    if class_source is not None:
+        cs_src = class_source.to(device)
+        cases.append(("class_defaults_all_points", icp_step_inputs(
+            torch, icp_ops, cs_src, tgt, torch.ones(cs_src.shape[0], device=device), False)))
+    return cases
+
+
+def clone_step_args(a):
+    """The step's arguments with fresh copies of the state and ctrl."""
+    return dict(a, state=tuple(x.clone() for x in a["state"]), ctrl=a["ctrl"].clone())
+
+
+def step_errors(got, want, ctrl_got, ctrl_want, scale):
+    """The step's outputs against another's: s relative, R absolute, t over
+    ``scale``, moved over the larger of ``scale`` and its own magnitude (rows
+    the mask drops may sit at the sentinel), delta relative, and whether
+    count and flag are equal."""
+    (gs, gR, gt, gm, gd), (ws, wR, wt, wm, wd) = (
+        [np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x, np.float64)
+         for x in xs] for xs in (got, want))
+    rel = lambda a, b: float(abs(a - b) / max(abs(b), 1e-30)) if np.isfinite(b) else (
+        0.0 if a == b else float("inf"))
+    return {"s_rel": rel(float(gs), float(ws)), "R": float(np.abs(gR - wR).max()),
+            "t_of_scale": float(np.abs(gt - wt).max()) / scale,
+            "moved_of_scale": float((np.abs(gm - wm) / np.maximum(scale, np.abs(wm))).max()),
+            "delta_rel": rel(float(gd), float(wd)),
+            "ctrl_equal": [int(x) for x in ctrl_got] == [int(x) for x in ctrl_want]}
+
+
+def step_within(errs):
+    return (errs["R"] <= CLOSE_R_ATOL and errs["s_rel"] <= CLOSE_S_RTOL
+            and errs["t_of_scale"] <= CLOSE_T_OF_SCALE
+            and errs["moved_of_scale"] <= CLOSE_T_OF_SCALE
+            and errs["delta_rel"] <= STEP_DELTA_RTOL and errs["ctrl_equal"])
+
+
+def step_emulation(a, sweeps=None):
+    """``icp_step_emulated`` on a case's arguments (moved to the host)."""
+    host = lambda x: x.detach().cpu().numpy()
+    return icp_step_emulated(
+        host(a["target"]), host(a["idx"]), host(a["src"]), host(a["mask"]), host(a["wn"]),
+        host(a["mu_s"]), float(a["var_s"]), [host(x) for x in a["state"]],
+        host(a["ctrl"]), float(a["threshold"]), a["max_iterations"], a["with_scale"], sweeps)
+
+
+def step_rotations_needed(a, full):
+    """The rotations of the fewest sweeps whose emulated step equals
+    ``full`` (``step_emulation`` under the kernel's cap) in every output."""
+    for sweeps in range(close_sweeps() + 1):
+        state, ctrl, rotations = step_emulation(a, sweeps)
+        if tuple(ctrl) == tuple(full[1]) and all(
+                np.array_equal(x, y, equal_nan=True) for x, y in zip(state, full[0])):
+            return rotations
+    return full[2]
+
+
+def step_bound(rotations, with_scale, n):
+    """The step's least time: the close's chain (``umeyama_bound``, for the
+    rotations of ``step_rotations_needed``) plus the
+    bytes it must move once over HBM_BYTES_PER_S: per row its index (4),
+    its matched target row (12), its source row (12), mask and weight (8),
+    the moved row read and written (24)."""
+    chain = umeyama_bound(rotations, with_scale)
+    bytes_ms = 60 * n / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": chain["bound_ms"] + bytes_ms, "bound_by": "operations",
+            "chain_ms": chain["bound_ms"], "bytes_ms": bytes_ms,
+            "chain_clocks": chain["chain_clocks"]}
+
+
+def replaced_step_sequence(torch, icp_ops, UK, a):
+    """The torch sequence an ICP iteration ran after its k-NN before the step
+    kernel (the parent's ``ops/icp.py`` iterate and masked step less the
+    k-NN): the gather, ``_cross_moments`` in f32, the close kernel,
+    ``apply_rigid``, the masked motion, five where / copy pairs and the
+    count and flag updates, on the case's state.  Returns a function that
+    runs it once (capturable)."""
+    s, R, t, moved, delta = a["state"]
+    ctrl, src, wn, mask = a["ctrl"], a["src"], a["wn"], a["mask"]
+    sc = src - a["mu_s"]
+    close_out = torch.empty(13, device=src.device)
+    state = a["state"]
+
+    def run():
+        done = ctrl[1] != 0
+        matched = a["target"].index_select(0, a["idx"][:, 0])
+        cov, mu_d = icp_ops._cross_moments(matched, wn, sc)
+        ns, nR, nt = UK.umeyama_close_cuda(cov, a["var_s"], a["mu_s"], mu_d, a["with_scale"],
+                                           out=close_out)
+        new_moved = icp_ops.apply_rigid(src, ns, nR, nt)
+        step = torch.linalg.norm(new_moved - moved, dim=1)
+        d = (torch.where(mask > 0, step, torch.zeros_like(step)) * wn).sum()
+        for old, new in zip(state, (ns, nR, nt, new_moved, d)):
+            old.copy_(torch.where(done, old, new))
+        ctrl[:1].add_((~done).to(torch.int32))
+        ctrl[1:].copy_(((~(delta > a["threshold"])) | (ctrl[0] >= a["max_iterations"]))
+                       .to(torch.int32).reshape(1))
+    return run
+
+
+def phase_icp_step(torch, icp_ops, UK, icp_call, class_source=None):
+    """``icp_step_cuda`` against ``icp_step_plain`` on the card, the same
+    inputs, in every case of ``icp_step_case_inputs``, within the limits
+    above (the set flag: every state buffer and ctrl bit for bit as given);
+    ``icp_step_emulated`` against the kernel likewise.  Times, where the
+    flag is clear: the step's device time from a CUDA graph of 20 calls
+    (threshold -1, so the flag stays clear) beside the torch sequence it
+    replaced (``replaced_step_sequence``, also from a graph), the plain step
+    between CUDA events, and the bound (``step_bound``); the cluster the
+    plan took.  The class-defaults case also runs at every cluster size
+    (1-16 CTAs, the plan forced), each held to the plain step."""
+    results = []
+    for name, a in icp_step_case_inputs(torch, icp_ops, icp_call, class_source):
+        k, p = clone_step_args(a), clone_step_args(a)
+        UK.icp_step_cuda(**k)
+        UK.icp_step_plain(**p)
+        torch.cuda.synchronize()
+        n = a["src"].shape[0]
+        scale = float(a["target"][a["target"].abs().max(dim=1).values < 1e29].abs().max())
+        errs = step_errors(k["state"], p["state"], k["ctrl"].tolist(), p["ctrl"].tolist(), scale)
+        emulated = step_emulation(a)
+        (es, eR, et, em, ed), ectrl, rotations = emulated
+        emu = step_errors(k["state"], (es, eR, et, em, ed), k["ctrl"].tolist(), ectrl, scale)
+        res = {"case": name, "n_source": n, "n_target": int(a["target"].shape[0]),
+               "with_scale": a["with_scale"], "ctas": UK.plan(n)["ctas"],
+               "err_vs_plain": errs, "err_vs_emulation": emu,
+               "emulated_close_equals_kernel": bool(
+                   np.array_equal(es, k["state"][0].cpu().numpy())
+                   and np.array_equal(eR, k["state"][1].cpu().numpy())
+                   and np.array_equal(et, k["state"][2].cpu().numpy())),
+               "rotations_run": rotations, "ctrl": k["ctrl"].tolist()}
+        if name == "flag_set":
+            unchanged = all(torch.equal(x, y) for x, y in zip(k["state"] + (k["ctrl"],),
+                                                               a["state"] + (a["ctrl"],)))
+            plain_unchanged = all(torch.equal(x, y) for x, y in zip(
+                p["state"] + (p["ctrl"],), a["state"] + (a["ctrl"],)))
+            res["unchanged"] = {"kernel": unchanged, "plain": plain_unchanged}
+            check(unchanged and plain_unchanged, f"the step wrote on a set flag: {res}")
+        else:
+            check(step_within(errs) and step_within(emu),
+                  f"ICP step kernel disagrees with its plain version or its emulation: {res}")
+            needed = step_rotations_needed(a, emulated)
+            timed = clone_step_args(a)
+            timed.update(threshold=torch.tensor(-1.0, device="cuda"), max_iterations=2 ** 30)
+            old = clone_step_args(timed)
+            if name == "class_defaults_all_points":  # every cluster size
+                res["within_by_ctas"] = {}
+                real_plan = UK.plan
+                try:
+                    for ctas in (1, 2, 4, 8, UK.MAX_CTAS):
+                        UK.plan = lambda n, c=ctas: {**real_plan(n), "ctas": c}
+                        kc = clone_step_args(a)
+                        UK.icp_step_cuda(**kc)
+                        res["within_by_ctas"][ctas] = step_within(step_errors(
+                            kc["state"], p["state"], kc["ctrl"].tolist(), p["ctrl"].tolist(),
+                            scale))
+                finally:
+                    UK.plan = real_plan
+                check(all(res["within_by_ctas"].values()),
+                      f"the ICP step disagrees with its plain version at some cluster size: {res}")
+            res.update(kernel_ms=graph_ms(torch, lambda: UK.icp_step_cuda(**timed)),
+                       replaced_sequence_ms=graph_ms(
+                           torch, replaced_step_sequence(torch, icp_ops, UK, old)),
+                       plain_ms=cuda_ms(torch, lambda: UK.icp_step_plain(**clone_step_args(a))),
+                       rotations_needed=needed, **step_bound(needed, a["with_scale"], n))
+        results.append(res)
+    emit({"phase": "icp_step_kernel_vs_plain", "cases": results,
+          "tolerance": {"R": CLOSE_R_ATOL, "s_rel": CLOSE_S_RTOL, "t_of_scale": CLOSE_T_OF_SCALE,
+                        "moved_of_scale": CLOSE_T_OF_SCALE, "delta_rel": STEP_DELTA_RTOL},
+          "replaced_sequence_ms": "the parent's torch work after the k-NN of one ICP "
+                                  "iteration, the close kernel included, from a CUDA graph"})
     return results
 
 
@@ -1553,7 +1857,9 @@ def phase_icp_loop(torch, icp_ops, KK, UK, icp_call):
     its capture; its device time as the sum of the kernels in a
     ``torch.profiler`` trace of one more run (a lower bound: gaps between a
     graph's kernels are not in it) and as the span between CUDA events
-    around another run less its capture; the plain loop's host time."""
+    around another run less its capture; the plain loop's host time.  The
+    trace's kernels by name: each replay runs the k-NN and the step and
+    nothing else (no other device work as often as there are replays)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1578,8 +1884,10 @@ def phase_icp_loop(torch, icp_ops, KK, UK, icp_call):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        device_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                        if e.device_type == DeviceType.CUDA)
+        cuda_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        device_us = sum(e.time_range.elapsed_us() for e in cuda_events)
+        names = collections.Counter(e.name for e in cuda_events)
+        loop_names = [n for n in names if "knn_kernel" in n or "icp_step_kernel" in n]
         _, span_ms = cuda_ms_once(torch, run)
         span_ms -= icp_ops.ICP_STATS["capture_ms"]  # the card waits while the host captures
         stats, wall_s, (knn_n, close_n) = out["blocked"][3], out["blocked"][1], out["blocked"][2]
@@ -1593,7 +1901,14 @@ def phase_icp_loop(torch, icp_ops, KK, UK, icp_call):
              "plain_host_ms_per_iteration": out["plain"][1] * 1e3 / max(pit, 1),
              "replay_ms_per_replay": stats["replay_ms"] / max(stats["replays"], 1),
              "knn_launches": knn_n, "close_launches": close_n,
-             "plain_knn_launches": out["plain"][2][0], **stats}
+             "plain_knn_launches": out["plain"][2][0],
+             # Device work of the profiled blocked run by name: the loop's
+             # two kernels, and the most any other ran (the start's
+             # operations and copies, a few each).
+             "loop_kernels": {n: names[n] for n in loop_names},
+             "most_other_kernel": max(((n, c) for n, c in names.items() if n not in loop_names),
+                                      key=lambda nc: nc[1], default=(None, 0)),
+             **stats}
         results.append(r)
         check(all(equal.values()), f"graph ICP loop differs from the plain loop: {r}")
         check(stats["graph"] and stats["host_reads"] <= -(-bit // K) + 1,
@@ -1601,6 +1916,13 @@ def phase_icp_loop(torch, icp_ops, KK, UK, icp_call):
         check(bit <= knn_n < bit + K and bit <= close_n < bit + K
               and out["plain"][2] == (pit, pit),
               f"ICP launches outside [{bit}, {bit} + {K}): {r}")
+        # Each replay runs the k-NN and the step only: each of the two ran at
+        # least once a replay, and no other device work as often (read where
+        # the replays, 2 K or more, outnumber the start's few launches).
+        replays = stats["replays"]
+        check(len(loop_names) == 2 and min(names[n] for n in loop_names) >= replays
+              and (replays < 2 * K or r["most_other_kernel"][1] < replays),
+              f"the captured ICP iteration holds more than the k-NN and the step: {r}")
     emit({"phase": "icp_loop_graph_vs_plain", "block": K, "cases": results})
     return results
 
@@ -4303,7 +4625,9 @@ def main():
         "launches": kd_launches, "icp": kd_icp,
         "peak_device_bytes": peak, "quality": q_gpu,
     })
-    umeyama_results = phase_umeyama(torch, icp_ops, umeyama_kernel, icp_rec.last_call)
+    umeyama_results, step_results = phase_umeyama(
+        torch, icp_ops, umeyama_kernel, icp_rec.last_call,
+        class_source=torch.tensor(source_mesh.points, device="cuda"))
     icp_results = phase_icp_loop(torch, icp_ops, knn_kernel, umeyama_kernel,
                                  icp_rec.last_call)
 
@@ -4485,6 +4809,9 @@ def main():
     knn_by_case = {r["case"]: r for r in knn_results}
     knn_main, knn_icp = knn_by_case["xyz_k1"], knn_by_case["icp_k1"]
     close_main = umeyama_results[-2]  # the 'kd' pair's first ICP moments, rigid
+    step_by_case = {r["case"]: r for r in step_results}
+    step_main = step_by_case["kd_first_iteration_scale_False"]
+    step_class = step_by_case["class_defaults_all_points"]
     # The main path's shapes: the row pass at the last temperature, and the
     # Sinkhorn-started augmentation, both on the 10242 cost.
     lse_main = next(r for r in lse_results if r["n"] == n_s and r["level"] == 13
@@ -4671,21 +4998,40 @@ def main():
             "launches_multires": mr_launches["umeyama3"],
             "launches_cohort": co_launches["umeyama3"],
             "launches_groupwise": gw_launches["umeyama3"],
-            "max_abs_err": max(r["max_abs_err"]["R"] for r in umeyama_results),
-            "max_s_rel_err": max(r["max_abs_err"]["s_rel"] for r in umeyama_results),
-            "ms": close_main["kernel_ms"],
-            "plain_ms": close_main["plain_ms"],
-            "bound_ms": close_main["bound_ms"],
-            "bound_by": close_main["bound_by"],
+            "replaces_step": "pyfocusr_tpu/ops/icp.py:110-129",
+            # The step: what every ICP iteration launches after its k-NN.
+            "max_abs_err": max(max(r["max_abs_err"]["R"] for r in umeyama_results),
+                               max(r["err_vs_plain"]["R"] for r in step_results)),
+            "max_s_rel_err": max(max(r["max_abs_err"]["s_rel"] for r in umeyama_results),
+                                 max(r["err_vs_plain"]["s_rel"] for r in step_results)),
+            "max_moved_err_of_scale": max(r["err_vs_plain"]["moved_of_scale"]
+                                          for r in step_results),
+            "ms": step_main["kernel_ms"],
+            "plain_ms": step_main["plain_ms"],
+            "bound_ms": step_main["bound_ms"],
+            "bound_by": step_main["bound_by"],
             "library_ms": None,  # no single PyTorch call; svd alone in svd_ms
+            "replaced_sequence_ms": step_main["replaced_sequence_ms"],
+            "ctas": step_main["ctas"],
+            "class_shape": {k: step_class[k] for k in (
+                "n_source", "n_target", "ctas", "kernel_ms", "replaced_sequence_ms",
+                "plain_ms", "bound_ms")},
+            # The close alone (ops/icp.umeyama, the cohort's Procrustes).
+            "close_ms": close_main["kernel_ms"],
+            "close_plain_ms": close_main["plain_ms"],
+            "close_bound_ms": close_main["bound_ms"],
+            "close_rotations_run": close_main["rotations_run"],
+            "close_rotations_needed": close_main["rotations"],
             "svd_ms": close_main["svd_ms"],
             "chain_clocks": close_main["chain_clocks"],
             "icp_loop": {r["case"]: {k: r[k] for k in (
                 "iterations", "host_ms_per_iteration", "host_ms_per_iteration_after_capture",
                 "device_ms_per_iteration", "device_span_ms_per_iteration",
-                "plain_host_ms_per_iteration", "replays", "host_reads", "capture_ms")}
+                "plain_host_ms_per_iteration", "replays", "host_reads", "capture_ms",
+                "loop_kernels")}
                 for r in icp_results},
-            "shape": "cov 3x3 f32, one thread, the 'kd' pair's first ICP iteration",
+            "shape": "the step at the 'kd' pair's first ICP iteration, 2000 x 10242; "
+                     "the close alone on its moments (close_*)",
         },
     ]
     for entry in kernel_entries:  # every CLI invocation of the cli phase

@@ -1,5 +1,5 @@
 // Thread-block cluster primitives for Hopper (sm_90a), shared by csrc/jv.cu,
-// csrc/knn.cu, csrc/cpd_estep.cu and the latency probes of
+// csrc/knn.cu, csrc/cpd_estep.cu, csrc/umeyama3.cu and the latency probes of
 // tools/jv_chain_floor.cu: the cluster barrier, addresses in and loads from
 // another CTA's shared memory, mbarriers, stores into another CTA's shared
 // memory that signal its mbarrier, and the launch of one cluster or of a
@@ -43,6 +43,19 @@ __device__ __forceinline__ float2 ld_cluster_v2f32(unsigned addr) {
   asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
                : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
   return v;
+}
+
+// A 64-bit float from another CTA's shared memory (a cluster address).
+__device__ __forceinline__ double ld_cluster_f64(unsigned addr) {
+  double v;
+  asm volatile("ld.shared::cluster.f64 %0, [%1];\n" : "=d"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// A 64-bit float into another CTA's shared memory (a cluster address); a
+// cluster barrier makes it visible there.
+__device__ __forceinline__ void st_cluster_f64(unsigned addr, double v) {
+  asm volatile("st.shared::cluster.f64 [%0], %1;\n" :: "r"(addr), "d"(v) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(unsigned bar, int count) {

@@ -3,9 +3,10 @@
 Counterpart of ``pyfocusr_tpu/ops/icp.py``: ``umeyama`` (:31),
 ``apply_rigid`` (:61) and ``icp`` (:67).  Each iteration is one
 nearest-neighbour query (the k-NN kernel on CUDA) plus a closed-form
-Umeyama/Kabsch update: the weighted moments in torch, then the 3x3 close
-(``umeyama_kernel``: the hand-written kernel on CUDA, ``torch.linalg.svd``
-on the CPU).
+Umeyama/Kabsch update, ``umeyama_kernel.icp_step``: the matched rows'
+moments, the 3x3 close, the moved source, the mean motion and the stop
+test, in one kernel on CUDA (``torch.linalg.svd`` for the close on the
+CPU).
 
 The JAX ``lax.while_loop`` becomes a loop whose state (the moved cloud, s,
 R, t, the last mean motion, the iteration count and a stop flag) lives on
@@ -62,6 +63,23 @@ def _moments(src, dst, wn):
     return cov, var_s, mu_s, mu_d
 
 
+def _start(source_points, target_points, source_mask):
+    """ICP's fixed inputs and its starting point: the normalised weights wn,
+    the source moments mu_s and var_s, the stop threshold 1e-5 * scale (the
+    largest |coordinate| of the finite target rows, plus 1), the centroid
+    match t0 (target centroid over finite, non-sentinel rows less the
+    weighted source centroid) and the moved source src + t0."""
+    wn = source_mask / torch.clamp(source_mask.sum(), min=1e-30)
+    finite_t = (target_points.abs() < 1e29).all(dim=1).to(source_points.dtype)
+    tn = finite_t / torch.clamp(finite_t.sum(), min=1e-30)
+    t0 = (target_points * tn[:, None]).sum(dim=0) - (
+        source_points * wn[:, None]
+    ).sum(dim=0)
+    scale = (target_points * finite_t[:, None]).abs().max() + 1.0
+    mu_s, _, var_s = _source_moments(source_points, wn)
+    return wn, mu_s, var_s, 1e-5 * scale, t0, source_points + t0
+
+
 def umeyama(src, dst, with_scale: bool, weights=None):
     """Least-squares similarity/rigid transform mapping src -> dst: returns
     (scale s, rotation R [3, 3], translation t [3]) minimizing
@@ -89,8 +107,9 @@ def icp(source_points, target_points, mode: str = "rigid",
 
     ``loop="blocked"`` (the default): the masked iteration on the device,
     read every ``ICP_BLOCK`` iterations, captured as a CUDA graph on the card
-    (its k-NN and close launches count in their modules' ``LAUNCHES`` at each
-    replay, masked ones included); ``ICP_STATS`` says what it did.
+    (two launches, the k-NN and the step, counted in their modules'
+    ``LAUNCHES`` at each replay, masked ones included); ``ICP_STATS`` says
+    what it did.
     ``loop="plain"``: one host read per iteration.  Both give the same
     values bit for bit."""
     with_scale = mode == "similarity"
@@ -99,71 +118,49 @@ def icp(source_points, target_points, mode: str = "rigid",
     if loop not in ("blocked", "plain"):
         raise ValueError(f"loop must be 'blocked' or 'plain', got {loop!r}")
     dt, dev = source_points.dtype, source_points.device
+    source_points = source_points.contiguous()
     if source_mask is None:
         source_mask = torch.ones(source_points.shape[0], dtype=dt, device=dev)
-    wn = source_mask / torch.clamp(source_mask.sum(), min=1e-30)
-    # Target centroid and scale over finite (non-sentinel) rows only.
-    finite_t = (target_points.abs() < 1e29).all(dim=1).to(dt)
-    tn = finite_t / torch.clamp(finite_t.sum(), min=1e-30)
-    t0 = (target_points * tn[:, None]).sum(dim=0) - (
-        source_points * wn[:, None]
-    ).sum(dim=0)
-    moved = source_points + t0
-    scale = (target_points * finite_t[:, None]).abs().max() + 1.0
-    threshold = 1e-5 * scale
-
-    mu_s, sc, var_s = _source_moments(source_points, wn)
+    source_mask = source_mask.contiguous()
+    wn, mu_s, var_s, threshold, t0, moved = _start(source_points, target_points, source_mask)
     target_q = target_points.float().contiguous()
     on_card = dev.type == "cuda"
-    if on_card:  # the outputs of the kernels, written by every iteration
+    if on_card:  # the k-NN's outputs, written by every iteration
         nn_out = (torch.empty((source_points.shape[0], 1), dtype=torch.float32, device=dev),
                   torch.empty((source_points.shape[0], 1), dtype=torch.int32, device=dev))
-        close_out = torch.empty((13,), dtype=torch.float32, device=dev)
-
-    def iterate(moved, done):
-        """One iteration from ``moved``: (s, R, t, new moved, mean motion).
-        On the card the k-NN kernel returns at once where the int32 device
-        flag ``done`` is set (its outputs then keep the last values)."""
-        query = moved.float().contiguous()
-        if on_card:
-            idx = knn_kernel.knn_cuda(target_q, query, 1, out=nn_out, done=done)[1]
-        else:
-            idx = knn_kernel.knn_plain(target_q, query, 1)[1]
-        matched = target_points.index_select(0, idx[:, 0])
-        cov, mu_d = _cross_moments(matched, wn, sc)
-        s, R, t = umeyama_kernel.umeyama_close(
-            cov, var_s, mu_s, mu_d, with_scale, out=close_out if on_card else None)
-        new_moved = apply_rigid(source_points, s, R, t)
-        step = torch.linalg.norm(new_moved - moved, dim=1)
-        delta = (torch.where(source_mask > 0, step, torch.zeros_like(step)) * wn).sum()
-        return s, R, t, new_moved, delta
 
     s = torch.ones((), dtype=dt, device=dev)
     R = torch.eye(3, dtype=dt, device=dev)
-    t = t0
+    t = t0.clone()
     delta = torch.tensor(float("inf"), dtype=dt, device=dev)
+    state = (s, R, t, moved, delta)  # updated in place by icp_step
+    ctrl = torch.zeros((2,), dtype=torch.int32, device=dev)  # iterations, done
+
+    def step():
+        """One masked iteration: the k-NN from ``moved``, then ``icp_step``
+        (the close, the update, the count and the flag).  On the card both
+        kernels return at once where the int32 device flag is set; on the
+        CPU the iteration is skipped."""
+        query = moved.float().contiguous()
+        if on_card:
+            idx = knn_kernel.knn_cuda(target_q, query, 1, out=nn_out, done=ctrl[1:])[1]
+        elif bool(ctrl[1] != 0):
+            return
+        else:
+            idx = knn_kernel.knn_plain(target_q, query, 1)[1]
+        umeyama_kernel.icp_step(target_q if on_card else target_points, idx, source_points,
+                                source_mask, wn, mu_s, var_s, state, ctrl, threshold,
+                                max_iterations, with_scale)
+
+    it = 0
     if loop == "plain":
-        it = 0
-        while it < max_iterations and bool(delta > threshold):
-            s, R, t, moved, delta = iterate(moved, None)
-            it += 1
+        done = max_iterations <= 0
+        while not done:
+            step()
+            it, done = ctrl.tolist()
     else:
         device_loop.reset_stats(ICP_STATS, ICP_BLOCK)
-        it = 0
         if max_iterations > 0:
-            t = t.clone()
-            state = (s, R, t, moved, delta)  # the order iterate() returns
-            ctrl = torch.zeros((2,), dtype=torch.int32, device=dev)  # it, done
-            it_count, done_flag = ctrl[0], ctrl[1:]
-
-            def step():
-                done = done_flag[0] != 0
-                for old, new in zip(state, iterate(moved, done_flag)):
-                    old.copy_(torch.where(done, old, new))
-                it_count.add_((~done).to(torch.int32))
-                done_flag.copy_(((~(delta > threshold)) | (it_count >= max_iterations))
-                                .to(torch.int32).reshape(1))
-
             it = device_loop.run_blocked(
                 step, ctrl, max_iterations, ICP_BLOCK, ICP_STATS,
                 kernels=(knn_kernel, umeyama_kernel), what="ICP loop")

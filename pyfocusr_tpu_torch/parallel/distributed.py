@@ -146,12 +146,15 @@ def _rank_main(rank, n_ranks, backend, device_type, store_path, threads, fn, arg
         results.put((rank, False, (payload, tb)))
 
 
-def spawn(fn, n_ranks: int, backend: str = "gloo", device_type: str = "cpu",
+def spawn(fn, n_ranks: int, backend: str = "nccl", device_type: str = "cuda",
           args: tuple = (), threads: int | None = None):
     """Run ``fn(*args)`` on ``n_ranks`` new processes joined in one process
-    group of ``backend`` ('gloo' or 'nccl') and return their return values
+    group of ``backend`` ('nccl' or 'gloo') and return their return values
     in rank order.
 
+    The ranks run on the card unless the caller asks for the CPU
+    (``backend="gloo", device_type="cpu"``): with ``device_type`` 'cuda'
+    and no visible card it raises before starting any process.
     ``fn`` must be importable by name (a module-level function), its
     arguments and return value picklable.  ``device_type`` 'cuda' sets each
     rank's CUDA device to rank mod the visible cards (so several gloo ranks
@@ -161,6 +164,10 @@ def spawn(fn, n_ranks: int, backend: str = "gloo", device_type: str = "cpu",
     ``COLLECTIVE_TIMEOUT_S``.  When a rank raises, the others are
     terminated and its exception is raised here, chained to its traceback;
     a rank that dies without a word raises ``RuntimeError``."""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present: distributed.spawn runs its ranks on the "
+            "card by default; pass backend='gloo', device_type='cpu' for CPU ranks")
     ctx = multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="pyfocusr_ranks_")
     store_path = os.path.join(tmp, "store")

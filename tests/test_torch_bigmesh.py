@@ -117,7 +117,8 @@ def _port_inputs(pair):
 
 @pytest.fixture(scope="module")
 def ranks(pair):
-    return distributed.spawn(_rank_refines, N_RANKS, args=(_port_inputs(pair),), threads=1)
+    return distributed.spawn(_rank_refines, N_RANKS, "gloo", "cpu",
+                             args=(_port_inputs(pair),), threads=1)
 
 
 def _compare(ref, got):

@@ -29,6 +29,7 @@ at its top, because every rank imports it to find its function.
 """
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -191,7 +192,8 @@ def ranks(inputs):
         name: (argv + ["-o", str(inputs["dir"] / f"{name}_sharded")], axis)
         for name, (argv, axis) in inputs["cli"].items()})
     rank_inputs.pop("dir")
-    return distributed.spawn(_rank_body, N_RANKS, args=(rank_inputs,), threads=1)
+    return distributed.spawn(_rank_body, N_RANKS, "gloo", "cpu", args=(rank_inputs,),
+                             threads=1)
 
 
 def _bit_equal(a, b, what):
@@ -415,12 +417,28 @@ def _fail_on_rank_one(how):
 
 def test_spawn_raises_a_ranks_exception_and_stops_the_others():
     with pytest.raises(ValueError, match="rank one refuses") as err:
-        distributed.spawn(_fail_on_rank_one, 2, args=("raise",), threads=1)
+        distributed.spawn(_fail_on_rank_one, 2, "gloo", "cpu", args=("raise",), threads=1)
     assert isinstance(err.value.__cause__, distributed.RemoteTraceback)
     assert "rank 1 of 2" in str(err.value.__cause__)
     with pytest.raises(RuntimeError, match="rank 1 of 2 exited with code 3"):
-        distributed.spawn(_fail_on_rank_one, 2, args=("exit",), threads=1)
+        distributed.spawn(_fail_on_rank_one, 2, "gloo", "cpu", args=("exit",), threads=1)
 
+
+
+def test_spawn_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """``spawn`` with its defaults runs NCCL ranks on the card; where no
+    card is visible it raises before it starts any process (no CPU
+    ranks)."""
+    sig = inspect.signature(distributed.spawn)
+    assert sig.parameters["backend"].default == "nccl"
+    assert sig.parameters["device_type"].default == "cuda"
+    monkeypatch.setattr(distributed.torch.cuda, "is_available", lambda: False)
+    contexts = []
+    monkeypatch.setattr(distributed.multiprocessing, "get_context",
+                        lambda *a: contexts.append(a))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.spawn(_fail_on_rank_one, 2, args=("raise",))
+    assert contexts == []
 
 # --- Per-lane randomness ---
 

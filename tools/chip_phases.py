@@ -2,7 +2,8 @@
 """Chosen kernel phases of ``chip_smoke.py`` on one CUDA card, without the
 paths around them: a quick check of a kernel after a change.
 
-    python3 tools/chip_phases.py [topk] [estep_wide] [sharded] [--sweep] [--topk-variant SPEC]...
+    python3 tools/chip_phases.py [topk] [estep_wide] [sharded] [icp] [--sweep]
+        [--topk-variant SPEC]...
 
 ``topk`` runs ``phase_knn_topk`` (the k = 4..128 kernel against
 ``knn_plain``, bit for bit, and its times), ``estep_wide`` runs
@@ -12,7 +13,16 @@ default.  ``sharded`` runs ``phase_sharded`` (every ``device_mesh`` path over
 ``torch.distributed`` against one device: a world of one NCCL rank, gloo
 ranks sharing the card, one NCCL rank a card where several are visible),
 its lanes held bit for bit where two plain 'kd' pairs agree; it builds
-every library first and makes its own refine inputs at 655362 vertices.  ``--sweep`` also times both grids of the top-k kernel (1 and 4
+every library first and makes its own refine inputs at 655362 vertices.
+``icp`` runs ``phase_umeyama`` (the close kernel against its plain version,
+then ``phase_icp_step``: the ICP step kernel against ``icp_step_plain``,
+timed beside the torch sequence it replaced) and ``phase_icp_loop`` (the
+captured ICP loop against the plain loop, bit for bit, and its device ms an
+iteration) on the 'kd' pair's ICP inputs, recorded from one
+``register_pair``; with ``--sweep`` it also times the step at every cluster
+size (1-16 CTAs) at 256 to 163842 source rows, so the planner's
+``ONE_CTA_MAX_ROWS`` can be read beside the others.  ``--sweep`` also
+times both grids of the top-k kernel (1 and 4
 queries a warp; 4 only up to k = 32) and every split of the E-step's other
 cloud (both passes alike) at the timed shapes, each as one call from a CUDA
 graph of 20 (``chip_smoke.graph_ms``), so the planner's choice can be read
@@ -30,6 +40,8 @@ from __future__ import annotations
 import json
 import os
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -121,6 +133,30 @@ def sweep_estep(torch, EK):
     return out
 
 
+def sweep_icp_step(torch, icp_ops, UK, tgt, src):
+    """The step's device time at each cluster size and source size; rows
+    beyond the source's repeat it with a small jitter, matched to random
+    target rows (the time does not depend on which)."""
+    out = []
+    rng = np.random.default_rng(0)
+    for n in (256, 512, 1024, 2000, 10242, 40962, 163842):
+        reps = -(-n // src.shape[0])
+        rows = src.cpu().numpy()
+        x = np.concatenate([rows + rng.normal(scale=0.1, size=rows.shape)
+                            for _ in range(reps)])[:n].astype(np.float32)
+        x = torch.tensor(x, device="cuda")
+        idx = torch.tensor(rng.integers(0, tgt.shape[0], n), device="cuda")
+        a = cs.icp_step_inputs(torch, icp_ops, x, tgt, torch.ones(n, device="cuda"), False,
+                               idx=idx)
+        a.update(threshold=torch.tensor(-1.0, device="cuda"), max_iterations=2 ** 30)
+        times = {}
+        for ctas in (1, 2, 4, 8, 16):
+            with forced(UK, lambda p: {**p, "ctas": ctas}):
+                times[ctas] = cs.graph_ms(torch, lambda: UK.icp_step_cuda(**a))
+        out.append({"n": n, "ms_by_ctas": times, "planned": UK.plan(n)})
+    return out
+
+
 def main():
     import torch
 
@@ -130,7 +166,8 @@ def main():
     import pyfocusr_tpu_torch as tp
     from pyfocusr_tpu_torch.ops import cpd as cpd_ops
     from pyfocusr_tpu_torch.ops import cpd_estep_kernel as EK
-    from pyfocusr_tpu_torch.ops import knn_kernel, knn_topk_kernel
+    from pyfocusr_tpu_torch.ops import icp as icp_ops
+    from pyfocusr_tpu_torch.ops import knn_kernel, knn_topk_kernel, umeyama_kernel
 
     argv = sys.argv[1:]
     specs = [argv[i + 1] for i, a in enumerate(argv) if a == "--topk-variant"]
@@ -138,7 +175,7 @@ def main():
             if not a.startswith("--") and (i == 0 or argv[i - 1] != "--topk-variant")]
     phases = args or ["topk", "estep_wide"]
     smi = cs.nvidia_smi_line()
-    for mod in (knn_kernel, knn_topk_kernel, EK):
+    for mod in (knn_kernel, knn_topk_kernel, EK, umeyama_kernel):
         mod.load_library()
         cs.emit({"phase": "build", "library": mod.__name__, "nvcc_seconds": mod.BUILD_SECONDS,
                  "ptxas": [ln.strip() for ln in mod.BUILD_LOG.splitlines()
@@ -161,6 +198,20 @@ def main():
                            first_ms=cs.FIRST_WIDE_ESTEP_KERNEL_MS)
         if "--sweep" in sys.argv:
             cs.emit({"phase": "estep_split_sweep", "cases": sweep_estep(torch, EK)})
+    if "icp" in phases:
+        cfg = tp.PipelineConfig(**cs.BENCH_CFG)
+        tg = tp.mesh_to_graph_arrays(cs.synthetic_bone(tp, 2))
+        source_mesh = cs.synthetic_bone(tp, 1)
+        sg = tp.mesh_to_graph_arrays(source_mesh)
+        with cs.IcpRecorder(tp.pipeline) as rec:
+            tp.register_pair(tg, sg, cfg, draws=tp.make_draws(0, cfg, tg.n_points, sg.n_points))
+        cs.phase_umeyama(torch, icp_ops, umeyama_kernel, rec.last_call,
+                         class_source=torch.tensor(source_mesh.points, device="cuda"))
+        cs.phase_icp_loop(torch, icp_ops, knn_kernel, umeyama_kernel, rec.last_call)
+        if "--sweep" in sys.argv:
+            (src, tgt), _ = rec.last_call
+            cs.emit({"phase": "icp_step_cluster_sweep",
+                     "cases": sweep_icp_step(torch, icp_ops, umeyama_kernel, tgt, src)})
     if "sharded" in phases:
         from pyfocusr_tpu_torch.utils import aot
 

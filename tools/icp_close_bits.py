@@ -6,7 +6,8 @@ Each pair is ``chip_smoke.py``'s synthetic bone pair made from other seeds
 (seed 0 is the pair ``chip_smoke.py`` runs).  Each is registered on CPU
 tensors twice in each configuration, once with the plain close as it is
 (``torch.linalg.svd`` in float64, rounded once to float32, as the card's
-kernel rounds) and once with the same close computed in float32.  The two
+kernel rounds) and once with the same close computed in float32 (ICP's
+float64 moments rounded to float32 first).  The two
 runs are compared as ``chip_smoke.py`` compares a CUDA run with a CPU run,
 and stage by stage along the path the bits take:
 
@@ -60,8 +61,9 @@ def main():
     from pyfocusr_tpu_torch.ops import umeyama_kernel as UK
     from pyfocusr_tpu_torch.ops.knn import nn_query
 
-    def close_f32(cov, var_s, mu_s, mu_d, with_scale, out=None):
-        """The plain close's code without its float64 round trip."""
+    def close_f32(cov, var_s, mu_s, mu_d, with_scale):
+        """The plain close's code in float32."""
+        cov, var_s, mu_s, mu_d = (x.float() for x in (cov, var_s, mu_s, mu_d))
         U, S, Vt = torch.linalg.svd(cov)
         d = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
         diag = torch.ones(3, dtype=cov.dtype)
@@ -81,13 +83,13 @@ def main():
         return real_warm(block, from_points, from_mask, to_points)
 
     def run(tg, sg, cfg, draws, close):
-        real_close = UK.umeyama_close
-        UK.umeyama_close, pipeline._warm_x0 = close, recorded_warm
+        real_close = UK._close_f64
+        UK._close_f64, pipeline._warm_x0 = close, recorded_warm
         warm_calls.clear()
         try:
             res = tp.register_pair(tg, sg, cfg, draws=draws)
         finally:
-            UK.umeyama_close, pipeline._warm_x0 = real_close, real_warm
+            UK._close_f64, pipeline._warm_x0 = real_close, real_warm
         return res, warm_calls[-1] if warm_calls else None
 
     configs = {"full_resolution": cs.FULLRES_CFG, "kd": cs.BENCH_CFG}
@@ -98,7 +100,7 @@ def main():
             cfg = tp.PipelineConfig(**dict(base,
                                            non_rigid_max_iterations=cs.FULLRES_CPU_EM_CAP))
             draws = tp.make_draws(seed, cfg, tg.n_points, sg.n_points)
-            f64, warm64 = run(tg, sg, cfg, draws, UK.umeyama_close)
+            f64, warm64 = run(tg, sg, cfg, draws, UK._close_f64)
             f32, warm32 = run(tg, sg, cfg, draws, close_f32)
             stages = {}
             if warm64 is not None:
