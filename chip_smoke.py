@@ -107,7 +107,16 @@ after:
   six pairs padded to eight) and (c) on one NCCL rank a card where more
   than one card is visible (else a line says why not); lanes bit for bit
   where two plain calls agree, the refines at ``tests/test_bigmesh.py``'s
-  gates; each rank's launches in the kernels line (``launches_sharded``).
+  gates; each rank's launches in the kernels line (``launches_sharded``);
+* the JAX package's schedules the port took last (``completion``, run
+  after ``cohort``): the
+  patch-dense filter step against the ELL one at 10242 and 40962 vertices
+  (the plan, device ms and device work a step, the spectrum both ways,
+  five warm 'kd' pairs each way alternated), the split-spectra schedule
+  against the fused one on the bench's ``direct_122k_hub`` pair (two 350 x
+  350 UV spheres, 122152 vertices), the union and batched spectra against
+  two separate solves at 10242, and the auction at 300 and 2562 rows
+  against ``lap_host``'s optimum (and its own CPU run at 300).
 
 Every CPD EM loop and every ICP on the card runs as one captured iteration
 replayed as a CUDA graph, the host reading the stop flag every 8
@@ -129,6 +138,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import os
@@ -202,7 +212,16 @@ REFERENCE_DEFAULTS_CFG = dict(
 
 # CPD iterations of both sides of the full-resolution CUDA-vs-CPU run: the
 # CPU's plain E-step makes two passes over 10242^2 pairs per iteration.
+# Not fewer: at 5 the spectral clouds are too far from aligned for the
+# correspondence gate (87.6% equal against 95% in run 17d; 98.8% at 10,
+# run 16l).
 FULLRES_CPU_EM_CAP = 10
+# The Sinkhorn schedule of both sides of the 'hungarian' CUDA-vs-CPU run at
+# 2562 (the parity tests' shortening, tests/test_torch_pipeline.py): the
+# solve stays exact, only the augmentation gets longer.  The default 14 x
+# 30 passes took most of the CPU run's 71.7 s in run 16l; the kernels meet
+# the default schedule in lse_kernel_vs_plain and jv_kernel_vs_plain.
+HUNGARIAN_CPU_CHECK_SCHEDULE = dict(levels=5, iters_per_level=6)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device-memory
 # bandwidth and float32 rate outside the tensor cores.  A kernel's bound is
@@ -4540,6 +4559,351 @@ def phase_sharded(torch, tp, kernels, smi, deterministic, refine_args=None, devi
     return launches
 
 
+# --- The completion phase: the JAX package's schedules the port took last
+# (patch-dense filter, split spectra, union and batched spectra, auction).
+
+# The bench's direct_122k_hub pair (bench.py:796-870): two 350 x 350 UV
+# spheres (122152 vertices; each pole touches a ring of 350), the source
+# warped by 5%, 40 mm radius, and its configuration.
+HUB_N = 350
+HUB_WARP = 0.05
+HUB_CFG = dict(
+    get_weighted_spectral_coords=False, non_rigid_alpha=0.01, non_rigid_beta=50.0,
+    non_rigid_max_iterations=300, n_coords_spectral_ordering=10000,
+    n_coords_spectral_registration=1000, graph_smoothing_iterations=600,
+    projection_smooth_iterations=1,
+)
+# The filter-step agreement of the two operators, of the output's scale
+# (tests/test_patch_dense.py:79), and the union / batched solves' gates
+# against separate solves (tests/test_pipeline.py:166-175).
+PATCH_OP_TOL_OF_SCALE = 2e-6
+UNION_EIG_RTOL = 1e-3
+UNION_COS_MIN = 0.999
+# The auction's sizes and its gap gate against the optimum
+# (tests/test_kernels.py:160-166), and the largest size also run on the
+# CPU for equality: at 2562 the CPU's 11193 rounds took 76.1 s on the
+# card's host (equal to the card's result; run 17b).
+AUCTION_SIZES = (300, 2562)
+AUCTION_GAP_MAX = 0.05
+AUCTION_CPU_MAX_N = 300
+# Warm 'kd' pairs with the patch plan on and off (alternated, one process).
+PATCH_WARM_REPS = 5
+
+
+def uv_sphere(tp, n_theta: int, n_phi: int, warp: float = 0.0):
+    """bench.py:805-836's UV sphere: poles as fans, radius 40."""
+    pts = [(0.0, 0.0, 1.0)]
+    for ii in range(1, n_theta):
+        th = np.pi * ii / n_theta
+        for jj in range(n_phi):
+            ph = 2 * np.pi * jj / n_phi
+            pts.append((np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)))
+    pts.append((0.0, 0.0, -1.0))
+    pts = np.asarray(pts, np.float64)
+    tris = []
+
+    def ring(k):
+        return 1 + (k - 1) * n_phi
+
+    for jj in range(n_phi):
+        tris.append((0, ring(1) + jj, ring(1) + (jj + 1) % n_phi))
+    for ii in range(1, n_theta - 1):
+        for jj in range(n_phi):
+            a, b = ring(ii) + jj, ring(ii) + (jj + 1) % n_phi
+            c, d = ring(ii + 1) + jj, ring(ii + 1) + (jj + 1) % n_phi
+            tris.append((a, c, b))
+            tris.append((b, c, d))
+    last = len(pts) - 1
+    for jj in range(n_phi):
+        tris.append((last, ring(n_theta - 1) + (jj + 1) % n_phi, ring(n_theta - 1) + jj))
+    if warp:
+        pts = pts * (1.0 + warp * np.sin(3.0 * pts[:, [1]]))
+    return tp.TriMesh((pts * 40).astype(np.float32), np.asarray(tris, np.int32))
+
+
+def filter_pieces(torch, tp, g):
+    """The wide solver's operator pieces of ``g`` (pipeline._spectrum):
+    symmetrized weights, overflow weights, diagonal, mask, and Gershgorin
+    bound."""
+    go = tp.pipeline.graph_ops
+    mask = g.valid_mask
+    w = go.edge_weights(g.points, g.neighbors, g.nbr_mask)
+    ov = g.overflow
+    ov_w = go.overflow_weights(g.points, ov)
+    d = go.degree_vector(w, ov, ov_w)
+    s = torch.sqrt(torch.where(mask > 0, (d + go.DEGREE_EPS) ** -1, torch.ones_like(d)))
+    sw = s[:, None] * w * s[g.neighbors]
+    sd = s * s * d * mask
+    ov_sw = ov_w * s[ov[:, 0]] * s[ov[:, 1]] if ov.shape[0] else None
+    bound = float((mask * s * (s * d + go.spmv(g.neighbors, w, s, ov, ov_w))).max())
+    return sw, ov_sw, sd, mask, bound
+
+
+def device_work_per_call(torch, fn, device):
+    """Device work items (kernel, copy and set nodes) one call of ``fn``
+    puts on the card: the nodes of a CUDA graph captured around one call,
+    counted by ``cuGraphGetNodes`` of libcuda; None off the card.  (A
+    ``torch.profiler`` trace gave the same 7 and 4 in run 17b, but after
+    this script's earlier traces it held no device event, runs 17e-17h.)"""
+    if device != "cuda":
+        return None
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    check(rc == 0 and count.value > 0,
+          f"cuGraphGetNodes returned {rc} and {count.value} nodes for a filter step")
+    return int(count.value)
+
+
+def step_ms(torch, fn, device):
+    """Device ms of one call (a CUDA graph of 20 calls) on the card; host ms
+    of one call (mean of 5) on the CPU."""
+    if device == "cuda":
+        return graph_ms(torch, fn)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn()
+    return (time.perf_counter() - t0) * 200.0
+
+
+def eig_agreement(lg, vg, lw, vw):
+    """Largest relative eigenvalue difference and smallest |cos| of the
+    mean-centred eigenvector columns."""
+    lg, lw = np.asarray(lg, np.float64), np.asarray(lw, np.float64)
+    vg, vw = np.asarray(vg, np.float64), np.asarray(vw, np.float64)
+    rel = float(np.max(np.abs(lg - lw) / np.abs(lw)))
+    vg = vg - vg.mean(0)
+    vw = vw - vw.mean(0)
+    cos = np.abs((vg * vw).sum(0)) / (np.linalg.norm(vg, axis=0) * np.linalg.norm(vw, axis=0))
+    return rel, float(cos.min())
+
+
+def patch_dense_case(torch, tp, kernels, levels, device, warm_reps):
+    """(a) at one size: the plan, one filter step through each operator,
+    the spectrum through each, and warm 'kd' pairs with the plan on and off
+    alternated in this process."""
+    from pyfocusr_tpu_torch.ops import patch_dense
+    from pyfocusr_tpu_torch.utils.precision import full_f32
+
+    t_mesh, s_mesh = synthetic_bone(tp, 2, levels), synthetic_bone(tp, 1, levels)
+    t0 = time.perf_counter()
+    tg = tp.mesh_to_graph_arrays(t_mesh, device=device)
+    build_s = time.perf_counter() - t0
+    sg = tp.mesh_to_graph_arrays(s_mesh, device=device)
+    plan = tg.patch_plan
+    check(plan is not None, f"no patch plan at {t_mesh.n_points} vertices")
+    t0 = time.perf_counter()
+    tg_ell = tp.mesh_to_graph_arrays(t_mesh, device=device, patch_blocks=False)
+    ell_build_s = time.perf_counter() - t0
+    sg_ell = tp.mesh_to_graph_arrays(s_mesh, device=device, patch_blocks=False)
+    n = tg.n_points
+    nb, dr = plan["res_cols"].shape
+    sw, ov_sw, sd, mask, bound = filter_pieces(torch, tp, tg)
+    lam_max = torch.tensor(bound * 1.005, device=device)
+    a = lam_max * 1e-3
+    c, e = (lam_max + a) / 2.0, (lam_max - a) / 2.0
+    T = torch.from_numpy(np.random.default_rng(0).standard_normal((n, 128)).astype(
+        np.float32)).to(device)
+    with full_f32():
+        ops = {"patch_dense": patch_dense.patch_filter_factory(plan, sw, ov_sw, sd, mask)(c, e),
+               "ell": tp.pipeline.ell_filter_factory(tg.neighbors, tg.overflow, sw, ov_sw,
+                                                     sd, mask)(c, e)}
+        outs = {name: op(T) for name, op in ops.items()}
+        scale = float(outs["ell"].abs().max())
+        op_err = float((outs["patch_dense"] - outs["ell"]).abs().max())
+        steps = {name: {"ms": step_ms(torch, lambda op=op: op(T), device),
+                        "device_work_per_step": device_work_per_call(
+                            torch, lambda op=op: op(T), device)}
+                 for name, op in ops.items()}
+    check(op_err <= PATCH_OP_TOL_OF_SCALE * scale,
+          f"patch-dense step differs from the ELL step by {op_err} (scale {scale})")
+    cfg = tp.PipelineConfig(**BENCH_CFG)
+    start = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (n, cfg.eig_wide_block)).astype(np.float32)).to(device)
+    spectra = {}
+    for name, g in (("patch_dense", tg), ("ell", tg_ell)):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        lams, vecs, _ = tp.pipeline._spectrum(g, cfg.n_total, cfg, start)
+        sync(torch, device)
+        spectra[name] = (time.perf_counter() - t0, _cpu(lams), _cpu(vecs))
+    rel, cos = eig_agreement(spectra["patch_dense"][1], spectra["patch_dense"][2],
+                             spectra["ell"][1], spectra["ell"][2])
+    check(rel <= EIGVAL_RTOL and cos >= COS_MIN,
+          f"patch-dense spectrum against the ELL one: rel {rel}, |cos| {cos}")
+    draws = tp.make_draws(0, cfg, n, sg.n_points)
+    pairs = {"patch_dense": (tg, sg), "ell": (tg_ell, sg_ell)}
+    warm = {name: [] for name in pairs}
+    launches, results = {}, {}
+    for name, (a_g, b_g) in pairs.items():  # one first call each
+        tp.register_pair(a_g, b_g, cfg, draws=draws)
+    for _ in range(warm_reps):
+        for name, (a_g, b_g) in pairs.items():
+            for mod in kernels.values():
+                mod.LAUNCHES = 0
+            sync(torch, device)
+            t0 = time.perf_counter()
+            results[name] = tp.register_pair(a_g, b_g, cfg, draws=draws)
+            sync(torch, device)
+            warm[name].append(time.perf_counter() - t0)
+            launches[name] = {k: mod.LAUNCHES for k, mod in kernels.items()}
+    if device == "cuda":
+        check(launches["patch_dense"]["knn"] > 0 and launches["patch_dense"]["umeyama3"] > 0,
+              f"the patch-dense 'kd' pair launched no k-NN or ICP step: {launches}")
+    agree = float((_cpu(results["patch_dense"]["correspondences"])
+                   == _cpu(results["ell"]["correspondences"])).float().mean())
+    return {
+        "n": n, "plan": {"P": int(plan["perm"].shape[0]) // patch_dense.BLOCK, "Nb": int(nb),
+                         "Dr": int(dr), "intra_edges": int(plan["intra_dst"].shape[0])},
+        "graph_build_s": {"with_plan": build_s, "without": ell_build_s},
+        "step": steps, "step_max_err": op_err, "step_scale": scale,
+        "spectrum_s": {k: v[0] for k, v in spectra.items()},
+        "spectrum_eigval_max_rel_diff": rel, "spectrum_eigvec_min_abs_cos": cos,
+        "kd_warm_s": {k: {"median": statistics.median(v), "spread": max(v) - min(v),
+                          "all": v} for k, v in warm.items()},
+        "kd_correspondence_agreement": agree, "kd_launches": launches,
+    }
+
+
+def phase_completion(torch, tp, kernels, smi, device="cuda", levels=(5, 6),
+                     hub=(HUB_N, HUB_N), split_n=None, union_levels=5,
+                     auction_sizes=AUCTION_SIZES, cpu_auction_max_n=AUCTION_CPU_MAX_N,
+                     warm_reps=PATCH_WARM_REPS):
+    """The JAX package's schedules the port took last, on the card: (a) the
+    patch-dense filter against the ELL one at 10242 and 40962 vertices
+    (``levels``); (b) the split-spectra schedule against the fused one on
+    the ``direct_122k_hub`` pair (``hub`` = (n_theta, n_phi); ``split_n``
+    the threshold to run it at, the package's when None); (c) the union and
+    batched spectra against two separate solves; (d) the auction against
+    ``lap_host``'s optimum, and its CPU run up to ``cpu_auction_max_n``
+    rows.  Returns the kernels' launches
+    on the patch-dense 'kd' pair and the split 122k pair."""
+    from pyfocusr_tpu_torch import experiments
+    from pyfocusr_tpu_torch.ops import assignment as TA
+    from pyfocusr_tpu_torch.ops import eigen as TE
+
+    t_phase = time.perf_counter()
+    cases = []
+    for lv in levels:
+        cases.append(patch_dense_case(torch, tp, kernels, lv, device, warm_reps))
+        emit({"phase": "completion_patch_dense", "nvidia_smi": smi, **cases[-1]})
+    launches = {"patch_dense_kd": cases[0]["kd_launches"]["patch_dense"]}
+
+    # (b) split spectra on the hub pair.
+    th, sh = uv_sphere(tp, *hub), uv_sphere(tp, *hub, warp=HUB_WARP)
+    tgh = tp.mesh_to_graph_arrays(th, device=device)
+    sgh = tp.mesh_to_graph_arrays(sh, device=device)
+    check(tgh.patch_plan is None and sgh.patch_plan is None,
+          "the hub pair carries a patch plan (its residual is wider than DR_MAX)")
+    hcfg = tp.PipelineConfig(**HUB_CFG)
+    saved = tp.pipeline._SPLIT_SPECTRA_N
+    split_at = saved if split_n is None else split_n
+    hub_runs = {}
+    try:
+        for name, thr in (("split", split_at), ("fused", 0)):
+            tp.pipeline._SPLIT_SPECTRA_N = thr
+            draws = tp.make_draws(0, hcfg, tgh.n_points, sgh.n_points)
+            tp.register_pair(tgh, sgh, hcfg, draws=draws)  # first call
+            for mod in kernels.values():
+                mod.LAUNCHES = 0
+            TE.SOLVES.clear()
+            sync(torch, device)
+            t0 = time.perf_counter()
+            res = tp.register_pair(tgh, sgh, hcfg, draws=draws)
+            sync(torch, device)
+            secs = time.perf_counter() - t0
+            hub_runs[name] = {
+                "split": tp.pipeline._want_split(tgh.n_points, sgh.n_points),
+                "seconds": secs, "solves": list(TE.SOLVES),
+                "launches": {k: mod.LAUNCHES for k, mod in kernels.items()},
+                "quality": quality_and_checks(tp, th, sh, res, sh.n_points, min_unique=None),
+                "corr": _cpu(res["correspondences"]),
+            }
+    finally:
+        tp.pipeline._SPLIT_SPECTRA_N = saved
+    check(hub_runs["split"]["split"] and not hub_runs["fused"]["split"],
+          "the hub pair did not take the split schedule at its threshold")
+    if device == "cuda":
+        check(all(hub_runs["split"]["launches"][k] > 0 for k in ("knn", "umeyama3")),
+              f"the split hub pair launched no k-NN or ICP step: {hub_runs['split']['launches']}")
+    shared = float((hub_runs["split"].pop("corr") == hub_runs["fused"].pop("corr"))
+                   .float().mean())
+    launches["split_hub"] = hub_runs["split"]["launches"]
+    emit({"phase": "completion_split_spectra", "nvidia_smi": smi, "n": tgh.n_points,
+          "overflow_edges": int(tgh.overflow.shape[0]), "threshold": split_at,
+          "runs": hub_runs, "correspondences_shared": shared})
+
+    # (c) union and batched spectra against two separate solves.
+    ut, us = synthetic_bone(tp, 2, union_levels), synthetic_bone(tp, 1, union_levels)
+    utg = tp.mesh_to_graph_arrays(ut, device=device)
+    usg = tp.mesh_to_graph_arrays(us, device=device)
+    ucfg = tp.PipelineConfig()
+    k = ucfg.n_total
+    rng = np.random.default_rng(7)
+    blocks = [rng.standard_normal((g.n_points, ucfg.eig_wide_block)).astype(np.float32)
+              for g in (utg, usg)]
+    union_start = rng.standard_normal((utg.n_points + usg.n_points, 2 * k + 8)).astype(
+        np.float32)
+
+    def timed_call(fn):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        r = fn()
+        sync(torch, device)
+        return time.perf_counter() - t0, r
+
+    sep_s, sep = timed_call(lambda: [tp.pipeline._spectrum(
+        g, k, ucfg, torch.from_numpy(b).to(device))[:2] for g, b in zip((utg, usg), blocks)])
+    uni_s, uni = timed_call(lambda: experiments.spectrum_union(utg, usg, k, union_start, ucfg))
+    bat_s, bat = timed_call(lambda: experiments.spectrum_batched(utg, usg, k, blocks, ucfg))
+    union = {"separate_s": sep_s, "union_s": uni_s, "batched_s": bat_s}
+    for name, got in (("union", [(uni[0][0], uni[1]), (uni[0][1], uni[2])]),
+                      ("batched", [(bat[0], bat[1]), (bat[2], bat[3])])):
+        worst = [eig_agreement(_cpu(lg), _cpu(vg), _cpu(lw), _cpu(vw))
+                 for (lg, vg), (lw, vw) in zip(got, sep)]
+        union[name] = {"eigval_max_rel_diff": max(w[0] for w in worst),
+                       "eigvec_min_abs_cos": min(w[1] for w in worst)}
+        check(union[name]["eigval_max_rel_diff"] <= UNION_EIG_RTOL
+              and union[name]["eigvec_min_abs_cos"] > UNION_COS_MIN,
+              f"{name} spectra against separate solves: {union[name]}")
+    emit({"phase": "completion_union_batched", "nvidia_smi": smi,
+          "n": [utg.n_points, usg.n_points], **union})
+
+    # (d) the auction.
+    auctions = []
+    for n in auction_sizes:
+        cost = np.random.default_rng(n).uniform(0, 1, (n, n)).astype(np.float32)
+        r_opt, c_opt = TA.lap_host(cost)
+        opt = float(cost[r_opt, c_opt].sum())
+        dev_s, got = timed_call(lambda: TA.auction_lap(torch.from_numpy(cost).to(device)))
+        stats = list(TA.AUCTION_STATS)
+        got = got.cpu().numpy()
+        gap = (float(cost[np.arange(n), got].sum()) - opt) / opt
+        row = {"n": n, "seconds": dev_s, "gap": gap,
+               "rounds": [st["iterations"] for st in stats],
+               "host_reads": sum(st["host_reads"] for st in stats),
+               "graph": all(st["graph"] for st in stats)}
+        check(sorted(got.tolist()) == list(range(n)), f"auction at {n}: not a permutation")
+        check(gap < AUCTION_GAP_MAX, f"auction at {n}: gap {gap}")
+        if n <= cpu_auction_max_n and device != "cpu":
+            t0 = time.perf_counter()
+            cpu = TA.auction_lap(torch.from_numpy(cost)).numpy()
+            row.update(cpu_s=time.perf_counter() - t0,
+                       equals_cpu=bool(np.array_equal(cpu, got)))
+        auctions.append(row)
+    emit({"phase": "completion_auction", "nvidia_smi": smi, "sizes": auctions})
+    emit({"phase": "completion", "nvidia_smi": smi, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main():
     import torch
 
@@ -4714,14 +5078,19 @@ def main():
     del hres
 
     # --- 'hungarian' CUDA vs CPU, on the 2562 pair: the CPU run's plain
-    # Sinkhorn loop (840 x 2 logsumexp passes over the cost) and plain JV
-    # host loop would take minutes at 10242.
-    small_gpu = tp.register_pair(small_tg, small_sg, hcfg, draws=small_draws)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    small_cpu = tp.register_pair(small_tg.to("cpu"), small_sg.to("cpu"), hcfg,
-                                 draws=small_draws)
-    h_cpu_s = time.perf_counter() - t0
+    # Sinkhorn loop and plain JV host loop would take minutes at 10242.
+    # Both sides take the short Sinkhorn schedule.
+    real_lap = tp.pipeline.sinkhorn_jv_lap
+    tp.pipeline.sinkhorn_jv_lap = functools.partial(real_lap, **HUNGARIAN_CPU_CHECK_SCHEDULE)
+    try:
+        small_gpu = tp.register_pair(small_tg, small_sg, hcfg, draws=small_draws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        small_cpu = tp.register_pair(small_tg.to("cpu"), small_sg.to("cpu"), hcfg,
+                                     draws=small_draws)
+        h_cpu_s = time.perf_counter() - t0
+    finally:
+        tp.pipeline.sinkhorn_jv_lap = real_lap
     objs = [lap_objective(torch, r["spectral_coords_source"],
                           r["spectral_coords_target"], r["initial_correspondences"])
             for r in (small_gpu, small_cpu)]
@@ -4742,6 +5111,7 @@ def main():
     emit({
         "phase": "hungarian_cuda_vs_cpu", "n": small_t.n_points,
         "why_2562": "the CPU's plain Sinkhorn and JV loops take minutes at 10242",
+        "sinkhorn_schedule": HUNGARIAN_CPU_CHECK_SCHEDULE,
         "cpu_s": h_cpu_s,
         "lap_objective_cuda": objs[0], "lap_objective_cpu": objs[1],
         "lap_objective_rel_diff": abs(objs[0] - objs[1]) / objs[1],
@@ -4795,6 +5165,8 @@ def main():
     mr_launches, mr_refine_args = phase_multires(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
     co_launches = phase_cohort(torch, tp, kernels, smi, deterministic)
+    torch.cuda.empty_cache()
+    completion_launches = phase_completion(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
     gw_launches = phase_groupwise(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
@@ -5040,6 +5412,10 @@ def main():
         entry["launches_sharded"] = {
             setup: None if per_rank is None else [c[entry["name"]] for c in per_rank]
             for setup, per_rank in sharded_launches.items()}
+        # The completion phase's paths: a warm 'kd' pair on the patch-dense
+        # filter at 10242 and the split 122k hub pair.
+        entry["launches_completion"] = {
+            path: counts[entry["name"]] for path, counts in completion_launches.items()}
     emit({"kernels": kernel_entries})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

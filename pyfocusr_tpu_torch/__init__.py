@@ -62,7 +62,14 @@ Entry points:
   names, one process a rank, ``spawn`` to start them): the vertex-sharded
   fine refine of ``parallel/bigmesh.py`` (``register_pair_multires``), the
   cohort over ``'cohort'`` and all-pairs over ``'pairs'``, and the CLI's
-  sharded commands.
+  sharded commands;
+* the JAX package's remaining schedules: the patch-dense filter operator
+  (``ops/patch_dense.py``, planned by :func:`mesh_to_graph_arrays`), the
+  split-spectra schedule of the pair entry points from 65000 vertices,
+  ``experiments.spectrum_union`` / ``spectrum_batched`` and
+  ``ops.assignment.auction_lap`` (not exported here, as in the JAX
+  package); ``pyfocusr_torch`` is the reference-name alias over this
+  package.
 
 The host-side fast paths (topology, the decimator's MIS, ``lap_host``, the
 ASCII ``.vtk`` parse) run in C++ compiled with g++ at first use
@@ -115,6 +122,8 @@ from .transfer import cohort_point_data_matrix, mesh_with_transferred_data, tran
 from .utils.logging import print_header
 
 
+__version__ = "0.1.0"
+
 
 def recursive_eig(matrix, k, n_k_needed, k_buffer=1, sigma=1e-10, which="LM"):
     """The reference's ``recursive_eig`` (``graph.py:357-389``; JAX
@@ -135,6 +144,7 @@ def recursive_eig(matrix, k, n_k_needed, k_buffer=1, sigma=1e-10, which="LM"):
 
 
 __all__ = [
+    "__version__",
     "Focusr",
     "Graph",
     "GraphArrays",

@@ -8,17 +8,22 @@ version ``lap_host_plain``), ``exact_lap_small``
 and ``sinkhorn_jv_lap`` (:406), the exact solver behind 'hungarian'
 correspondences: annealed-Sinkhorn duals warm-start a Jonker-Volgenant
 solve (tight-edge bulk matching, then one Dijkstra augmentation per row
-still free), and the ``linear_sum_assignment`` dispatcher (:540) between
-that solver and ``lap_host``.
+still free), the ``linear_sum_assignment`` dispatcher (:540) between
+that solver and ``lap_host``, and the round-1 solvers JV superseded:
+``_auction_scaling_phase`` / ``auction_lap`` (:115-209, the forward auction
+with epsilon scaling, optimal to within n times its last epsilon) and the
+``sinkhorn_auction_lap`` alias of ``sinkhorn_jv_lap`` (:491-506).
 
 The two TPU kernels on that path are CUDA kernels here:
 ``ops/sinkhorn_kernel.py`` (the Sinkhorn dual updates) and
 ``ops/jv_kernel.py`` (the Dijkstra augmentation).  On CUDA tensors
 ``sinkhorn_jv_lap`` launches both; on CPU tensors the same two calls take
 the kernels' plain versions (each wrapper dispatches on where its tensors
-lie; nothing here looks at the device).
-
-Not ported: ``auction_lap`` / ``sinkhorn_auction_lap`` (superseded by JV).
+lie; nothing here looks at the device).  The auction's rounds are plain
+PyTorch (JAX runs them as XLA scatters, no Pallas kernel): one masked round
+driven by ``utils/device_loop.run_blocked``, its stop test on the device,
+captured as a CUDA graph and replayed ``AUCTION_BLOCK`` rounds between host
+reads on the card.
 """
 
 from __future__ import annotations
@@ -30,10 +35,17 @@ import torch
 from torch.profiler import record_function
 
 from .. import native
+from ..utils import device_loop
 from . import jv_kernel, sinkhorn_kernel
 
-__all__ = ["exact_lap_small", "lap_host", "lap_host_plain", "linear_sum_assignment",
-           "sinkhorn_jv_lap"]
+__all__ = ["auction_lap", "exact_lap_small", "lap_host", "lap_host_plain",
+           "linear_sum_assignment", "sinkhorn_auction_lap", "sinkhorn_jv_lap"]
+
+# Auction rounds between host reads of the stop flag.
+AUCTION_BLOCK = 16
+# What the last auction_lap did, one entry a phase: device_loop's fields
+# (rounds as "iterations", host reads, graph or not, replay and read ms).
+AUCTION_STATS = []
 
 
 def _host_cost(cost):
@@ -271,3 +283,114 @@ def sinkhorn_jv_lap(cost, levels: int = 14, iters_per_level: int = 30,
     if return_duals:
         return assignment, u, v, steps
     return assignment
+
+
+def _auction_scaling_phase(cost_neg, eps, prices, max_rounds: int, stats: dict = None):
+    """One epsilon phase of the forward auction (``pyfocusr_tpu/ops/
+    assignment.py:115-178``): every unassigned row bids for its best column
+    (the top 2 of ``cost_neg - prices``) by the gap to its second plus
+    ``eps``; each column takes the highest bid, ties to the lowest row
+    (a scatter-max, then a scatter-min), raises its price by it and evicts
+    its owner; until every row holds a column or ``max_rounds`` rounds ran.
+    The rounds run in ``device_loop.run_blocked`` with the stop test on the
+    device.  Returns (assignment int64 [n], -1 where unassigned; prices);
+    ``stats`` gets the loop's fields."""
+    n = cost_neg.shape[0]
+    dev = cost_neg.device
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    pad = torch.full((1,), n, dtype=torch.int64, device=dev)
+    neg_inf = torch.tensor(float("-inf"), dtype=cost_neg.dtype, device=dev)
+    zero = torch.zeros((), dtype=cost_neg.dtype, device=dev)
+    minus1 = torch.full((1,), -1, dtype=torch.int64, device=dev)
+    assignment = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    owner = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    prices = prices.clone()
+    ctrl = torch.zeros((2,), dtype=torch.int32, device=dev)
+
+    def step():
+        live = ctrl[1] == 0
+        bidder = assignment < 0
+        top2, top2_idx = torch.topk(cost_neg - prices[None, :], 2, dim=1)
+        best_j = top2_idx[:, 0]
+        bids = top2[:, 0] - top2[:, 1] + eps
+        bid_eff = torch.where(bidder, bids, neg_inf)
+        tgt = torch.where(bidder, best_j, pad)
+        col_bid = torch.full((n + 1,), float("-inf"), dtype=cost_neg.dtype, device=dev)
+        col_bid.scatter_reduce_(0, tgt, bid_eff, reduce="amax")
+        cand = bidder & (bid_eff >= col_bid[best_j])
+        cand_tgt = torch.where(cand, best_j, pad)
+        col_winner = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+        col_winner.scatter_reduce_(0, cand_tgt, torch.where(cand, rows, pad), reduce="amin")
+        won = cand & (col_winner[best_j] == rows)
+        won_tgt = torch.where(won, best_j, pad)
+        new_prices = torch.cat([prices, zero[None]])
+        new_prices.index_add_(0, won_tgt, torch.where(won, bids, zero))
+        owner_pad = torch.cat([owner, minus1])
+        evicted = owner_pad[won_tgt]
+        new_assign = torch.cat([assignment, minus1])
+        new_assign.index_fill_(0, torch.where(evicted >= 0, evicted, pad), -1)
+        owner_pad[won_tgt] = torch.where(won, rows, minus1)
+        new_assign = torch.where(won, best_j, new_assign[:n])
+        # The masked update: a finished loop keeps its state.
+        assignment.copy_(torch.where(live, new_assign, assignment))
+        owner.copy_(torch.where(live, owner_pad[:n], owner))
+        prices.copy_(torch.where(live, new_prices[:n], prices))
+        count = ctrl[0] + live.to(torch.int32)
+        done = ~live | ~(assignment < 0).any() | (count >= max_rounds)
+        ctrl.copy_(torch.stack([count, done.to(torch.int32)]))
+
+    if stats is None:
+        stats = {}
+    device_loop.reset_stats(stats, AUCTION_BLOCK)
+    if max_rounds < 1:  # no round runs, as in the JAX loop
+        return assignment, prices
+    device_loop.run_blocked(step, ctrl, max_rounds, AUCTION_BLOCK, stats,
+                            what="auction phase")
+    return assignment, prices
+
+
+def auction_lap(cost, eps_scaling_steps: int = 7, max_rounds: int = 100000):
+    """Square LAP by the forward auction with epsilon scaling, on the cost's
+    device (``pyfocusr_tpu/ops/assignment.py:181-209``): epsilon starts at
+    spread / 2, is divided by 6 after each of ``eps_scaling_steps`` phases
+    and floored at spread / (4 n), the prices carried from phase to phase.
+    The total cost is within n times the last epsilon of the optimum.  Rows
+    a phase left unassigned at ``max_rounds`` are paired with the free
+    columns (``_greedy_complete``).  Returns the column of each row, int64
+    [n], a permutation; ``AUCTION_STATS`` holds each phase's rounds and host
+    reads."""
+    cost = torch.as_tensor(cost).to(torch.float32)
+    n = cost.shape[0]
+    AUCTION_STATS.clear()
+    if n == 1:  # the bids need two columns; one row takes column 0
+        return torch.zeros((1,), dtype=torch.int64, device=cost.device)
+    cost_neg = -cost
+    spread = torch.clamp(cost.max() - cost.min(), min=1e-12)
+    prices = torch.zeros((n,), dtype=cost.dtype, device=cost.device)
+    eps_final = spread / torch.tensor(4.0 * n, dtype=cost.dtype)
+    eps = spread / 2.0
+    assignment = None
+    for _ in range(eps_scaling_steps):
+        eps = torch.maximum(eps, eps_final)
+        AUCTION_STATS.append({})
+        assignment, prices = _auction_scaling_phase(cost_neg, eps, prices, max_rounds,
+                                                    AUCTION_STATS[-1])
+        eps = eps / 6.0
+    return _greedy_complete(assignment, n)
+
+
+def sinkhorn_auction_lap(cost, **kwargs):
+    """The round-1 name of :func:`sinkhorn_jv_lap` (``pyfocusr_tpu/ops/
+    assignment.py:491-506``): JV's keywords (``levels``,
+    ``iters_per_level``, ``max_total_steps``, ``warm_start``) pass through;
+    the retired auction's raise ``TypeError`` with the JAX package's
+    message."""
+    jv_kwargs = {"levels", "iters_per_level", "max_total_steps", "warm_start"}
+    unknown = set(kwargs) - jv_kwargs
+    if unknown:
+        raise TypeError(
+            f"sinkhorn_auction_lap: unsupported kwargs {sorted(unknown)} — "
+            "the epsilon-scaling auction was replaced by the exact JV solver "
+            f"(sinkhorn_jv_lap); supported tuning kwargs: {sorted(jv_kwargs)}"
+        )
+    return sinkhorn_jv_lap(cost, **kwargs)

@@ -6,10 +6,10 @@ Counterpart of ``pyfocusr_tpu/ops/eigen.py``: ``_project_out`` (:58),
 ``_cg_solve`` (:71), ``_estimate_lambda_max`` (:106),
 ``lanczos_shift_invert`` (:123), ``chebyshev_eigpairs_wide`` (:260, with
 the warm start ``x0``, ``return_block`` and the residual-gated
-``extra_chunks`` top-up, :425-454), ``chebyshev_eigpairs`` (:482) and
-``smallest_nonzero_eigpairs`` (:740).  The narrow solver's union-graph mode
-(``partition_masks`` / ``filter_op_factory``) serves only
-``pyfocusr_tpu/experiments.py`` and is not ported.
+``extra_chunks`` top-up, :425-454), ``chebyshev_eigpairs`` (:482, with its
+fused ``filter_op_factory`` and its union-graph mode ``partition_masks``,
+:508-516 and :723-737, which ``experiments.spectrum_union`` runs) and
+``smallest_nonzero_eigpairs`` (:740).
 
 Every solver works on the symmetrized A = S (D - W) S with the kernel (one
 indicator per connected component, scaled by 1/s) deflated exactly;
@@ -218,8 +218,10 @@ def chebyshev_eigpairs_wide(
     Gershgorin bound).  ``filter_op_factory(c, e)`` returns the fused
     filter step T -> (2/e)(A T - c T); ``quad_form(V) -> [k]`` gives the
     cancellation-free final Rayleigh quotients.  (The JAX version's
-    power-iteration bound and black-box filter fallbacks have no caller
-    here and are not ported.)  ``init_block`` f32 [N, >= b]: the random starting block
+    power-iteration bound and its filter built from ``matvec`` when no
+    factory is given have no caller of the wide solver, in either package,
+    and are not ported here; the narrow solver, :func:`chebyshev_eigpairs`,
+    has both.)  ``init_block`` f32 [N, >= b]: the random starting block
     (its first b columns are used).  ``x0`` [N, m]: warm-start columns
     that replace the first m columns of the block; when x0 covers all b
     columns ``init_block`` may be None.  After ``chunks``
@@ -333,10 +335,12 @@ def chebyshev_eigpairs(matvec, null_vec: torch.Tensor, k: int,
                        degree: int = 75, sweeps: int = 6,
                        refine_cg_iters: int = 150, subspace_mask=None,
                        lam_max_bound=None, power_vec: torch.Tensor = None,
-                       resid_tol: float = 0.0, quad_form=None):
+                       resid_tol: float = 0.0, quad_form=None,
+                       partition_masks=None, filter_op_factory=None):
     """The k smallest nonzero eigenpairs of the symmetric PSD operator
     ``matvec`` by Chebyshev-filtered subspace iteration on a narrow block of
-    b = k + ``block_extra`` columns, then one block shift-invert polish.
+    b = k_tot + ``block_extra`` columns, then one block shift-invert polish
+    (k_tot = k, or k P in the union-graph mode below).
 
     ``init_block`` f32 [N, >= b]: the random start (its first b columns;
     JAX: normals from ``key``).  ``lam_max_bound``: an upper bound of A's
@@ -350,10 +354,22 @@ def chebyshev_eigpairs(matvec, null_vec: torch.Tensor, k: int,
     nothing.  The polish solves (A + a/10 I) Z = ritz with
     ``refine_cg_iters`` batched CG iterations and runs Rayleigh-Ritz on
     span(Z); ``quad_form(V) -> [k]`` gives the final Rayleigh quotients.
+    ``filter_op_factory(c, e)``, when given, supplies the fused filter step
+    T -> (2/e)(A T - c T) in place of the one built from ``matvec``.
+
+    ``partition_masks`` f32 [N, P] (disjoint 0/1 columns) is the union-graph
+    mode: A is block-diagonal over P partitions (the disjoint union of two
+    meshes), one filtered block of k P + ``block_extra`` columns serves
+    them all (the cut at the k P-th Ritz value), and the final
+    Rayleigh-Ritz runs per partition on the polished block restricted to
+    its rows, which separates the near-degenerate pairs two similar meshes
+    give.  Returns (lams [P, k], vecs [N, P, k], resid [P, k]) then.
 
     Returns (lams [k], vecs [N, k], resid [k])."""
     n = null_vec.shape[0]
-    b = k + block_extra
+    n_parts = 0 if partition_masks is None else partition_masks.shape[1]
+    k_tot = k * max(n_parts, 1)
+    b = k_tot + block_extra
     v0 = _unit_null(null_vec)
     if lam_max_bound is not None:
         lam_max = torch.as_tensor(lam_max_bound, dtype=torch.float32,
@@ -367,9 +383,11 @@ def chebyshev_eigpairs(matvec, null_vec: torch.Tensor, k: int,
         """T_deg((2A - (a + lam_max)) / (lam_max - a)) applied to X."""
         c = (lam_max + a) / 2.0
         e = (lam_max - a) / 2.0
-
-        def op(T):
-            return (2.0 / e) * (matvec(T) - c * T)
+        if filter_op_factory is not None:
+            op = filter_op_factory(c, e)
+        else:
+            def op(T):
+                return (2.0 / e) * (matvec(T) - c * T)
 
         t_prev, t_cur = X, 0.5 * op(X)
         for _ in range(deg - 1):
@@ -383,8 +401,8 @@ def chebyshev_eigpairs(matvec, null_vec: torch.Tensor, k: int,
         H = Q.T @ AQ
         theta, S = torch.linalg.eigh(0.5 * (H + H.T))  # ascending
         X = Q @ S
-        resid = ((AQ @ S)[:, :k] - X[:, :k] * theta[None, :k]).norm(dim=0)
-        a = torch.clamp(1.5 * theta[k - 1], lam_max * 1e-5, lam_max * 2e-2)
+        resid = ((AQ @ S)[:, :k_tot] - X[:, :k_tot] * theta[None, :k_tot]).norm(dim=0)
+        a = torch.clamp(1.5 * theta[k_tot - 1], lam_max * 1e-5, lam_max * 2e-2)
         return X, a, resid.max()
 
     X = init_block[:, :b].to(torch.float32)
@@ -397,10 +415,10 @@ def chebyshev_eigpairs(matvec, null_vec: torch.Tensor, k: int,
     for _ in range(sweeps - 1):
         if resid_tol > 0 and not (bool(r > lam_max * resid_tol) or change > 1e-5):
             break
-        prev = X[:, :k]
+        prev = X[:, :k_tot]
         X, a, r = sweep(X, a, degree)
         if resid_tol > 0:
-            sv = torch.linalg.svdvals(prev.T @ X[:, :k])
+            sv = torch.linalg.svdvals(prev.T @ X[:, :k_tot])
             change = float(1.0 - sv.min())
 
     sigma = a * 0.1
@@ -408,19 +426,32 @@ def chebyshev_eigpairs(matvec, null_vec: torch.Tensor, k: int,
     def shifted(Xb):
         return matvec(Xb) + sigma * (Xb if subspace_mask is None else Xb * subspace_mask[:, None])
 
-    Z = _project_out(v0, _cg_solve(shifted, X[:, :k], refine_cg_iters, v0))
-    Qz, _ = torch.linalg.qr(Z)
-    Hz = Qz.T @ matvec(Qz)
-    _, Sz = torch.linalg.eigh(0.5 * (Hz + Hz.T))
-    vecs = Qz @ Sz
-    vecs = vecs / vecs.norm(dim=0, keepdim=True)
-    Av = matvec(vecs)
-    lams = (vecs * Av).sum(dim=0)
-    resid = (Av - vecs * lams[None, :]).norm(dim=0)
-    order = torch.argsort(lams)[:k]
-    vec_sel = vecs[:, order]
-    lam_sel = quad_form(vec_sel) if quad_form is not None else lams[order]
-    return lam_sel, vec_sel, resid[order]
+    Z = _project_out(v0, _cg_solve(shifted, X[:, :k_tot], refine_cg_iters, v0))
+
+    def rayleigh_ritz(Zp):
+        """The k smallest Ritz pairs of A on span(Zp)."""
+        Qz, _ = torch.linalg.qr(Zp)
+        Hz = Qz.T @ matvec(Qz)
+        _, Sz = torch.linalg.eigh(0.5 * (Hz + Hz.T))
+        vecs = Qz @ Sz
+        vecs = vecs / vecs.norm(dim=0, keepdim=True)
+        Av = matvec(vecs)
+        lams = (vecs * Av).sum(dim=0)
+        resid = (Av - vecs * lams[None, :]).norm(dim=0)
+        order = torch.argsort(lams)[:k]
+        vec_sel = vecs[:, order]
+        lam_sel = quad_form(vec_sel) if quad_form is not None else lams[order]
+        return lam_sel, vec_sel, resid[order]
+
+    if partition_masks is None:
+        return rayleigh_ritz(Z)
+    out = []
+    for p in range(n_parts):
+        pm = partition_masks[:, p:p + 1]
+        lams_p, vecs_p, resid_p = rayleigh_ritz(Z * pm)
+        out.append((lams_p, vecs_p * pm, resid_p))
+    return (torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out], dim=1),
+            torch.stack([o[2] for o in out]))
 
 
 def smallest_nonzero_eigpairs(matvec, scale_back: torch.Tensor,

@@ -47,6 +47,7 @@ from ..mesh import TriMesh, build_topology
 from ..ops.icp import apply_rigid, icp, umeyama
 from ..ops.knn import nn_query
 from ..pipeline import (
+    TENSOR_FIELDS,
     GraphArrays,
     PipelineConfig,
     _start_width,
@@ -142,17 +143,24 @@ def pad_cohort(meshes: Sequence[TriMesh], device=None) -> List[GraphArrays]:
 
 
 def stack_graph_arrays(graphs: Sequence[GraphArrays]) -> GraphArrays:
-    """Stack equal-shape graphs along a new leading cohort axis (the JAX
-    package's patch-plan branch has no counterpart: the port has no patch
-    plans)."""
+    """Stack equal-shape graphs along a new leading cohort axis.  Patch
+    plans are stacked too when every graph carries one and their shapes
+    agree (one mesh jittered N ways), and dropped otherwise: a plan's
+    shapes follow the topology (``pyfocusr_tpu/parallel/cohort.py:86-105``)."""
+    plans = [g.patch_plan for g in graphs]
+    plan = None
+    if all(p is not None for p in plans) and len(
+            {tuple(sorted((k, tuple(v.shape)) for k, v in p.items())) for p in plans}) == 1:
+        plan = {k: torch.stack([p[k] for p in plans]) for k in plans[0]}
     return GraphArrays(**{
-        f.name: torch.stack([getattr(g, f.name) for g in graphs])
-        for f in dataclasses.fields(GraphArrays)})
+        name: torch.stack([getattr(g, name) for g in graphs])
+        for name in TENSOR_FIELDS}, patch_plan=plan)
 
 
 def _lane(targets: GraphArrays, i: int) -> GraphArrays:
-    return GraphArrays(**{f.name: getattr(targets, f.name)[i]
-                          for f in dataclasses.fields(GraphArrays)})
+    plan = targets.patch_plan
+    return GraphArrays(**{name: getattr(targets, name)[i] for name in TENSOR_FIELDS},
+                       patch_plan=None if plan is None else {k: v[i] for k, v in plan.items()})
 
 
 def check_cohort_config(meshes_min_points: int, cfg: PipelineConfig,

@@ -2,16 +2,18 @@
 template serving.
 
 Counterpart of ``pyfocusr_tpu/pipeline.py``: ``PipelineConfig`` (:74),
-``GraphArrays`` (:292), ``mesh_to_graph_arrays`` (:349, with its
-padding, without the patch plan), ``_masked_minmax_norm`` (:483),
-``_spectrum`` (:495: the wide
-Chebyshev path with the plain ELL filter operator of :590-605, the narrow
-Chebyshev and shift-invert Lanczos paths of :623-650, and the feature
-branches of :511-541), ``_normed`` (:702),
-``landmark_pairs_from_positions`` (:709), ``_n_real_vertices`` and
+``GraphArrays`` (:292, with its ``patch_plan``), ``mesh_to_graph_arrays``
+(:349, with its padding, ``degree_cap`` and the patch-dense plan of
+:454-470), ``_masked_minmax_norm`` (:483), ``_spectrum`` (:495: the wide
+Chebyshev path with the patch-dense filter operator of :580-588 when the
+graph carries a plan and the ELL one of :590-605 when it does not, the
+narrow Chebyshev and shift-invert Lanczos paths of :623-650, and the
+feature branches of :511-541), ``_pad_graph_arrays`` (:657), ``_normed``
+(:702), ``landmark_pairs_from_positions`` (:709), ``_n_real_vertices`` and
 ``_check_padding_hazards`` (:737-787), ``_warm_supported`` (:790),
-``_warm_x0`` (:801), ``register_pair`` (:842), the serving entry points
-(:915-1376: ``warm_block_from_prepared``, ``prepare_target``,
+``_warm_x0`` (:801), the split-spectra schedule (``_SPLIT_SPECTRA_N``,
+``_want_split``, :822-840), ``register_pair`` (:842), the serving entry
+points (:915-1376: ``warm_block_from_prepared``, ``prepare_target``,
 ``register_pair_prepared``, ``source_spectrum_hoistable``,
 ``prepare_source``, ``register_pair_prepared_source``, the fingerprints,
 ``save_prepared_target`` and ``load_prepared_target``) and the branches of
@@ -45,10 +47,17 @@ and CPD subsamples, the eigensolves' initial blocks and the CPD
 Gram's ``omega``.  Feeding the same draws to both packages makes their runs
 comparable.
 
-The JAX package's split-spectra path (``_want_split``, :822-840: above
-65000 vertices each eigensolve is compiled as its own program) works
-around XLA's schedule on a TPU and is not ported: without it every entry
-point computes the same values.
+From ``_SPLIT_SPECTRA_N`` = 65000 vertices on either mesh (the variable
+``PYFOCUSR_TPU_SPLIT_SPECTRA_N``, 0 for never) every pair entry point takes
+the JAX package's split-spectra schedule (:889-908, :1078-1090,
+:1196-1201): the spectra it was not given are solved first, as the
+serving entry points solve them, and the source is then solved from the
+unmoved points, cold under ICP.  That is not the fused schedule's source
+solve (warm from the target's block through the moved points), so on such
+meshes the two schedules agree to solver tolerance, not bit for bit; the
+target side is equal.  The JAX package split to work around XLA's schedule
+on a TPU; the port splits at the same size so that both packages compute
+the same values.
 
 Padded graphs (``mesh_to_graph_arrays(pad_n_points=...)``, the cohort's
 ``parallel.cohort.pad_cohort``) carry their padding rows at the tail with
@@ -63,6 +72,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import hashlib
+import os
 
 import numpy as np
 import torch
@@ -82,6 +92,7 @@ from .ops.knn import (
     nn_query,
     pairwise_sq_dists,
 )
+from .ops.patch_dense import build_patch_plan, patch_filter_factory, plan_to
 from .spectral.eigsort_device import sort_eigenmaps
 from .utils.checkpoint import load_results, save_results
 from .utils.device import resolve_device
@@ -236,6 +247,10 @@ _INT_FIELDS = ("neighbors", "overflow")
 _FLOAT_FIELDS = (
     "points", "nbr_mask", "valid_mask", "null_indicators", "node_features",
 )
+# The tensor fields of a GraphArrays, in declaration order (every field
+# but ``patch_plan``).
+TENSOR_FIELDS = ("points", "neighbors", "nbr_mask", "valid_mask",
+                 "null_indicators", "overflow", "node_features")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,6 +264,11 @@ class GraphArrays:
     null_indicators: torch.Tensor  # f32 [N, C] per-component indicators
     overflow: torch.Tensor = None  # int64 [E_o, 2] hub-vertex spill edges
     node_features: torch.Tensor = None  # f32 [N, K]
+    # The patch-dense filter plan (ops/patch_dense.py): index tensors on the
+    # graph's device, derived from neighbors / nbr_mask / overflow.  Only
+    # the wide eigensolve reads it; left out of _graph_fingerprint, dropped
+    # by the vertex sharding (parallel/bigmesh), None on padded graphs.
+    patch_plan: dict = None
 
     def __post_init__(self):
         dev = self.points.device
@@ -272,15 +292,16 @@ class GraphArrays:
 
     def to(self, device) -> "GraphArrays":
         return GraphArrays(
-            **{f.name: getattr(self, f.name).to(device)
-               for f in dataclasses.fields(self)}
+            **{name: getattr(self, name).to(device) for name in TENSOR_FIELDS},
+            patch_plan=plan_to(self.patch_plan, device),
         )
 
 
 def graph_arrays_from_numpy(d, device=None) -> GraphArrays:
     """``GraphArrays`` from the JAX package's ``GraphArrays`` fields given as
-    numpy arrays (a mapping name -> array; ``patch_plan`` is ignored), on
-    ``device``: the CUDA card by default (see ``utils.device.resolve_device``)."""
+    numpy arrays (a mapping name -> array; ``patch_plan``, when present, a
+    mapping name -> array or None), on ``device``: the CUDA card by default
+    (see ``utils.device.resolve_device``)."""
     device = resolve_device(device)
     kw = {}
     for name in _FLOAT_FIELDS + _INT_FIELDS:
@@ -288,7 +309,7 @@ def graph_arrays_from_numpy(d, device=None) -> GraphArrays:
             continue
         dtype = torch.int64 if name in _INT_FIELDS else torch.float32
         kw[name] = torch.tensor(np.asarray(d[name])).to(dtype=dtype, device=device)
-    return GraphArrays(**kw)
+    return GraphArrays(**kw, patch_plan=plan_to(d.get("patch_plan"), device))
 
 
 def _widen(topo, pad_degree: int):
@@ -316,10 +337,12 @@ def _widen(topo, pad_degree: int):
 def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
                          device=None, topology=None, pad_n_points: int = None,
                          pad_degree: int = None, pad_components: int = None,
-                         pad_overflow: int = None) -> GraphArrays:
+                         pad_overflow: int = None, degree_cap: int = 24,
+                         patch_blocks: bool = None) -> GraphArrays:
     """Build the pipeline tensors of one mesh on ``device``, the CUDA card
     by default (see ``utils.device.resolve_device``): ELL degree capped at
-    24 with hub overflow edges.  ``null_indicators``
+    ``degree_cap`` with hub overflow edges (passed to ``build_topology``
+    when no ``topology`` is given).  ``null_indicators``
     holds one indicator column per connected component (the Laplacian
     kernel the eigensolver deflates).  ``node_features``: optional per-vertex
     features, [N], [N, K] or [K, N] (the JAX package's rules, :413-420).
@@ -331,12 +354,20 @@ def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
     zero points, features and indicator columns (``valid_mask`` 0), the
     ELL table is ``pad_degree`` wide, there are ``pad_components``
     indicator columns and ``pad_overflow`` overflow edges (the added ones
-    ``src == dst``, so their weight is 0)."""
+    ``src == dst``, so their weight is 0).
+
+    ``patch_blocks``: whether to build the patch-dense filter plan
+    (``ops/patch_dense.build_patch_plan``, which itself declines meshes
+    outside its size and residual-width gates); None builds it for an
+    unpadded graph (no ``pad_*`` given) and not for a padded one, the JAX
+    package's rule (:454-470).  True builds it on the padded arrays too,
+    as the JAX package does."""
     n = mesh.n_points
     if topology is not None:
         topo = _widen(topology, pad_degree)
     else:
-        topo = build_topology(np.asarray(mesh.triangles), n, pad_degree)
+        topo = build_topology(np.asarray(mesh.triangles), n, pad_degree,
+                              degree_cap=degree_cap)
     points = mesh.points
     if torch.is_tensor(points):
         points = points.detach().cpu().numpy()
@@ -372,6 +403,10 @@ def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
         indicators = np.concatenate([indicators, np.zeros(
             (indicators.shape[0], pad_components - indicators.shape[1]), np.float32)],
             axis=1)
+    if patch_blocks is None:
+        patch_blocks = all(x is None for x in (pad_n_points, pad_degree,
+                                               pad_components, pad_overflow))
+    plan = build_patch_plan(neighbors, nbr_mask, overflow) if patch_blocks else None
     return graph_arrays_from_numpy(
         {
             "points": points,
@@ -381,6 +416,7 @@ def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
             "null_indicators": indicators,
             "overflow": overflow,
             "node_features": feats,
+            "patch_plan": plan,
         },
         device=device,
     )
@@ -417,15 +453,40 @@ def _start_width(cfg: PipelineConfig, n_points: int) -> int:
             "lanczos": 2}[_solver(cfg, n_points)]
 
 
+def ell_filter_factory(neighbors, overflow, sw, ov_sw, sd, mask):
+    """The wide solver's filter-op factory over the ELL table
+    (``pyfocusr_tpu/pipeline.py:590-605``): ``factory(c, e) -> op`` with
+    ``op(T) = (2/e) (A - c I) T``, ``A x = sd x - W_sym x``; a step is one
+    gather-einsum, one elementwise op and, with overflow edges (``ov_sw``
+    not None), their ``index_add_``."""
+
+    def factory(c, e):
+        alpha = 2.0 / e
+        w_hat = alpha * sw
+        a_diag = alpha * (sd - c * mask)
+        ov_coef = None if ov_sw is None else -(alpha * ov_sw)[:, None]
+
+        def op(T):
+            y = a_diag[:, None] * T - torch.einsum("nd,ndc->nc", w_hat, T[neighbors])
+            if ov_coef is not None:
+                y.index_add_(0, overflow[:, 0], ov_coef * T[overflow[:, 1]])
+            return y
+
+        return op
+
+    return factory
+
+
 def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
               x0=None, return_block: bool = False, chunks: int = None,
               extra_chunks: int = 0, degree: int = None, generator=None):
     """k smallest nonzero Laplacian eigenpairs of one mesh, eigvecs min-max
     normalized to [-0.5, 0.5], by the solver :func:`_solver` picks: the wide
-    Chebyshev solver with the fused ELL filter step, the narrow one, or
-    shift-invert Lanczos.  ``init_block``: the solve's random start, [N,
-    :func:`_start_width`] (for Lanczos the power-iteration vector, then the
-    start vector).  ``x0``, ``return_block``, ``chunks`` and ``degree``
+    Chebyshev solver with the fused ELL filter step (the patch-dense one,
+    ``ops/patch_dense.py``, when the graph carries a ``patch_plan``), the
+    narrow one, or shift-invert Lanczos.  ``init_block``: the solve's
+    random start, [N, :func:`_start_width`] (for Lanczos the
+    power-iteration vector, then the start vector).  ``x0``, ``return_block``, ``chunks`` and ``degree``
     exist on the wide path only, as in the JAX package.
     ``include_features_in_adj_matrix`` builds the edge weights on xyz and
     the node features, ``use_features_in_graph`` takes G from the features
@@ -494,27 +555,13 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
             _tensor_to(init_block, graph.device), lam_bound, subspace_mask=mask,
             **solver_kw)
         return lams, _masked_minmax_norm(vecs, mask), (w, ov, ov_w)
-    # Fused filter operator: sw_ij = s_i w_ij s_j and s_i^2 d_i precomputed,
-    # so a step is one gather-einsum, one elementwise op and the overflow add.
+    # Fused filter operator: sw_ij = s_i w_ij s_j and s_i^2 d_i precomputed.
     sw = s[:, None] * w * s[nbrs]
     sd = s * s * d * mask
-    has_ov = ov.shape[0] > 0
-    ov_sw = ov_w * s[ov[:, 0]] * s[ov[:, 1]] if has_ov else None
-
-    def factory(c, e):
-        alpha = 2.0 / e
-        w_hat = alpha * sw
-        a_diag = alpha * (sd - c * mask)
-        ov_coef = -(alpha * ov_sw)[:, None] if has_ov else None
-
-        def op(T):
-            y = a_diag[:, None] * T - torch.einsum("nd,ndc->nc", w_hat, T[nbrs])
-            if has_ov:
-                y.index_add_(0, ov[:, 0], ov_coef * T[ov[:, 1]])
-            return y
-
-        return op
-
+    ov_sw = ov_w * s[ov[:, 0]] * s[ov[:, 1]] if ov.shape[0] > 0 else None
+    factory = (ell_filter_factory(nbrs, ov, sw, ov_sw, sd, mask)
+               if graph.patch_plan is None else
+               patch_filter_factory(graph.patch_plan, sw, ov_sw, sd, mask))
     out = chebyshev_eigpairs_wide(
         matvec, null_basis, k, lam_bound, factory, quad_form,
         init_block=init_block,
@@ -534,6 +581,35 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
     if return_block:
         return lams, vecs, (w, ov, ov_w), out[3]
     return lams, vecs, (w, ov, ov_w)
+
+
+def _pad_graph_arrays(g: GraphArrays, n_pad: int, d_pad: int, c_pad: int,
+                      e_pad: int = None) -> GraphArrays:
+    """``g`` padded to ``n_pad`` points, ``d_pad`` ELL columns and ``c_pad``
+    indicator columns (and ``e_pad`` overflow edges), as
+    ``pyfocusr_tpu/pipeline.py:657-682`` pads a graph inside a trace: dead
+    rows are self-loops of mask 0 with ``valid_mask`` 0, the added ELL
+    columns point at row 0 with mask 0, the added overflow edges are
+    (0, 0) (weight 0).  No patch plan."""
+    n, d = g.neighbors.shape
+    extra_n, extra_d = n_pad - n, d_pad - d
+
+    def rows(x):
+        return torch.cat([x, x.new_zeros((extra_n,) + tuple(x.shape[1:]))])
+
+    self_idx = torch.arange(n, n_pad, dtype=g.neighbors.dtype,
+                            device=g.device)[:, None].expand(extra_n, d_pad)
+    neighbors = torch.cat([torch.nn.functional.pad(g.neighbors, (0, extra_d)), self_idx])
+    nulls = rows(torch.nn.functional.pad(
+        g.null_indicators, (0, c_pad - g.null_indicators.shape[1])))
+    ov = g.overflow
+    if e_pad is not None and e_pad > ov.shape[0]:
+        ov = torch.cat([ov, ov.new_zeros((e_pad - ov.shape[0], 2))])
+    return GraphArrays(
+        points=rows(g.points), neighbors=neighbors,
+        nbr_mask=rows(torch.nn.functional.pad(g.nbr_mask, (0, extra_d))),
+        valid_mask=rows(g.valid_mask), null_indicators=nulls, overflow=ov,
+        node_features=rows(g.node_features))
 
 
 def _normed(pts):
@@ -589,6 +665,21 @@ def _warm_x0(block, from_points, from_mask, to_points):
     return block[idx]
 
 
+# From this many vertices on either mesh, the entry points hoist each
+# eigensolve out of the pair (the JAX package's ``_SPLIT_SPECTRA_N``,
+# :822-840, read from the same variable; 0 turns the split off).  The JAX
+# package set it on a TPU, where compiling both solves into one program
+# ran 3.4x slower at 122k vertices.  Read at import: tests patch the
+# module attribute.
+_SPLIT_SPECTRA_N = int(os.environ.get("PYFOCUSR_TPU_SPLIT_SPECTRA_N", "65000"))
+
+
+def _want_split(n_target: int, n_source: int) -> bool:
+    """Whether a pair of these vertex counts takes the split-spectra
+    schedule (``pyfocusr_tpu/pipeline.py:833-839``)."""
+    return _SPLIT_SPECTRA_N > 0 and max(n_target, n_source) >= _SPLIT_SPECTRA_N
+
+
 def _choice(rng, n: int, m: int, n_real: int = None) -> np.ndarray:
     """m of the first ``n_real`` (the real rows; all n when None) of n
     indices, uniformly without replacement; all n, in order, when m >= n
@@ -616,7 +707,9 @@ def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
                                                  eigensolve
     eig_block_source f32 [N_s, eig_wide_block]  only when the source's wide
                                                  solve is not warm-started,
-                                                 or with ``source_block``
+                                                 with ``source_block``, or
+                                                 under the split-spectra
+                                                 schedule (:func:`_want_split`)
     cpd_omega        f32 [n_reg, p]  Gram subspace-iteration start
     eig_start_target f32 [N_t, w]  start of a narrow (w = k + 8) or
     eig_start_source f32 [N_s, w]  Lanczos (w = 2: the power-iteration
@@ -630,7 +723,9 @@ configuration draws the same values as before they existed.
     ``eig_block_target`` draw, :func:`prepare_source` the
     ``eig_block_source`` one (``source_block=True`` gives it when the pair's
     warm start is on, drawn after every other entry, so those stay the
-    draws of the same seed without it); :func:`register_pair_prepared`
+    draws of the same seed without it; the split-spectra schedule, whose
+    hoisted source solve may run cold, draws it there too);
+    :func:`register_pair_prepared`
     reads no ``eig_block_target`` and :func:`register_pair_prepared_source`
     no ``eig_block_source``.
 
@@ -665,7 +760,8 @@ configuration draws the same values as before they existed.
         ).astype(np.float32)
     p = min(min(cfg.non_rigid_n_eigens, n_reg) + 16, n_reg)
     draws["cpd_omega"] = rng.standard_normal((n_reg, p)).astype(np.float32)
-    if source_block and wide_s and "eig_block_source" not in draws:
+    if ((source_block or _want_split(n_target, n_source)) and wide_s
+            and "eig_block_source" not in draws):
         draws["eig_block_source"] = rng.standard_normal(
             (n_source, cfg.eig_wide_block)
         ).astype(np.float32)
@@ -805,6 +901,8 @@ def register_pair(target: GraphArrays, source: GraphArrays,
                   cfg: PipelineConfig, generator: torch.Generator = None,
                   draws=None, landmark_pairs=None, warm_block=None):
     """Full registration of one mesh pair on the device the graphs lie on.
+    From ``_SPLIT_SPECTRA_N`` vertices the spectra take the split-spectra
+    schedule (see the module docstring).
 
     ``draws``: the random inputs (see :func:`make_draws`); when None they
     are drawn from ``generator`` (a fresh generator seeded 0 when that is
@@ -873,6 +971,9 @@ def _run(target, source, cfg, generator, draws, landmark_pairs, pre=None,
             f"draws['cpd_target'] has {draws['cpd_target'].shape[0]} rows; "
             f"n_reg - len(landmark_pairs) = {n_cpd_target}"
         )
+    if _want_split(target.n_points, source.n_points):
+        pre, pre_src = _split_spectra(target, source, cfg, generator, draws, pre,
+                                      pre_src, warm_block)
     stage = _StageRanges()
     try:
         return _register_pair(target, source, cfg, generator, draws, stage,
@@ -880,6 +981,36 @@ def _run(target, source, cfg, generator, draws, landmark_pairs, pre=None,
                               warm_block=warm_block)
     finally:
         stage.close()
+
+
+def _split_spectra(target, source, cfg, generator, draws, pre, pre_src, warm_block):
+    """The split-spectra schedule (``pyfocusr_tpu/pipeline.py:889-908``,
+    :1078-1090, :1195-1199): the spectra a pair's entry point has not been
+    given are solved before the pair, as :func:`prepare_target` and
+    :func:`prepare_source` solve them.  The target is hoisted unless ICP
+    moves it; the source when :func:`source_spectrum_hoistable`, warm from
+    the hoisted target's block through the unmoved points when the warm
+    start applies and ICP is off, else cold (with ICP the fused schedule
+    maps through the moved points, which do not exist yet).  A target left
+    inline then starts from the hoisted source's block where the warm start
+    applies (``_register_pair``).  Each solve reads the draw it reads in
+    the fused schedule.  Returns (pre, pre_src)."""
+    moves_target = cfg.icp_register_first and cfg.icp_reg_target_to_source
+    if pre is None and not moves_target:
+        wide_warm = warm_block is not None and _keeps_block(cfg, target)
+        init = (draws.get("eig_block_target") if wide_warm
+                else _start(draws, "target", cfg, target))
+        pre = _prepare_target(target, cfg, init, warm_block, generator)
+    if pre_src is None and source_spectrum_hoistable(cfg):
+        x0 = None
+        if (pre is not None and pre.get("block") is not None
+                and _warm_supported(cfg, target.n_points, source.n_points)
+                and not cfg.icp_register_first):
+            x0 = _warm_x0(pre["block"], target.points, target.valid_mask, source.points)
+        init = (draws.get("eig_block_source") if x0 is not None
+                else _start(draws, "source", cfg, source))
+        pre_src = _prepare_source(source, cfg, init, generator, x0=x0)
+    return pre, pre_src
 
 
 def warm_block_from_prepared(prep, template: GraphArrays = None):
@@ -1039,9 +1170,10 @@ def register_pair_prepared(prep, target: GraphArrays, source: GraphArrays,
     """Register ``source`` onto a target prepared by :func:`prepare_target`
     (``pyfocusr_tpu/pipeline.py:1057-1093``): the contract of
     :func:`register_pair` without the target's eigensolve and smoothing.
-    Reads no ``draws["eig_block_target"]``.  The JAX package's
-    split-spectra path for large meshes is not ported (see the module
-    docstring): the source solve always runs inline."""
+    Reads no ``draws["eig_block_target"]``.  From ``_SPLIT_SPECTRA_N``
+    vertices the source solve is hoisted before the pair (see the module
+    docstring): warm from the prepared block through the unmoved points
+    without ICP, cold from ``draws["eig_block_source"]`` with it."""
     if cfg.icp_register_first and cfg.icp_reg_target_to_source:
         raise ValueError(
             "register_pair_prepared requires a fixed target (prepared state "
@@ -1092,8 +1224,14 @@ def prepare_source(source: GraphArrays, cfg: PipelineConfig, init_block=None,
 
 
 @f32_matmuls
-def _prepare_source(source, cfg, init_block, generator):
+def _prepare_source(source, cfg, init_block, generator, x0=None):
     with record_function("prepare_source/spectra"):
+        if x0 is not None:
+            # Warm from a hoisted target's block (the split-spectra
+            # schedule): the truncated schedule, and no block kept.
+            lams, vecs, w = _spectrum(source, cfg.n_total, cfg, init_block, x0=x0,
+                                      generator=generator, **_warm_schedule(cfg))
+            return {"lams": lams, "vecs": vecs, "w": w}
         if _keeps_block(cfg, source):
             lams, vecs, w, blk = _spectrum(source, cfg.n_total, cfg, init_block,
                                            return_block=True, generator=generator)
@@ -1111,8 +1249,10 @@ def register_pair_prepared_source(prep_src, target: GraphArrays,
     :func:`prepare_source` (``pyfocusr_tpu/pipeline.py:1176-1202``): the
     contract of :func:`register_pair` without the source's eigensolve; the
     target solve starts from the prepared block when the warm start
-    applies.  Reads no ``draws["eig_block_source"]``.  The split-spectra
-    path is not ported (see the module docstring)."""
+    applies.  Reads no ``draws["eig_block_source"]``.  From
+    ``_SPLIT_SPECTRA_N`` vertices a fixed target is solved cold before the
+    pair (see the module docstring) and seeds nothing from the prepared
+    block."""
     if not source_spectrum_hoistable(cfg):
         raise ValueError(
             "register_pair_prepared_source: cfg is not source-hoistable "

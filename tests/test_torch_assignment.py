@@ -429,6 +429,59 @@ def test_sinkhorn_jv_lap_rejects_rectangular():
         JA.sinkhorn_jv_lap(jnp.zeros((4, 6)))
 
 
+# ------------------------------------------------------ the auction
+
+
+@pytest.mark.parametrize("n", [1, 2, 64, 200])
+def test_auction_lap_matches_jax(n):
+    """The port's rounds are JAX's (top 2, scatter-max, lowest row on
+    ties, price bump, eviction, 7 epsilon phases): the same assignment on
+    a random cost, a permutation within the auction's bound of the
+    optimum (n times the last epsilon, spread / 4 n)."""
+    c = _random_cost(n, n)
+    want = np.asarray(JA.auction_lap(jnp.asarray(c)))
+    got = TA.auction_lap(torch.from_numpy(c))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert sorted(got.tolist()) == list(range(n))
+    r, col = linear_sum_assignment(c)
+    gap = c[np.arange(n), got.numpy()].sum() - c[r, col].sum()
+    assert gap <= np.ptp(c) / 4 + 1e-5
+    if n > 1:
+        stats = TA.AUCTION_STATS
+        assert len(stats) == 7 and all(s["iterations"] >= 1 for s in stats)
+        assert all(s["host_reads"] <= -(-s["iterations"] // TA.AUCTION_BLOCK) + 1
+                   for s in stats)
+
+
+def test_auction_one_by_one_and_round_cap():
+    assert TA.auction_lap(torch.tensor([[3.0]])).tolist() == [0]
+    assert np.asarray(JA.auction_lap(jnp.asarray([[3.0]]))).tolist() == [0]
+    # A round cap that stops every phase early: the rows left are paired
+    # with the free columns, in both packages.
+    c = _random_cost(64, 5)
+    want = np.asarray(JA.auction_lap(jnp.asarray(c), max_rounds=3))
+    got = TA.auction_lap(torch.from_numpy(c), max_rounds=3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert sorted(got.tolist()) == list(range(64))
+
+
+def test_sinkhorn_auction_lap_forwards_to_jv_and_refuses_auction_keywords():
+    c = _random_cost(40, 7)
+    want = TA.sinkhorn_jv_lap(torch.from_numpy(c), warm_start=False)
+    got = TA.sinkhorn_auction_lap(torch.from_numpy(c), warm_start=False)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(JA.sinkhorn_auction_lap(jnp.asarray(c), warm_start=False)))
+    messages = []
+    for mod, arr in ((TA, torch.from_numpy(c)), (JA, jnp.asarray(c))):
+        with pytest.raises(TypeError) as err:
+            mod.sinkhorn_auction_lap(arr, eps_scaling_steps=3, max_rounds=10)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+    assert "eps_scaling_steps" in messages[0]
+
+
 # ------------------------------------------------------ eigsort, k > 8
 
 

@@ -2,8 +2,8 @@
 """Chosen kernel phases of ``chip_smoke.py`` on one CUDA card, without the
 paths around them: a quick check of a kernel after a change.
 
-    python3 tools/chip_phases.py [topk] [estep_wide] [sharded] [icp] [--sweep]
-        [--topk-variant SPEC]...
+    python3 tools/chip_phases.py [topk] [estep_wide] [sharded] [icp] [completion]
+        [--sweep] [--topk-variant SPEC]...
 
 ``topk`` runs ``phase_knn_topk`` (the k = 4..128 kernel against
 ``knn_plain``, bit for bit, and its times), ``estep_wide`` runs
@@ -21,7 +21,10 @@ captured ICP loop against the plain loop, bit for bit, and its device ms an
 iteration) on the 'kd' pair's ICP inputs, recorded from one
 ``register_pair``; with ``--sweep`` it also times the step at every cluster
 size (1-16 CTAs) at 256 to 163842 source rows, so the planner's
-``ONE_CTA_MAX_ROWS`` can be read beside the others.  ``--sweep`` also
+``ONE_CTA_MAX_ROWS`` can be read beside the others.  ``completion`` runs
+``phase_completion`` (the patch-dense filter against the ELL one, the
+split-spectra schedule on the 122k hub pair, the union and batched
+spectra, the auction) after building every library.  ``--sweep`` also
 times both grids of the top-k kernel (1 and 4
 queries a warp; 4 only up to k = 32) and every split of the E-step's other
 cloud (both passes alike) at the timed shapes, each as one call from a CUDA
@@ -225,6 +228,11 @@ def main():
         cs.emit({"phase": "environment", "torch": torch.__version__, "cuda": torch.version.cuda,
                  "device_count": torch.cuda.device_count(), "deterministic": deterministic})
         cs.phase_sharded(torch, tp, cs.kernel_modules(), smi, deterministic)
+    if "completion" in phases:
+        from pyfocusr_tpu_torch.utils import aot
+
+        aot.build_libraries("cuda")
+        cs.phase_completion(torch, tp, cs.kernel_modules(), smi)
     print(json.dumps({"nvidia_smi": smi}), flush=True)
     return 0
 
