@@ -2587,10 +2587,10 @@ def profile_run(torch, tp, tg, sg, cfg, draws, smi, phase, table_name):
 
 def profile_call(torch, fn, smi, phase, table_name):
     """``fn()`` under torch.profiler: wall time, device busy time (sum of
-    kernel and copy durations on the card), and each ``register_pair``
-    stage's host time and the device time of the torch operators it
-    launched (the ``lap_*`` ranges lie inside the correspondence stage),
-    once per stage and pair.  The full table goes to build/<table_name>."""
+    kernel and copy durations on the card), and each top-level
+    ``register_pair/`` range's host time (the draws, ``inputs`` and the
+    stages) and the device time of what it launched, once per range and
+    pair.  The full table goes to build/<table_name>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2606,8 +2606,10 @@ def profile_call(torch, fn, smi, phase, table_name):
         and not e.name.startswith("register_pair/")
     )
     # The hand-written kernels are launched through ctypes, outside any
-    # torch operator, so the stage ranges' device time misses them: their
-    # time is summed here by kernel name.
+    # torch operator: a stage's device time counts those launched inside one
+    # of its nested spans (``icp/loop``, ``cpd/em_loop``, ``lap/*``, ...;
+    # ``utils/spans.py``) and misses the rest.  Their time is summed here by
+    # kernel name.
     own_ms = {}
     for e in events:
         if e.device_type == DeviceType.CUDA:

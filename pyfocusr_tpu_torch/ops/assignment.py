@@ -32,10 +32,9 @@ import itertools
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import native
-from ..utils import device_loop
+from ..utils import device_loop, spans
 from . import jv_kernel, sinkhorn_kernel
 
 __all__ = ["auction_lap", "exact_lap_small", "lap_host", "lap_host_plain",
@@ -164,12 +163,15 @@ def exact_lap_small(cost: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"exact_lap_small requires a square cost, got {tuple(cost.shape)}")
     if k > 8:
         raise ValueError(f"exact_lap_small enumerates k! permutations; k={k} > 8")
-    perms = torch.as_tensor(
-        np.array(list(itertools.permutations(range(k))), np.int64)
-    ).to(cost.device)
+    with spans.host_read("perms_copy"):
+        perms = torch.as_tensor(
+            np.array(list(itertools.permutations(range(k))), np.int64)
+        ).to(cost.device)
     rows = torch.arange(k, device=cost.device)[None, :]
     totals = cost[rows, perms].sum(dim=1)
-    return perms[torch.argmin(totals)]
+    best = torch.argmin(totals)
+    with spans.host_read("perms_index"):  # a 0-d index is read to the host
+        return perms[best]
 
 
 def _sinkhorn_duals(cost, T0, T_factor: float, levels: int, iters_per_level: int):
@@ -236,11 +238,20 @@ def _jv_device(cost, v0, max_total_steps: int):
     the Dijkstra augmentation of ``jv_kernel.jv_device`` (the CUDA kernel
     for CUDA tensors, its plain version for CPU tensors).  Returns
     (col_of_row int32 [n] with -1 where the step budget ran out, steps_used,
-    u, v)."""
-    with record_function("register_pair/lap_bulk_match"):
+    u, v).  The open call's record counts JV's steps (``jv_steps``), the
+    rows left free by the bulk match (``jv_free_rows``) and whether the
+    budget left rows unassigned (``jv_budget_hit``), each kept on the
+    device until the record is read."""
+    with spans.span("lap/bulk_match"):
         u0, row4col0, col4row0 = _bulk_match(cost, v0)
-    with record_function("register_pair/lap_jv"):
-        return jv_kernel.jv_device(cost, u0, v0, row4col0, col4row0, max_total_steps)
+    with spans.span("lap/jv"):
+        col4row, steps, u, v = jv_kernel.jv_device(cost, u0, v0, row4col0, col4row0,
+                                                   max_total_steps)
+    if spans.current() is not None:
+        spans.count("jv_steps", steps.to(torch.int64))
+        spans.count("jv_free_rows", (col4row0 < 0).sum())
+        spans.count("jv_budget_hit", (col4row < 0).any().to(torch.int64))
+    return col4row, steps, u, v
 
 
 def sinkhorn_jv_lap(cost, levels: int = 14, iters_per_level: int = 30,
@@ -251,8 +262,9 @@ def sinkhorn_jv_lap(cost, levels: int = 14, iters_per_level: int = 30,
     when ``warm_start`` and n >= 512; smaller problems start from v = 0.
     The duals only shorten the augmenting paths: feasibility and exactness
     come from ``_bulk_match`` for any v.  ``max_total_steps`` (default 60 n)
-    bounds the Dijkstra steps; rows beyond it (none observed) are paired
-    with the leftover columns.
+    bounds the Dijkstra steps; rows beyond it are paired greedily with the
+    leftover columns, off the optimum (the open call's record says so in
+    ``jv_budget_hit``; its Sinkhorn passes in ``sinkhorn_passes``).
 
     Returns the column assigned to each row, int64 [n], always a
     permutation.  With ``return_duals`` returns ``(assignment, u, v,
@@ -270,12 +282,15 @@ def sinkhorn_jv_lap(cost, levels: int = 14, iters_per_level: int = 30,
     if max_total_steps is None:
         max_total_steps = 60 * n
     cost = cost.contiguous()
-    with record_function("register_pair/lap_warm_start"):
+    with spans.span("lap/warm_start"):
         if warm_start and n >= 512:
-            spread = float(torch.clamp(cost.max() - cost.min(), min=1e-12))
+            spread = torch.clamp(cost.max() - cost.min(), min=1e-12)
+            with spans.host_read("lap_spread"):
+                spread = float(spread)
             _, v0 = sinkhorn_kernel.sinkhorn_duals_streamed(
                 cost, spread / 4.0, 1.0 / 3.0, levels, iters_per_level
             )
+            spans.count("sinkhorn_passes", 2 * levels * iters_per_level)
         else:
             v0 = torch.zeros((n,), dtype=torch.float32, device=cost.device)
     col4row, steps, u, v = _jv_device(cost, v0, max_total_steps)

@@ -41,7 +41,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils import device_loop
+from ..utils import device_loop, spans
 from ..utils.device import resolve_device
 from ..utils.precision import f32_matmuls
 from . import cpd_estep_kernel
@@ -138,7 +138,8 @@ def low_rank_gaussian(Y, beta, num_eig: int, omega):
         Qb, _ = torch.linalg.qr(gmat(Qb))
     H = Qb.T @ gmat(Qb)
     H = 0.5 * (H + H.T)
-    lam, S = torch.linalg.eigh(H)  # ascending
+    with spans.host_read("eigh"):
+        lam, S = torch.linalg.eigh(H)  # ascending
     lam = torch.flip(lam, dims=[0])[:num_eig]
     S = torch.flip(S, dims=[1])[:, :num_eig]
     return Qb @ S, torch.clamp(lam, min=0.0)
@@ -194,17 +195,31 @@ def _em_loop(update, state, max_iterations: int, tolerance: float,
     count in ``cpd_estep_kernel.LAUNCHES`` at each replay."""
     if loop not in ("blocked", "plain"):
         raise ValueError(f"loop must be 'blocked' or 'plain', got {loop!r}")
-    sigma2 = state["sigma2"]
-    if loop == "plain":
-        it = 0
-        err = torch.full_like(sigma2, float("inf"))
-        while it < max_iterations and bool(err > tolerance):
-            new = update(state, None)
-            err = (new["sigma2"] - state["sigma2"]).abs()
-            state.update(new)
-            it += 1
-        return it
+    with spans.span("cpd/em_loop"):
+        it = (_plain_em_loop if loop == "plain" else _blocked_em_loop)(
+            update, state, max_iterations, tolerance)
+    spans.count("em_iterations", it)
+    return it
 
+
+def _plain_em_loop(update, state, max_iterations: int, tolerance: float) -> int:
+    it = 0
+    err = torch.full_like(state["sigma2"], float("inf"))
+    while it < max_iterations:
+        go = err > tolerance
+        with spans.host_read("stop_test"):
+            go = bool(go)
+        if not go:
+            break
+        new = update(state, None)
+        err = (new["sigma2"] - state["sigma2"]).abs()
+        state.update(new)
+        it += 1
+    return it
+
+
+def _blocked_em_loop(update, state, max_iterations: int, tolerance: float) -> int:
+    sigma2 = state["sigma2"]
     device_loop.reset_stats(EM_STATS, EM_BLOCK)
     if not (max_iterations > 0 and math.inf > tolerance):
         return 0

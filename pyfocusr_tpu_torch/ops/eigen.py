@@ -38,6 +38,7 @@ import collections
 
 import torch
 
+from ..utils import spans
 from ..utils.precision import f32_matmuls
 
 __all__ = [
@@ -166,14 +167,16 @@ def lanczos_shift_invert(matvec, null_vec: torch.Tensor, k: int,
 
     T = (torch.diag(alphas) + torch.diag(betas[: m - 1], 1)
          + torch.diag(betas[: m - 1], -1))
-    theta, Y = torch.linalg.eigh(T)  # ascending
+    with spans.host_read("eigh"):
+        theta, Y = torch.linalg.eigh(T)  # ascending
     idx = torch.argsort(-theta)[:k]  # largest of B = smallest of A
     ritz = _project_out(v0, V.T @ Y[:, idx])
     ritz = ritz / ritz.norm(dim=0, keepdim=True)
     for _ in range(refine_steps):
         Q, _ = torch.linalg.qr(_project_out(v0, apply_b(ritz)))
         H = Q.T @ matvec(Q)
-        _, S = torch.linalg.eigh(0.5 * (H + H.T))
+        with spans.host_read("eigh"):
+            _, S = torch.linalg.eigh(0.5 * (H + H.T))
         ritz = Q @ S
         ritz = ritz / ritz.norm(dim=0, keepdim=True)
     Av = matvec(ritz)
@@ -258,14 +261,18 @@ def chebyshev_eigpairs_wide(
         as spurious theta = 0 modes."""
         Y = Y / torch.clamp(Y.norm(dim=0, keepdim=True), min=1e-30)
         G = Y.T @ Y
-        e, U = torch.linalg.eigh(G)
+        with spans.host_read("eigh"):
+            e, U = torch.linalg.eigh(G)
         floor = e[-1] * 1e-10
         valid = e > floor
         inv = torch.where(
             valid, 1.0 / torch.sqrt(torch.maximum(e, floor)), torch.zeros_like(e)
         )
         Q = Y @ (U * inv[None, :])
-        if not bool(valid.all()):
+        all_valid = valid.all()
+        with spans.host_read("svqb_rank"):
+            all_valid = bool(all_valid)
+        if not all_valid:
             noise = _randn(Q.shape, generator, device)
             if subspace_mask is not None:
                 noise = noise * subspace_mask[:, None]
@@ -274,11 +281,21 @@ def chebyshev_eigpairs_wide(
             Q = torch.where(valid[None, :], Q, noise)
         H = Q.T @ matvec(Q)
         H = 0.5 * (H + H.T)
-        theta, S = torch.linalg.eigh(H)
+        with spans.host_read("eigh"):
+            theta, S = torch.linalg.eigh(H)
         return Q @ S, theta
 
     def next_cut(theta):
         return torch.clamp(1.5 * theta[cut], lam_max * 1e-5, lam_max * 2e-2)
+
+    def chunk(X, a):
+        """One chunk: the filter, then SVQB and Rayleigh-Ritz."""
+        with spans.span("spectra/chunk"):
+            with spans.span("spectra/filter"):
+                X = _project_out(v0, cheb_filter(X, a, chunk_degree))
+            with spans.span("spectra/svqb_rr"):
+                X, theta = svqb_rr(X)
+            return X, next_cut(theta)
 
     if x0 is not None and x0.shape[1] >= b:
         X = x0[:, :b].to(torch.float32).clone()
@@ -296,9 +313,7 @@ def chebyshev_eigpairs_wide(
     X = _project_out(v0, X)
     a = lam_max * 1e-3
     for _ in range(chunks):
-        X = _project_out(v0, cheb_filter(X, a, chunk_degree))
-        X, theta = svqb_rr(X)
-        a = next_cut(theta)
+        X, a = chunk(X, a)
 
     def wanted_resid(Xc):
         V = Xc[:, :k]
@@ -308,17 +323,19 @@ def chebyshev_eigpairs_wide(
         return (Av - V * th[None, :]).norm(dim=0).max()
 
     done = 0
-    if extra_chunks > 0:
-        while done < extra_chunks and bool(
-            wanted_resid(X) > extra_resid_tol * lam_max
-        ):
-            X = _project_out(v0, cheb_filter(X, a, chunk_degree))
-            X, theta = svqb_rr(X)
-            a = next_cut(theta)
-            done += 1
+    while done < extra_chunks:
+        with spans.span("spectra/top_up_gate"):
+            more = wanted_resid(X) > extra_resid_tol * lam_max
+            with spans.host_read("top_up_gate"):
+                more = bool(more)
+        if not more:
+            break
+        X, a = chunk(X, a)
+        done += 1
 
     SOLVES.append({"n": n, "warm": x0 is not None, "chunks": chunks + done,
                    "top_up_chunks": done})
+    spans.solve(n, x0 is not None, chunks + done, done)
     V = X[:, :k]
     V = V / V.norm(dim=0, keepdim=True)
     Av = matvec(V)
@@ -399,7 +416,8 @@ def chebyshev_eigpairs(matvec, null_vec: torch.Tensor, k: int,
         Q, _ = torch.linalg.qr(_project_out(v0, cheb_filter(X, a, deg)))
         AQ = matvec(Q)
         H = Q.T @ AQ
-        theta, S = torch.linalg.eigh(0.5 * (H + H.T))  # ascending
+        with spans.host_read("eigh"):
+            theta, S = torch.linalg.eigh(0.5 * (H + H.T))  # ascending
         X = Q @ S
         resid = ((AQ @ S)[:, :k_tot] - X[:, :k_tot] * theta[None, :k_tot]).norm(dim=0)
         a = torch.clamp(1.5 * theta[k_tot - 1], lam_max * 1e-5, lam_max * 2e-2)
@@ -413,13 +431,20 @@ def chebyshev_eigpairs(matvec, null_vec: torch.Tensor, k: int,
     X, a, r = sweep(X, lam_max * 1e-3, deg0)
     change = float("inf")
     for _ in range(sweeps - 1):
-        if resid_tol > 0 and not (bool(r > lam_max * resid_tol) or change > 1e-5):
-            break
+        if resid_tol > 0:
+            far = r > lam_max * resid_tol
+            with spans.host_read("sweep_gate"):
+                far = bool(far)
+            if not (far or change > 1e-5):
+                break
         prev = X[:, :k_tot]
         X, a, r = sweep(X, a, degree)
         if resid_tol > 0:
-            sv = torch.linalg.svdvals(prev.T @ X[:, :k_tot])
-            change = float(1.0 - sv.min())
+            with spans.host_read("svdvals"):
+                sv = torch.linalg.svdvals(prev.T @ X[:, :k_tot])
+            least = 1.0 - sv.min()
+            with spans.host_read("sweep_gate"):
+                change = float(least)
 
     sigma = a * 0.1
 
@@ -432,7 +457,8 @@ def chebyshev_eigpairs(matvec, null_vec: torch.Tensor, k: int,
         """The k smallest Ritz pairs of A on span(Zp)."""
         Qz, _ = torch.linalg.qr(Zp)
         Hz = Qz.T @ matvec(Qz)
-        _, Sz = torch.linalg.eigh(0.5 * (Hz + Hz.T))
+        with spans.host_read("eigh"):
+            _, Sz = torch.linalg.eigh(0.5 * (Hz + Hz.T))
         vecs = Qz @ Sz
         vecs = vecs / vecs.norm(dim=0, keepdim=True)
         Av = matvec(vecs)

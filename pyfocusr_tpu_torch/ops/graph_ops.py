@@ -21,6 +21,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils import spans
+
 __all__ = [
     "DEGREE_EPS",
     "edge_weights",
@@ -108,7 +110,8 @@ def g_vector(node_features, degrees, feature_weights, p_function: str = "exp",
     if not include_features or node_features is None or node_features.shape[0] == 0:
         return d_inv
 
-    inf = torch.tensor(float("inf"), device=degrees.device)
+    with spans.host_read("scalar_copy"):
+        inf = torch.tensor(float("inf"), device=degrees.device)
 
     def mmin(x):
         return x.min() if valid_mask is None else torch.where(valid_mask > 0, x, inf).min()
@@ -201,25 +204,27 @@ def mean_filter_chebyshev(neighbors, weights, values, iterations: int,
     if degree >= q:
         return mean_filter(neighbors, weights, values, q, overflow, ov_w)
 
-    squeeze = values.dim() == 1
-    x = values[:, None] if squeeze else values
-    d = degree_vector(weights, overflow, ov_w)
-    inv_sqrt = (1.0 + d) ** -0.5
+    with spans.span("smoothing/chebyshev"):
+        squeeze = values.dim() == 1
+        x = values[:, None] if squeeze else values
+        d = degree_vector(weights, overflow, ov_w)
+        inv_sqrt = (1.0 + d) ** -0.5
 
-    def s_op(v):
-        u = inv_sqrt[:, None] * v
-        return inv_sqrt[:, None] * (spmv(neighbors, weights, u, overflow, ov_w) + u)
+        def s_op(v):
+            u = inv_sqrt[:, None] * v
+            return inv_sqrt[:, None] * (spmv(neighbors, weights, u, overflow, ov_w) + u)
 
-    coeffs = torch.as_tensor(
-        _chebyshev_power_coeffs(q, degree), dtype=torch.float32
-    ).to(x.device)
-    x0 = x / inv_sqrt[:, None]
-    t_prev = x0
-    t_cur = s_op(x0)
-    acc = coeffs[0] * t_prev + coeffs[1] * t_cur
-    for kk in range(2, degree + 1):
-        t_next = 2.0 * s_op(t_cur) - t_prev
-        acc = acc + coeffs[kk] * t_next
-        t_prev, t_cur = t_cur, t_next
-    out = inv_sqrt[:, None] * acc
-    return out[:, 0] if squeeze else out
+        with spans.host_read("coeffs_copy"):
+            coeffs = torch.as_tensor(
+                _chebyshev_power_coeffs(q, degree), dtype=torch.float32
+            ).to(x.device)
+        x0 = x / inv_sqrt[:, None]
+        t_prev = x0
+        t_cur = s_op(x0)
+        acc = coeffs[0] * t_prev + coeffs[1] * t_cur
+        for kk in range(2, degree + 1):
+            t_next = 2.0 * s_op(t_cur) - t_prev
+            acc = acc + coeffs[kk] * t_next
+            t_prev, t_cur = t_cur, t_next
+        out = inv_sqrt[:, None] * acc
+        return out[:, 0] if squeeze else out

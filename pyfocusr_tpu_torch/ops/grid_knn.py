@@ -51,6 +51,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import spans
 from . import knn_kernel
 
 __all__ = ["knn_grid", "last_stats"]
@@ -113,8 +114,9 @@ def _build(ref_clean, finite, lo, s, dims, n_cols: int):
     order = torch.argsort(cid, stable=True)
     sorted_cz = torch.where(finite, cell[:, 2],
                             torch.full_like(colid, _INT64_MAX))[order]
-    counts = torch.bincount(torch.where(finite, colid, torch.full_like(colid, n_cols)),
-                            minlength=n_cols + 1)[:n_cols]
+    cols = torch.where(finite, colid, torch.full_like(colid, n_cols))
+    with spans.host_read("grid_bincount", 2):  # its least and largest id, read back
+        counts = torch.bincount(cols, minlength=n_cols + 1)[:n_cols]
     colstart = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
     return sorted_cz, ref_clean[order], order, colstart
 
@@ -140,7 +142,8 @@ def _search(sorted_cz, colstart, query, lo, s, dims):
     """Per query: its cell, the spans [start, end) of its 9 column runs in
     the sorted order, and whether a searched column is too long."""
     cell = _cells(query, lo, s, dims)
-    offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=query.device)
+    with spans.host_read("grid_copy"):
+        offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=query.device)
     rx = cell[:, 0, None] + offs[None, :, 0]  # [n, 9]
     ry = cell[:, 1, None] + offs[None, :, 1]
     ok = (rx >= 0) & (rx < dims[0]) & (ry >= 0) & (ry < dims[1])
@@ -164,7 +167,8 @@ def _select(sorted_pts, sorted_idx, query, cell, start, end, col_too_long,
     valid = (pos < end[:, :, None]).reshape(n, 9 * cap)
     posc = torch.clamp(pos, max=sorted_pts.shape[0] - 1).reshape(n, 9 * cap)
     cpts = sorted_pts[posc]  # [n, 9 cap, 3]
-    inf = torch.tensor(float("inf"), device=query.device)
+    with spans.host_read("grid_copy"):
+        inf = torch.tensor(float("inf"), device=query.device)
     # As knn_plain: per dimension in order, product and sum rounded apart.
     d2 = torch.zeros((n, 9 * cap), dtype=torch.float32, device=query.device)
     for c in range(3):
@@ -216,9 +220,12 @@ def _estimate_dk(ref_clean, finite_np, brute, k: int) -> float:
         return 0.0
     corr = math.sqrt(kept / max(int(finite_np.sum()), 1))
     dev = ref_clean.device
-    d, _ = brute(ref_clean[torch.from_numpy(r_idx).to(dev)].contiguous(),
-                 ref_clean[torch.from_numpy(q_idx).to(dev)].contiguous(), k)
-    dk = d.cpu().numpy()[q_ok][:, k - 1]
+    with spans.host_read("grid_copy", 2):
+        r_rows, q_rows = torch.from_numpy(r_idx).to(dev), torch.from_numpy(q_idx).to(dev)
+    d, _ = brute(ref_clean[r_rows].contiguous(), ref_clean[q_rows].contiguous(), k)
+    with spans.host_read("grid_read"):
+        d = d.cpu()
+    dk = d.numpy()[q_ok][:, k - 1]
     dk = dk[np.isfinite(dk) & (dk > 0)]
     return float(np.median(dk)) * corr if dk.size else 0.0
 
@@ -248,7 +255,8 @@ def knn_grid(ref: torch.Tensor, query: torch.Tensor, k: int, brute=None):
         return (torch.zeros((0, k), dtype=torch.float32, device=query.device),
                 torch.zeros((0, k), dtype=torch.int32, device=query.device))
     finite, ref_clean, lo, hi = _prep(ref)
-    finite_np = finite.cpu().numpy()
+    with spans.host_read("grid_read"):
+        finite_np = finite.cpu().numpy()
     dk_est = 0.0
     if int(finite_np.sum()) >= max(k, 8):
         dk_est = _estimate_dk(ref_clean, finite_np, brute, k)
@@ -256,8 +264,9 @@ def knn_grid(ref: torch.Tensor, query: torch.Tensor, k: int, brute=None):
         _set_stats(**stats)
         return brute(ref, query, k)
 
-    lo_np = lo.double().cpu().numpy()
-    hi_np = hi.double().cpu().numpy()
+    lo_d, hi_d = lo.double(), hi.double()
+    with spans.host_read("grid_read", 2):
+        lo_np, hi_np = lo_d.cpu().numpy(), hi_d.cpu().numpy()
     ext = hi_np - lo_np
     coord_scale = float(np.abs(np.concatenate([lo_np, hi_np])).max())
     cap1 = max(_RUN_CAP, 2 * k + 6)
@@ -272,8 +281,9 @@ def knn_grid(ref: torch.Tensor, query: torch.Tensor, k: int, brute=None):
         if int(dims_np[0] * dims_np[1]) > _MAX_COLS:
             s_val *= math.sqrt(int(dims_np[0] * dims_np[1]) / _MAX_COLS)
             dims_np = np.maximum(np.floor(ext / s_val).astype(np.int64) + 1, 1)
-        dims = torch.from_numpy(dims_np).to(query.device)
-        s_t = torch.tensor(s_val, dtype=torch.float32, device=query.device)
+        with spans.host_read("grid_copy", 2):
+            dims = torch.from_numpy(dims_np).to(query.device)
+            s_t = torch.tensor(s_val, dtype=torch.float32, device=query.device)
         sorted_cz, sorted_pts, sorted_idx, colstart = _build(
             ref_clean, finite, lo, s_t, dims, int(dims_np[0] * dims_np[1]))
         parts = []
@@ -287,14 +297,18 @@ def knn_grid(ref: torch.Tensor, query: torch.Tensor, k: int, brute=None):
 
     # Pass 1: cells sized to the typical k-th neighbour distance.
     d2, idx, exact, s_real, dims_np = run_pass(query, _S_MULT * dk_est, cap1)
-    fb1 = np.nonzero(~exact.cpu().numpy())[0]
+    with spans.host_read("grid_read"):
+        fb1 = np.nonzero(~exact.cpu().numpy())[0]
     fb = fb1
     if fb1.size:
         # Pass 2: sparse patches and dense spots, with 2x cells and cap.
-        rows = torch.from_numpy(fb1).to(query.device)
+        with spans.host_read("grid_copy"):
+            rows = torch.from_numpy(fb1).to(query.device)
         d2b, idxb, exactb, _, _ = run_pass(query[rows], 2.0 * s_real, 2 * cap1)
-        ex2 = exactb.cpu().numpy()
-        good = torch.from_numpy(np.nonzero(ex2)[0]).to(query.device)
+        with spans.host_read("grid_read"):
+            ex2 = exactb.cpu().numpy()
+        with spans.host_read("grid_copy"):
+            good = torch.from_numpy(np.nonzero(ex2)[0]).to(query.device)
         d2[rows[good]] = d2b[good]
         idx[rows[good]] = idxb[good]
         fb = fb1[~ex2]
@@ -304,7 +318,8 @@ def knn_grid(ref: torch.Tensor, query: torch.Tensor, k: int, brute=None):
     dists = torch.sqrt(torch.clamp(d2, min=0.0))
     idx = idx.to(torch.int32)
     if fb.size:
-        rows = torch.from_numpy(fb).to(query.device)
+        with spans.host_read("grid_copy"):
+            rows = torch.from_numpy(fb).to(query.device)
         d_fb, i_fb = brute(ref, query[rows].contiguous(), k)
         dists[rows] = d_fb
         idx[rows] = i_fb

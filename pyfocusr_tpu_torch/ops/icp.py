@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import device_loop
+from ..utils import device_loop, spans
 from ..utils.precision import f32_matmuls
 from . import knn_kernel, umeyama_kernel
 
@@ -132,7 +132,8 @@ def icp(source_points, target_points, mode: str = "rigid",
     s = torch.ones((), dtype=dt, device=dev)
     R = torch.eye(3, dtype=dt, device=dev)
     t = t0.clone()
-    delta = torch.tensor(float("inf"), dtype=dt, device=dev)
+    with spans.host_read("scalar_copy"):
+        delta = torch.tensor(float("inf"), dtype=dt, device=dev)
     state = (s, R, t, moved, delta)  # updated in place by icp_step
     ctrl = torch.zeros((2,), dtype=torch.int32, device=dev)  # iterations, done
 
@@ -153,17 +154,20 @@ def icp(source_points, target_points, mode: str = "rigid",
                                 max_iterations, with_scale)
 
     it = 0
-    if loop == "plain":
-        done = max_iterations <= 0
-        while not done:
-            step()
-            it, done = ctrl.tolist()
-    else:
-        device_loop.reset_stats(ICP_STATS, ICP_BLOCK)
-        if max_iterations > 0:
-            it = device_loop.run_blocked(
-                step, ctrl, max_iterations, ICP_BLOCK, ICP_STATS,
-                kernels=(knn_kernel, umeyama_kernel), what="ICP loop")
+    with spans.span("icp/loop"):
+        if loop == "plain":
+            done = max_iterations <= 0
+            while not done:
+                step()
+                with spans.host_read("flag_read"):
+                    it, done = ctrl.tolist()
+        else:
+            device_loop.reset_stats(ICP_STATS, ICP_BLOCK)
+            if max_iterations > 0:
+                it = device_loop.run_blocked(
+                    step, ctrl, max_iterations, ICP_BLOCK, ICP_STATS,
+                    kernels=(knn_kernel, umeyama_kernel), what="ICP loop")
+    spans.count("icp_iterations", it)
     if return_iterations:
         return (s, R, t), moved, it
     return (s, R, t), moved

@@ -27,6 +27,7 @@ import time
 
 import torch
 
+from ..utils import spans
 from ._cuda_build import BUILD_DIR
 
 __all__ = ["bucket_key", "cache_file", "routed"]
@@ -91,7 +92,8 @@ def _store(path: str, data: dict) -> None:
 
 def _sync(device):
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        with spans.host_read("route_race"):
+            torch.cuda.synchronize(device)
 
 
 def routed(bucket: str, runners: dict, device):

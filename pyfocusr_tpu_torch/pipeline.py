@@ -76,7 +76,6 @@ import os
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .mesh import TriMesh, build_topology
 from .ops import cpd as cpd_ops
@@ -94,6 +93,7 @@ from .ops.knn import (
 )
 from .ops.patch_dense import build_patch_plan, patch_filter_factory, plan_to
 from .spectral.eigsort_device import sort_eigenmaps
+from .utils import spans
 from .utils.checkpoint import load_results, save_results
 from .utils.device import resolve_device
 from .utils.precision import f32_matmuls
@@ -424,7 +424,8 @@ def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
 
 def _masked_minmax_norm(vecs, mask):
     """Column min-max over real vertices only -> [-0.5, 0.5]."""
-    inf = torch.tensor(float("inf"), device=vecs.device)
+    with spans.host_read("scalar_copy"):
+        inf = torch.tensor(float("inf"), device=vecs.device)
     mn = torch.where(mask[:, None] > 0, vecs, inf).min(dim=0).values
     mx = torch.where(mask[:, None] > 0, vecs, -inf).max(dim=0).values
     out = (vecs - mn) / torch.clamp(mx - mn, min=1e-30) - 0.5
@@ -499,52 +500,62 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
             "return_block/x0/chunks/degree need the wide Chebyshev "
             "path (eig_method='chebyshev', n_points >= 2048)"
         )
-    mask = graph.valid_mask
-    nbrs = graph.neighbors
-    feats = graph.node_features
-    has_feats = feats.shape[1] > 0
-    coords = graph.points
-    if cfg.include_features_in_adj_matrix and has_feats:
-        # Edge weights on xyz with the features, scaled by the mean axis
-        # range, appended as further coordinates.
-        mean_range = _normed_points(graph)[1]
-        coords = torch.cat([graph.points, feats * mean_range * mask[:, None]], dim=1)
-    w = graph_ops.edge_weights(coords, nbrs, graph.nbr_mask)
-    ov = graph.overflow
-    ov_w = graph_ops.overflow_weights(coords, ov)
-    d = graph_ops.degree_vector(w, ov, ov_w)
-    if cfg.use_features_in_graph and has_feats:
-        # The feature G of L = G (D - W); the operator, its bound, the
-        # fused filter and the null basis below all take s = sqrt(g).
-        if cfg.feature_weights_diag:
-            fw = torch.diag(torch.tensor(cfg.feature_weights_diag,
-                                         dtype=torch.float32, device=d.device))
+    with spans.span("spectra/setup"):
+        mask = graph.valid_mask
+        nbrs = graph.neighbors
+        feats = graph.node_features
+        has_feats = feats.shape[1] > 0
+        coords = graph.points
+        if cfg.include_features_in_adj_matrix and has_feats:
+            # Edge weights on xyz with the features, scaled by the mean axis
+            # range, appended as further coordinates.
+            mean_range = _normed_points(graph)[1]
+            coords = torch.cat([graph.points, feats * mean_range * mask[:, None]], dim=1)
+        w = graph_ops.edge_weights(coords, nbrs, graph.nbr_mask)
+        ov = graph.overflow
+        ov_w = graph_ops.overflow_weights(coords, ov)
+        d = graph_ops.degree_vector(w, ov, ov_w)
+        if cfg.use_features_in_graph and has_feats:
+            # The feature G of L = G (D - W); the operator, its bound, the
+            # fused filter and the null basis below all take s = sqrt(g).
+            if cfg.feature_weights_diag:
+                with spans.host_read("config_copy"):
+                    fw = torch.diag(torch.tensor(cfg.feature_weights_diag,
+                                                 dtype=torch.float32, device=d.device))
+            else:
+                fw = torch.eye(feats.shape[1], dtype=torch.float32, device=d.device)
+            g_feat = graph_ops.g_vector(
+                feats.T, d, fw, p_function=cfg.G_matrix_p_function,
+                include_features=True, valid_mask=mask,
+            )
+            g = torch.where(mask > 0, torch.clamp(g_feat, min=1e-30), torch.ones_like(d))
         else:
-            fw = torch.eye(feats.shape[1], dtype=torch.float32, device=d.device)
-        g_feat = graph_ops.g_vector(
-            feats.T, d, fw, p_function=cfg.G_matrix_p_function,
-            include_features=True, valid_mask=mask,
-        )
-        g = torch.where(mask > 0, torch.clamp(g_feat, min=1e-30), torch.ones_like(d))
-    else:
-        g = torch.where(mask > 0, (d + graph_ops.DEGREE_EPS) ** -1, torch.ones_like(d))
-    s = torch.sqrt(g)
+            g = torch.where(mask > 0, (d + graph_ops.DEGREE_EPS) ** -1, torch.ones_like(d))
+        s = torch.sqrt(g)
 
-    def matvec(X):
-        ax = graph_ops.sym_laplacian_matvec(
-            nbrs, w, g, X * mask[:, None], ov, ov_w, degrees=d
-        )
-        return ax * mask[:, None]
+        def matvec(X):
+            ax = graph_ops.sym_laplacian_matvec(
+                nbrs, w, g, X * mask[:, None], ov, ov_w, degrees=d
+            )
+            return ax * mask[:, None]
 
-    def quad_form(V):
-        return graph_ops.sym_laplacian_quad_form(
-            nbrs, w, s, V * mask[:, None], ov, ov_w
-        )
+        def quad_form(V):
+            return graph_ops.sym_laplacian_quad_form(
+                nbrs, w, s, V * mask[:, None], ov, ov_w
+            )
 
-    null_basis = graph.null_indicators * (1.0 / s)[:, None] * mask[:, None]
-    # Gershgorin bound of A = S(D-W)S: max_i s_i (s_i d_i + (W s)_i).
-    ws = graph_ops.spmv(nbrs, w, s, ov, ov_w)
-    lam_bound = (mask * s * (s * d + ws)).max()
+        null_basis = graph.null_indicators * (1.0 / s)[:, None] * mask[:, None]
+        # Gershgorin bound of A = S(D-W)S: max_i s_i (s_i d_i + (W s)_i).
+        ws = graph_ops.spmv(nbrs, w, s, ov, ov_w)
+        lam_bound = (mask * s * (s * d + ws)).max()
+        if solver == "wide":
+            # Fused filter operator: sw_ij = s_i w_ij s_j and s_i^2 d_i precomputed.
+            sw = s[:, None] * w * s[nbrs]
+            sd = s * s * d * mask
+            ov_sw = ov_w * s[ov[:, 0]] * s[ov[:, 1]] if ov.shape[0] > 0 else None
+            factory = (ell_filter_factory(nbrs, ov, sw, ov_sw, sd, mask)
+                       if graph.patch_plan is None else
+                       patch_filter_factory(graph.patch_plan, sw, ov_sw, sd, mask))
     if solver in ("narrow", "lanczos"):
         solver_kw = (dict(cg_iters=cfg.eig_cg_iters, lanczos_iters=cfg.eig_lanczos_iters)
                      if solver == "lanczos" else
@@ -555,13 +566,6 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
             _tensor_to(init_block, graph.device), lam_bound, subspace_mask=mask,
             **solver_kw)
         return lams, _masked_minmax_norm(vecs, mask), (w, ov, ov_w)
-    # Fused filter operator: sw_ij = s_i w_ij s_j and s_i^2 d_i precomputed.
-    sw = s[:, None] * w * s[nbrs]
-    sd = s * s * d * mask
-    ov_sw = ov_w * s[ov[:, 0]] * s[ov[:, 1]] if ov.shape[0] > 0 else None
-    factory = (ell_filter_factory(nbrs, ov, sw, ov_sw, sd, mask)
-               if graph.patch_plan is None else
-               patch_filter_factory(graph.patch_plan, sw, ov_sw, sd, mask))
     out = chebyshev_eigpairs_wide(
         matvec, null_basis, k, lam_bound, factory, quad_form,
         init_block=init_block,
@@ -658,11 +662,15 @@ def _warm_x0(block, from_points, from_mask, to_points):
     ``from`` rows are pushed to ``SENTINEL`` so no real vertex seeds from
     a dead row at the origin; padded ``to`` rows take whatever real row is
     nearest, which the solver's ``subspace_mask`` zeroes."""
-    ref = torch.where(
-        from_mask[:, None] > 0, from_points, torch.full_like(from_points, SENTINEL)
-    )
-    _, idx = nn_query(ref, to_points)
-    return block[idx]
+    # No profiler range: a range here would take the k-NN's ctypes launch
+    # as its own and add it to the spectra stage's device time, which
+    # counts the stage's torch operators.
+    with spans.span("spectra/warm_map", profiled=False):
+        ref = torch.where(
+            from_mask[:, None] > 0, from_points, torch.full_like(from_points, SENTINEL)
+        )
+        _, idx = nn_query(ref, to_points)
+        return block[idx]
 
 
 # From this many vertices on either mesh, the entry points hoist each
@@ -734,49 +742,51 @@ configuration draws the same values as before they existed.
     ``eig_*`` draws keep the padded row count (the solver masks those
     rows).  Unpadded sides draw the same values as without them.
     """
-    rng = np.random.default_rng(seed)
-    draws = {}
-    if cfg.icp_register_first:
-        n_moving, real_moving = ((n_target, real_target) if cfg.icp_reg_target_to_source
-                                 else (n_source, real_source))
-        draws["icp_landmarks"] = _choice(rng, n_moving, cfg.icp_n_landmarks,
-                                         real_moving)
-    draws["eigsort_target"] = _choice(rng, n_target, cfg.n_coords_spectral_ordering,
-                                      real_target)
-    draws["eigsort_source"] = _choice(rng, n_source, cfg.n_coords_spectral_ordering,
-                                      real_source)
-    n_reg = min(cfg.n_coords_spectral_registration, n_target, n_source)
-    draws["cpd_source"] = _choice(rng, n_source, n_reg, real_source)
-    draws["cpd_target"] = _choice(rng, n_target, n_reg - n_landmarks, real_target)
-    wide_t = _solver(cfg, n_target) == "wide"
-    wide_s = _solver(cfg, n_source) == "wide"
-    if wide_t:
-        draws["eig_block_target"] = rng.standard_normal(
-            (n_target, cfg.eig_wide_block)
-        ).astype(np.float32)
-    if wide_s and not _warm_supported(cfg, n_target, n_source):
-        draws["eig_block_source"] = rng.standard_normal(
-            (n_source, cfg.eig_wide_block)
-        ).astype(np.float32)
-    p = min(min(cfg.non_rigid_n_eigens, n_reg) + 16, n_reg)
-    draws["cpd_omega"] = rng.standard_normal((n_reg, p)).astype(np.float32)
-    if ((source_block or _want_split(n_target, n_source)) and wide_s
-            and "eig_block_source" not in draws):
-        draws["eig_block_source"] = rng.standard_normal(
-            (n_source, cfg.eig_wide_block)
-        ).astype(np.float32)
-    for side, n, wide in (("target", n_target, wide_t), ("source", n_source, wide_s)):
-        if not wide:
-            draws[f"eig_start_{side}"] = rng.standard_normal(
-                (n, _start_width(cfg, n))
+    with spans.before_call("draws"):
+        rng = np.random.default_rng(seed)
+        draws = {}
+        if cfg.icp_register_first:
+            n_moving, real_moving = ((n_target, real_target) if cfg.icp_reg_target_to_source
+                                     else (n_source, real_source))
+            draws["icp_landmarks"] = _choice(rng, n_moving, cfg.icp_n_landmarks,
+                                             real_moving)
+        draws["eigsort_target"] = _choice(rng, n_target, cfg.n_coords_spectral_ordering,
+                                          real_target)
+        draws["eigsort_source"] = _choice(rng, n_source, cfg.n_coords_spectral_ordering,
+                                          real_source)
+        n_reg = min(cfg.n_coords_spectral_registration, n_target, n_source)
+        draws["cpd_source"] = _choice(rng, n_source, n_reg, real_source)
+        draws["cpd_target"] = _choice(rng, n_target, n_reg - n_landmarks, real_target)
+        wide_t = _solver(cfg, n_target) == "wide"
+        wide_s = _solver(cfg, n_source) == "wide"
+        if wide_t:
+            draws["eig_block_target"] = rng.standard_normal(
+                (n_target, cfg.eig_wide_block)
             ).astype(np.float32)
-    return draws
+        if wide_s and not _warm_supported(cfg, n_target, n_source):
+            draws["eig_block_source"] = rng.standard_normal(
+                (n_source, cfg.eig_wide_block)
+            ).astype(np.float32)
+        p = min(min(cfg.non_rigid_n_eigens, n_reg) + 16, n_reg)
+        draws["cpd_omega"] = rng.standard_normal((n_reg, p)).astype(np.float32)
+        if ((source_block or _want_split(n_target, n_source)) and wide_s
+                and "eig_block_source" not in draws):
+            draws["eig_block_source"] = rng.standard_normal(
+                (n_source, cfg.eig_wide_block)
+            ).astype(np.float32)
+        for side, n, wide in (("target", n_target, wide_t), ("source", n_source, wide_s)):
+            if not wide:
+                draws[f"eig_start_{side}"] = rng.standard_normal(
+                    (n, _start_width(cfg, n))
+                ).astype(np.float32)
+        return draws
 
 
 def draw_seed(generator: torch.Generator) -> int:
     """The seed of the draws an entry point makes from ``generator``."""
-    return int(torch.randint(0, 2**62, (1,), generator=generator,
-                             device=generator.device))
+    with spans.host_read("draw_seed"):
+        return int(torch.randint(0, 2**62, (1,), generator=generator,
+                                 device=generator.device))
 
 
 def _tensor_to(v, device):
@@ -786,8 +796,16 @@ def _tensor_to(v, device):
     return t.to(dtype=dtype, device=device)
 
 
+def _host_arrays(values, device) -> int:
+    """How many of ``values`` a move to ``device`` copies from the host's
+    pageable memory: those not already tensors on ``device``."""
+    device = torch.device(device)
+    return sum(1 for v in values if not (torch.is_tensor(v) and v.device == device))
+
+
 def _draws_to(draws, device):
-    return {name: _tensor_to(v, device) for name, v in draws.items()}
+    with spans.host_read("draws_copy", _host_arrays(draws.values(), device)):
+        return {name: _tensor_to(v, device) for name, v in draws.items()}
 
 
 def _use_hungarian(cfg: PipelineConfig) -> bool:
@@ -812,8 +830,9 @@ def _n_reg(cfg: PipelineConfig, target: GraphArrays, source: GraphArrays) -> int
 def _n_real_vertices(*graphs) -> list:
     """Each graph's real vertex count (rows with ``valid_mask`` > 0), read
     from the device in one transfer."""
-    return [int(n) for n in torch.stack(
-        [(g.valid_mask > 0).sum() for g in graphs]).tolist()]
+    counts = torch.stack([(g.valid_mask > 0).sum() for g in graphs])
+    with spans.host_read("n_real_vertices"):
+        return [int(n) for n in counts.tolist()]
 
 
 def _check_padding_hazards(target: GraphArrays, source: GraphArrays,
@@ -893,8 +912,9 @@ def _warm_block_to(warm_block, device):
             f"{warm_block['valid_mask'].shape[0]} — build it with "
             "warm_block_from_prepared"
         )
-    return {k: _tensor_to(warm_block[k], device)
-            for k in ("points", "block", "valid_mask")}
+    keys = ("points", "block", "valid_mask")
+    with spans.host_read("warm_block_copy", _host_arrays([warm_block[k] for k in keys], device)):
+        return {k: _tensor_to(warm_block[k], device) for k in keys}
 
 
 def register_pair(target: GraphArrays, source: GraphArrays,
@@ -939,48 +959,52 @@ def register_pair(target: GraphArrays, source: GraphArrays,
 @f32_matmuls
 def _run(target, source, cfg, generator, draws, landmark_pairs, pre=None,
          pre_src=None, warm_block=None):
-    """The checks and inputs every registration entry point shares."""
-    if target.device != source.device:
-        raise ValueError(
-            f"target on {target.device} but source on {source.device}"
-        )
-    device = target.device
-    if landmark_pairs is not None:
-        landmark_pairs = torch.as_tensor(landmark_pairs).to(
-            dtype=torch.int64, device=device)
-    n_real = _n_real_vertices(target, source)
-    _check_supported(target, source, cfg, landmark_pairs, n_real)
-    if warm_block is not None:
-        warm_block = _warm_block_to(warm_block, device)
-    for state, graph, name in ((pre, target, "target"), (pre_src, source, "source")):
-        if state is not None and state["vecs"].shape[0] != graph.n_points:
+    """The checks and inputs every registration entry point shares, in
+    the call's record (``utils/spans.py``): its stages from ``inputs``
+    (these checks, the draws' copy to the device and the split spectra) to
+    ``final_knn``, each a ``register_pair/<stage>`` profiler range."""
+    with spans.call() as rec:
+        rec.stage("inputs")
+        spans.count("target_rows", target.n_points)
+        spans.count("source_rows", source.n_points)
+        if target.device != source.device:
             raise ValueError(
-                f"prepared {name} state has {state['vecs'].shape[0]} rows but "
-                f"the {name} mesh has {graph.n_points} vertices"
+                f"target on {target.device} but source on {source.device}"
             )
-    n_lm = 0 if landmark_pairs is None else landmark_pairs.shape[0]
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    if draws is None:
-        draws = make_draws(draw_seed(generator), cfg, target.n_points, source.n_points, n_lm,
-                           real_target=n_real[0], real_source=n_real[1])
-    draws = _draws_to(draws, device)
-    n_cpd_target = _n_reg(cfg, target, source) - n_lm
-    if draws["cpd_target"].shape[0] != n_cpd_target:
-        raise ValueError(
-            f"draws['cpd_target'] has {draws['cpd_target'].shape[0]} rows; "
-            f"n_reg - len(landmark_pairs) = {n_cpd_target}"
-        )
-    if _want_split(target.n_points, source.n_points):
-        pre, pre_src = _split_spectra(target, source, cfg, generator, draws, pre,
-                                      pre_src, warm_block)
-    stage = _StageRanges()
-    try:
-        return _register_pair(target, source, cfg, generator, draws, stage,
+        device = target.device
+        if landmark_pairs is not None:
+            with spans.host_read("landmarks_copy", _host_arrays([landmark_pairs], device)):
+                landmark_pairs = torch.as_tensor(landmark_pairs).to(
+                    dtype=torch.int64, device=device)
+        n_real = _n_real_vertices(target, source)
+        _check_supported(target, source, cfg, landmark_pairs, n_real)
+        if warm_block is not None:
+            warm_block = _warm_block_to(warm_block, device)
+        for state, graph, name in ((pre, target, "target"), (pre_src, source, "source")):
+            if state is not None and state["vecs"].shape[0] != graph.n_points:
+                raise ValueError(
+                    f"prepared {name} state has {state['vecs'].shape[0]} rows but "
+                    f"the {name} mesh has {graph.n_points} vertices"
+                )
+        n_lm = 0 if landmark_pairs is None else landmark_pairs.shape[0]
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        if draws is None:
+            draws = make_draws(draw_seed(generator), cfg, target.n_points, source.n_points, n_lm,
+                               real_target=n_real[0], real_source=n_real[1])
+        draws = _draws_to(draws, device)
+        n_cpd_target = _n_reg(cfg, target, source) - n_lm
+        if draws["cpd_target"].shape[0] != n_cpd_target:
+            raise ValueError(
+                f"draws['cpd_target'] has {draws['cpd_target'].shape[0]} rows; "
+                f"n_reg - len(landmark_pairs) = {n_cpd_target}"
+            )
+        if _want_split(target.n_points, source.n_points):
+            pre, pre_src = _split_spectra(target, source, cfg, generator, draws, pre,
+                                          pre_src, warm_block)
+        return _register_pair(target, source, cfg, generator, draws, rec.stage,
                               landmark_pairs, pre=pre, pre_src=pre_src,
                               warm_block=warm_block)
-    finally:
-        stage.close()
 
 
 def _split_spectra(target, source, cfg, generator, draws, pre, pre_src, warm_block):
@@ -1137,7 +1161,7 @@ def prepare_target(target: GraphArrays, cfg: PipelineConfig, init_block=None,
 def _prepare_target(target, cfg, init_block, warm_block, generator):
     k_total = cfg.n_total
     blk = None
-    with record_function("prepare_target/spectra"):
+    with spans.span("prepare_target/spectra"):
         if _keeps_block(cfg, target):
             x0, sched = None, {}
             if warm_block is not None:
@@ -1153,7 +1177,7 @@ def _prepare_target(target, cfg, init_block, warm_block, generator):
                                       generator=generator)
     smoothed = target.points
     if cfg.smooth_correspondences:
-        with record_function("prepare_target/smoothing"):
+        with spans.span("prepare_target/smoothing"):
             smoothed = _smooth_fn(cfg)(
                 target.neighbors, w[0], target.points,
                 cfg.graph_smoothing_iterations, w[1], w[2],
@@ -1225,7 +1249,7 @@ def prepare_source(source: GraphArrays, cfg: PipelineConfig, init_block=None,
 
 @f32_matmuls
 def _prepare_source(source, cfg, init_block, generator, x0=None):
-    with record_function("prepare_source/spectra"):
+    with spans.span("prepare_source/spectra"):
         if x0 is not None:
             # Warm from a hoisted target's block (the split-spectra
             # schedule): the truncated schedule, and no block kept.
@@ -1397,29 +1421,11 @@ def load_prepared_target(path: str, cfg: PipelineConfig = None,
     return out
 
 
-class _StageRanges:
-    """Consecutive profiler ranges ``register_pair/<stage>``, one per stage,
-    so a ``torch.profiler`` trace attributes host and device time to the
-    stages; a few microseconds each when no profiler runs."""
-
-    def __init__(self):
-        self._open = None
-
-    def __call__(self, name: str):
-        self.close()
-        self._open = record_function(f"register_pair/{name}")
-        self._open.__enter__()
-
-    def close(self):
-        if self._open is not None:
-            self._open.__exit__(None, None, None)
-            self._open = None
-
-
 def _masked_minmax(arr, mask):
     """Column minima and maxima of ``arr`` over real vertices only."""
     real = mask[:, None] > 0
-    inf = torch.tensor(float("inf"), device=arr.device)
+    with spans.host_read("scalar_copy"):
+        inf = torch.tensor(float("inf"), device=arr.device)
     return (torch.where(real, arr, inf).min(dim=0).values,
             torch.where(real, arr, -inf).max(dim=0).values)
 
@@ -1602,9 +1608,10 @@ def _register_pair(target, source, cfg, generator, draws, stage,
         Y = Y @ B.T + t_vec[None, :]
         tgt_coords = tgt_coords @ B.T + t_vec[None, :]
     num_eig = min(cfg.non_rigid_n_eigens, n_reg)
-    Qg, lam_g = cpd_ops.low_rank_gaussian(
-        Y, cfg.non_rigid_beta, num_eig, draws["cpd_omega"]
-    )
+    with spans.span("cpd/gram"):
+        Qg, lam_g = cpd_ops.low_rank_gaussian(
+            Y, cfg.non_rigid_beta, num_eig, draws["cpd_omega"]
+        )
     _, z_cpd, _, _ = cpd_ops._deformable_cpd_run(
         X, Y, Qg, lam_g, cfg.non_rigid_alpha, cfg.non_rigid_max_iterations,
         cfg.non_rigid_tolerance, w=cfg.non_rigid_outlier_w,

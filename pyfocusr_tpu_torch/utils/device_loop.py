@@ -10,7 +10,9 @@ reads the (count, flag) pair on the host every ``block`` iterations.  On a
 CUDA device the iteration runs once eagerly (on a side stream, which also
 sets up the libraries' workspaces), is then captured as a CUDA graph and
 replayed; a failed capture raises.  On the CPU it runs eagerly with the same
-reads.
+reads.  Each read is a ``spans.host_read`` ("flag_read") and each capture the
+span ``device_loop/capture`` in the open call's record (``utils/spans.py``),
+whose host times ``stats`` takes.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 import time
 
 import torch
+
+from . import spans
 
 __all__ = ["captured", "reset_stats", "run_blocked"]
 
@@ -44,25 +48,25 @@ def run_blocked(step, ctrl: torch.Tensor, max_iterations: int, block: int,
         run = captured(step, ctrl.device, kernels, stats)
     else:
         step()
-    ran, reads, replay_s = 1, 1, 0.0
-    t0 = time.perf_counter()
-    it, done = ctrl.tolist()
-    read_s = time.perf_counter() - t0
+    ran, reads, replay_ns = 1, 1, 0
+    with spans.host_read("flag_read") as r:
+        it, done = ctrl.tolist()
+    read_ns = r.ns
     while not done:
         k = min(block, max_iterations - ran)
         if k <= 0:
             raise RuntimeError(f"{what}: the stop flag is unset after max_iterations")
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         for _ in range(k):
             run()
-        t1 = time.perf_counter()
-        it, done = ctrl.tolist()
-        replay_s += t1 - t0
-        read_s += time.perf_counter() - t1
+        replay_ns += time.perf_counter_ns() - t0
+        with spans.host_read("flag_read") as r:
+            it, done = ctrl.tolist()
+        read_ns += r.ns
         ran += k
         reads += 1
     stats.update(iterations=it, replays=ran - 1, host_reads=reads,
-                 replay_ms=replay_s * 1e3, read_ms=read_s * 1e3)
+                 replay_ms=replay_ns / 1e6, read_ms=read_ns / 1e6)
     return it
 
 
@@ -80,15 +84,15 @@ def captured(step, device, kernels, stats: dict):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
         step()
-        t0 = time.perf_counter()
         before = [mod.LAUNCHES for mod in kernels]
-        graph.capture_begin()
-        try:
-            step()
-        finally:
-            graph.capture_end()
+        with spans.span("device_loop/capture") as sp:
+            graph.capture_begin()
+            try:
+                step()
+            finally:
+                graph.capture_end()
     torch.cuda.current_stream(device).wait_stream(side)
-    stats.update(graph=True, capture_ms=(time.perf_counter() - t0) * 1e3)
+    stats.update(graph=True, capture_ms=sp.ns / 1e6)
     per_replay = [mod.LAUNCHES - b for mod, b in zip(kernels, before)]
     for mod, b in zip(kernels, before):
         mod.LAUNCHES = b

@@ -4,8 +4,8 @@ Counterpart of ``pyfocusr_tpu/utils/logging.py``: ``print_header`` (:14) and
 ``StageTimer`` (:21).  On a CUDA card launches return before the work is
 done, so a span synchronises the card before it reads the clock at its end:
 otherwise a stage's kernels would be charged to the next stage that waits
-for them.  ``enable_profiler`` opens a ``torch.profiler.record_function``
-range per span (the JAX version's ``jax.profiler.TraceAnnotation``).
+for them.  The JAX version's ``enable_profiler`` option is not ported: the
+port's profiler ranges and host times are ``utils/spans.py``'s.
 """
 
 from __future__ import annotations
@@ -35,20 +35,15 @@ class StageTimer:
         timer.report()
     """
 
-    def __init__(self, enable_profiler: bool = False, verbose: bool = False):
+    def __init__(self, verbose: bool = False):
         self.spans: List[tuple] = []
-        self.enable_profiler = enable_profiler
         self.verbose = verbose
 
     @contextlib.contextmanager
     def span(self, name: str):
-        ctx = contextlib.nullcontext()
-        if self.enable_profiler:
-            ctx = torch.profiler.record_function(name)
         t0 = time.perf_counter()
         try:
-            with ctx:
-                yield
+            yield
         finally:
             # Recorded even when the body raises: a failing stage's partial
             # time is what a crash diagnosis needs.
