@@ -2122,7 +2122,7 @@ def phase_serving(torch, tp, kernels, cfg, meshes, graphs, smi, device="cuda"):
     # The same prepared pair at 2562 vertices on the card and on the CPU.
     small = {seed: synthetic_bone(tp, seed, levels=CPU_CHECK_LEVELS) for seed in (1, 2)}
     small_g = {seed: tp.mesh_to_graph_arrays(m, device="cpu") for seed, m in small.items()}
-    sd = tp.make_draws(0, cfg, small[2].n_points, small[1].n_points)
+    sd = tp.pipeline.host_draws(tp.make_draws(0, cfg, small[2].n_points, small[1].n_points))
 
     def serve_small(dev):
         t, s_ = small_g[2].to(dev), small_g[1].to(dev)
@@ -2489,7 +2489,8 @@ def phase_class_api(torch, tp, kernels, smi, deterministic, device="cuda",
                               dict(eig_method="lanczos"))):
         cfg_e = tp.PipelineConfig(**dict(BENCH_CFG, **kw))
         graphs = [tp.mesh_to_graph_arrays(m, device="cpu") for m in meshes]
-        d = tp.make_draws(0, cfg_e, graphs[0].n_points, graphs[1].n_points)
+        d = tp.pipeline.host_draws(
+            tp.make_draws(0, cfg_e, graphs[0].n_points, graphs[1].n_points))
         rec_runs = {}
         for dev in (device, "cpu") if name != "narrow_642" else (device,):
             with SpectrumRecorder(torch, tp.pipeline) as srec:
@@ -2556,7 +2557,7 @@ def phase_features(torch, tp, meshes, smi, device="cuda"):
         ccfg = tp.PipelineConfig(**dict(BENCH_CFG, non_rigid_tolerance=FEATURE_CHECK_TOLERANCE,
                                         **{flag: True}))
         st, ss = feat["small"][2], feat["small"][1]
-        sd = tp.make_draws(0, ccfg, st.n_points, ss.n_points)
+        sd = tp.pipeline.host_draws(tp.make_draws(0, ccfg, st.n_points, ss.n_points))
         res_gpu = tp.register_pair(st.to(device), ss.to(device), ccfg, draws=sd)
         it_gpu = cpd_ops.EM_STATS["iterations"]
         t0 = time.perf_counter()
@@ -2794,11 +2795,12 @@ def cpd_paths(torch, tp, kernels, tg, sg, target_mesh, source_mesh, smi):
     # pairs per iteration) ---
     cap_cfg = tp.PipelineConfig(**dict(FULLRES_CFG,
                                        non_rigid_max_iterations=FULLRES_CPU_EM_CAP))
+    fr_host = tp.pipeline.host_draws(fr_draws)
     with CpdRecorder(cpd_ops) as rec:
-        cap_gpu = tp.register_pair(tg, sg, cap_cfg, draws=fr_draws)
+        cap_gpu = tp.register_pair(tg, sg, cap_cfg, draws=fr_host)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cap_cpu = tp.register_pair(tg.to("cpu"), sg.to("cpu"), cap_cfg, draws=fr_draws)
+        cap_cpu = tp.register_pair(tg.to("cpu"), sg.to("cpu"), cap_cfg, draws=fr_host)
         fr_cpu_s = time.perf_counter() - t0
     cpd_gpu, cpd_cpu = rec.runs
     agree = compare_runs(cap_gpu, cap_cpu)
@@ -3125,7 +3127,8 @@ def phase_multires(torch, tp, kernels, smi, device="cuda", levels=MULTIRES_LEVEL
                                         non_rigid_tolerance=MULTIRES_CHECK_TOLERANCE))
 
         def draws(cg, sg, n_lm):
-            return tp.make_draws(0, ccfg, cg.n_points, sg.n_points, n_lm)
+            return tp.pipeline.host_draws(
+                tp.make_draws(0, ccfg, cg.n_points, sg.n_points, n_lm))
 
         runs = {}
         for dev in (device, "cpu"):
@@ -3409,7 +3412,8 @@ def phase_groupwise(torch, tp, kernels, smi, device="cuda", levels=5,
         ccfg = tp.PipelineConfig(**dict(cfg_kw, non_rigid_tolerance=FEATURE_CHECK_TOLERANCE))
         pair = [tp.mesh_to_graph_arrays(synthetic_bone(tp, s, cpu_levels), device="cpu")
                 for s in (2, 1)]
-        d = G.make_symmetric_draws(0, ccfg, *pair)
+        d = {k: tp.pipeline.host_draws(v)
+             for k, v in G.make_symmetric_draws(0, ccfg, *pair).items()}
         runs = {}
         for dev in (device, "cpu"):
             runs[dev] = timed(torch, lambda: G.register_pair_symmetric(
@@ -3443,14 +3447,16 @@ def jittered_cohort(tp, mesh, n: int, scale: float):
                              .astype(np.float32)) for _ in range(n)]
 
 
-def unpadded_draws(draws, n_real: int):
+def unpadded_draws(draws, n_real: int, device):
     """A padded pair's draws as the unpadded pair's: the index draws and
     ``cpd_omega`` as they are (they index real rows), each per-vertex
-    target draw cut to the real rows."""
+    target draw cut to the real rows (a deferred one drawn on ``device``
+    first, as the padded pair on ``device`` draws it)."""
     out = dict(draws)
     for name in ("eig_block_target", "eig_start_target"):
         if name in out:
-            out[name] = out[name][:n_real]
+            v = out[name]
+            out[name] = (v.draw(device) if hasattr(v, "draw") else v)[:n_real]
     return out
 
 
@@ -3584,7 +3590,7 @@ def phase_cohort(torch, tp, kernels, smi, deterministic, device="cuda", levels=5
         alone = tp.register_pair_prepared_source(
             p_prep, tp.mesh_to_graph_arrays(m, device=device), template, cfg,
             generator=lane_generator(p_draws["pairs"][i]),
-            draws=unpadded_draws(p_draws["pairs"][i], real))
+            draws=unpadded_draws(p_draws["pairs"][i], real, device))
         lane = real_rows({k: v[i] for k, v in p_res.items()}, real, n_s)
         check(int(lane["correspondences"].max()) < real,
               f"padded lane {i} corresponds to a padding row")
@@ -3602,11 +3608,15 @@ def phase_cohort(torch, tp, kernels, smi, deterministic, device="cuda", levels=5
         i = reals.index(min(reals))
         ccfg = tp.PipelineConfig(**dict(cfg_kw, non_rigid_tolerance=COHORT_CHECK_TOLERANCE))
 
+        host = tp.pipeline.host_draws(dict(p_draws["pairs"][i],
+                                           template_block=p_draws["template_block"]))
+        block = host.pop("template_block")
+
         def padded_lane(dev):
             t = template.to(dev)
-            pre = tp.prepare_source(t, ccfg, p_draws["template_block"])
+            pre = tp.prepare_source(t, ccfg, block)
             return tp.register_pair_prepared_source(
-                pre, p_graphs[i].to(dev), t, ccfg, draws=p_draws["pairs"][i])
+                pre, p_graphs[i].to(dev), t, ccfg, draws=host)
 
         gpu = padded_lane(device)
         t0 = time.perf_counter()
@@ -5000,18 +5010,23 @@ def main():
     emit(profile_run(torch, tp, tg, sg, cfg, draws, smi, "profile",
                      "profile_register_pair.txt"))
 
+    # CUDA against CPU on one set of draws, their float starts drawn on the
+    # host.
+    host = tp.pipeline.host_draws(draws)
+    res_gpu = tp.register_pair(tg, sg, cfg, draws=host)
+    gpu_icp = dict(icp_ops.ICP_STATS)
     t0 = time.perf_counter()
-    res_cpu = tp.register_pair(tg.to("cpu"), sg.to("cpu"), cfg, draws=draws)
+    res_cpu = tp.register_pair(tg.to("cpu"), sg.to("cpu"), cfg, draws=host)
     cpu_s = time.perf_counter() - t0
     cpu_icp = dict(icp_ops.ICP_STATS)
     q_cpu = quality_and_checks(tp, target_mesh, source_mesh, res_cpu, n_s)
-    agree = compare_runs(res, res_cpu)
+    agree = compare_runs(res_gpu, res_cpu)
     emit({"phase": "cuda_vs_cpu", "cpu_s": cpu_s, "quality_cpu": q_cpu,
-          "icp_iterations_cuda": kd_icp["iterations"],
+          "icp_iterations_cuda": gpu_icp["iterations"],
           "icp_iterations_cpu": cpu_icp["iterations"], **agree})
-    check(kd_icp["iterations"] == cpu_icp["iterations"], "ICP iterations CUDA vs CPU")
+    check(gpu_icp["iterations"] == cpu_icp["iterations"], "ICP iterations CUDA vs CPU")
     agreement_checks(agree, "CUDA vs CPU")
-    del res_cpu
+    del res_cpu, res_gpu
 
     # --- Template serving and the feature flags on the 'kd' configuration ---
     t0 = time.perf_counter()
@@ -5040,7 +5055,8 @@ def main():
     small_t = synthetic_bone(tp, 2, levels=4)
     small_s = synthetic_bone(tp, 1, levels=4)
     hcfg = tp.PipelineConfig(**HUNGARIAN_CFG)
-    small_draws = tp.make_draws(0, hcfg, small_t.n_points, small_s.n_points)
+    small_draws = tp.pipeline.host_draws(
+        tp.make_draws(0, hcfg, small_t.n_points, small_s.n_points))
     small_tg = tp.mesh_to_graph_arrays(small_t)
     small_sg = tp.mesh_to_graph_arrays(small_s)
     small_kd = tp.register_pair(small_tg, small_sg, cfg, draws=small_draws)

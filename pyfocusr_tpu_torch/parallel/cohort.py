@@ -49,6 +49,7 @@ from ..ops.knn import nn_query
 from ..pipeline import (
     TENSOR_FIELDS,
     GraphArrays,
+    NormalDraw,
     PipelineConfig,
     _start_width,
     draw_seed,
@@ -99,11 +100,16 @@ def lane_generator(draws) -> torch.Generator:
     """The generator one lane of a many-pair call draws its eigensolver
     refill noise from: a CPU generator seeded from a hash of the lane's own
     draws (a mapping name -> array; each draw's name, dtype, shape and
-    first ``_LANE_SEED_BYTES`` bytes), so the same draws give the same
-    noise wherever and after whatever the lane runs."""
+    first ``_LANE_SEED_BYTES`` bytes, a :class:`pipeline.NormalDraw` by its
+    seed, shape and dtype), so the same draws give the same noise wherever
+    and after whatever the lane runs."""
     h = hashlib.sha256()
     for name in sorted(draws):
-        a = np.ascontiguousarray(to_numpy(draws[name]))
+        v = draws[name]
+        if isinstance(v, NormalDraw):
+            h.update(f"{name}:normal:{v.seed}:{v.dtype.str}:{v.shape}".encode())
+            continue
+        a = np.ascontiguousarray(to_numpy(v))
         h.update(f"{name}:{a.dtype.str}:{a.shape}".encode())
         h.update(a.reshape(-1).view(np.uint8)[:_LANE_SEED_BYTES])
     return torch.Generator().manual_seed(int.from_bytes(h.digest()[:8], "little") >> 1)
@@ -202,21 +208,22 @@ def _real_counts(template: GraphArrays, targets: GraphArrays):
 
 def make_cohort_draws(seed: int, cfg: PipelineConfig, template: GraphArrays,
                       targets: GraphArrays):
-    """The random inputs of :func:`register_cohort`, drawn with numpy from
-    ``seed``: ``{"pairs": [one make_draws dict per subject], "template_block":
-    the template's cold-solve start}`` (an ``eig_block_source`` of
-    :func:`pipeline.make_draws` on the wide path, an ``eig_start_source``
-    on the others).  Each subject's draws index real rows only.  The seeds
-    of the subjects and of the template are drawn first, one each, as JAX
-    splits its key per lane and folds it in for the template (:207-213)."""
+    """The random inputs of :func:`register_cohort` from ``seed``:
+    ``{"pairs": [one make_draws dict per subject], "template_block": the
+    template's cold-solve start}`` (a :class:`pipeline.NormalDraw` of the
+    shape of an ``eig_block_source`` of :func:`pipeline.make_draws` on the
+    wide path, of an ``eig_start_source`` on the others, drawn on the
+    device that solves).  Each subject's draws index real rows only.  The
+    seeds of the subjects and of the template are drawn first with numpy,
+    one each, as JAX splits its key per lane and folds it in for the
+    template (:207-213)."""
     batch, n_t = targets.points.shape[0], targets.points.shape[1]
     n_s = template.n_points
     real_s, real_t = _real_counts(template, targets)
     seeds = np.random.default_rng(seed).integers(0, 2**62, size=batch + 1)
     pairs = [make_draws(int(seeds[i]), cfg, n_t, n_s, real_target=real_t[i],
                         real_source=real_s) for i in range(batch)]
-    block = np.random.default_rng(int(seeds[batch])).standard_normal(
-        (n_s, _start_width(cfg, n_s))).astype(np.float32)
+    block = NormalDraw(int(seeds[batch]), (n_s, _start_width(cfg, n_s)))
     return {"pairs": pairs, "template_block": block}
 
 

@@ -44,6 +44,7 @@ from ..ops.knn import SENTINEL, idw_pull_k3, nn_query
 from ..pipeline import (
     _NARROW_EXTRA,
     GraphArrays,
+    NormalDraw,
     PipelineConfig,
     _n_real_vertices,
     _solver,
@@ -111,11 +112,10 @@ def _symmetrize(fwd_points, bwd_points, source_points, target_points, source_mas
 
 def make_symmetric_draws(seed: int, cfg: PipelineConfig, target: GraphArrays,
                          source: GraphArrays):
-    """The random inputs of :func:`register_pair_symmetric`, drawn with
-    numpy from ``seed``: ``{"forward": make_draws for source -> target,
-    "backward": for target -> source}``, each over real rows only.  The two
-    directions' seeds are drawn first, as JAX splits its key in two
-    (:147)."""
+    """The random inputs of :func:`register_pair_symmetric` from ``seed``:
+    ``{"forward": make_draws for source -> target, "backward": for target
+    -> source}``, each over real rows only.  The two directions' seeds are
+    drawn first with numpy, as JAX splits its key in two (:147)."""
     real_t, real_s = _n_real_vertices(target, source)
     seeds = np.random.default_rng(seed).integers(0, 2**62, size=2)
     return {"forward": make_draws(int(seeds[0]), cfg, target.n_points, source.n_points,
@@ -325,13 +325,14 @@ def _basis_width(cfg: PipelineConfig, n_points: int, n_basis: int) -> int:
 
 
 def make_basis_blocks(seed: int, cfg: PipelineConfig, graphs: Sequence[GraphArrays],
-                      n_basis: int = 12) -> List[np.ndarray]:
+                      n_basis: int = 12) -> List[NormalDraw]:
     """The random starts of :func:`spectral_bases`: one f32 [N_i, width]
-    standard-normal block per graph, drawn with numpy from ``seed`` in
+    standard-normal block per graph, a :class:`pipeline.NormalDraw` drawn
+    on the graph's device, its seed drawn with numpy from ``seed`` in
     graph order (JAX splits its key per graph, :376)."""
-    rng = np.random.default_rng(seed)
-    return [rng.standard_normal((g.n_points, _basis_width(cfg, g.n_points, n_basis)))
-            .astype(np.float32) for g in graphs]
+    seeds = np.random.default_rng(seed).integers(0, 2**62, size=len(graphs))
+    return [NormalDraw(int(s), (g.n_points, _basis_width(cfg, g.n_points, n_basis)))
+            for s, g in zip(seeds, graphs)]
 
 
 @f32_matmuls

@@ -45,7 +45,10 @@ every random draw the JAX program makes internally is an entry of
 ``draws`` (see :func:`make_draws`): the ICP landmark subsample, the eigsort
 and CPD subsamples, the eigensolves' initial blocks and the CPD
 Gram's ``omega``.  Feeding the same draws to both packages makes their runs
-comparable.
+comparable.  :func:`make_draws` gives the index draws as host arrays and
+the float starts as :class:`NormalDraw` s, which the call draws on its
+own device as it moves the draws there (``_tensor_to``); arrays passed in
+are used as given.
 
 From ``_SPLIT_SPECTRA_N`` = 65000 vertices on either mesh (the variable
 ``PYFOCUSR_TPU_SPLIT_SPECTRA_N``, 0 for never) every pair entry point takes
@@ -105,7 +108,9 @@ __all__ = [
     "graph_arrays_from_numpy",
     "config_from_dict",
     "landmark_pairs_from_positions",
+    "NormalDraw",
     "make_draws",
+    "host_draws",
     "register_pair",
     "warm_block_from_prepared",
     "prepare_target",
@@ -698,11 +703,52 @@ def _choice(rng, n: int, m: int, n_real: int = None) -> np.ndarray:
                       replace=False).astype(np.int64)
 
 
+@dataclasses.dataclass(frozen=True)
+class NormalDraw:
+    """A deferred draw of i.i.d. standard normals: its own ``seed``, its
+    ``shape`` and ``dtype`` (f32).  :meth:`draw` makes the values on the
+    device that consumes them (``torch.randn`` from a generator of that
+    device seeded ``seed``): on a CUDA device one Philox launch, with no
+    host array and no copy.  The values are fixed by the seed and the
+    device type; a CPU draw and a CUDA draw of one seed differ.
+
+    Two draws compare equal when seed, shape and dtype do.  There is no
+    host view of the values (no ``__array__``): a host copy would differ
+    from what a CUDA device draws; :func:`host_draws` draws them on the
+    host where one set of values must feed runs on different devices."""
+
+    seed: int
+    shape: tuple
+    dtype = np.dtype(np.float32)  # a class constant, not a field
+
+    def draw(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        generator = torch.Generator(device=device).manual_seed(self.seed)
+        return torch.randn(self.shape, generator=generator, device=device,
+                           dtype=torch.float32)
+
+
+# Each float draw's seed is derived from the draws' seed and the draw's own
+# number here, so it does not depend on which other draws a call makes.
+_NORMAL_DRAWS = ("eig_block_target", "eig_block_source", "cpd_omega",
+                 "eig_start_target", "eig_start_source")
+
+
+def _normal_draw(seed: int, name: str, shape) -> NormalDraw:
+    state = np.random.SeedSequence([seed, _NORMAL_DRAWS.index(name)]).generate_state(
+        1, np.uint64)
+    return NormalDraw(int(state[0]) >> 1, tuple(int(n) for n in shape))
+
+
 def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
                n_landmarks: int = 0, source_block: bool = False,
                real_target: int = None, real_source: int = None):
-    """Every random input of ``register_pair``, drawn with numpy on the host
-    from ``seed`` (so CPU and CUDA runs can see identical inputs):
+    """Every random input of ``register_pair`` from ``seed``: the index
+    draws as numpy arrays, drawn on the host, and the float starts as
+    :class:`NormalDraw` s, drawn on the device the call runs on when it
+    moves them there (so their values depend on the device type as well as
+    the seed; :func:`host_draws` draws them on the host for runs on
+    different devices that must see the same inputs):
 
     icp_landmarks    int64 [min(icp_n_landmarks, N_moving)]
     eigsort_target   int64 [min(n_coords_spectral_ordering, N_t)]
@@ -723,16 +769,16 @@ def make_draws(seed: int, cfg: PipelineConfig, n_target: int, n_source: int,
     eig_start_source f32 [N_s, w]  Lanczos (w = 2: the power-iteration
                                    vector, then the Lanczos start) solve
 
-Each ``eig_*`` draw is made only for a mesh whose solve reads it; the
-narrow and Lanczos starts come after every other draw, so a wide-path
-configuration draws the same values as before they existed.
+    Each ``eig_*`` draw is made only for a mesh whose solve reads it.  The
+    index draws are the first of ``seed``'s numpy stream; each float draw
+    has a seed of its own, derived from ``seed`` and its name, so no draw
+    changes with the presence of another.
 
     The serving entry points read: :func:`prepare_target` the
     ``eig_block_target`` draw, :func:`prepare_source` the
     ``eig_block_source`` one (``source_block=True`` gives it when the pair's
-    warm start is on, drawn after every other entry, so those stay the
-    draws of the same seed without it; the split-spectra schedule, whose
-    hoisted source solve may run cold, draws it there too);
+    warm start is on; the split-spectra schedule, whose hoisted source
+    solve may run cold, draws it there too);
     :func:`register_pair_prepared`
     reads no ``eig_block_target`` and :func:`register_pair_prepared_source`
     no ``eig_block_source``.
@@ -760,26 +806,28 @@ configuration draws the same values as before they existed.
         wide_t = _solver(cfg, n_target) == "wide"
         wide_s = _solver(cfg, n_source) == "wide"
         if wide_t:
-            draws["eig_block_target"] = rng.standard_normal(
-                (n_target, cfg.eig_wide_block)
-            ).astype(np.float32)
+            draws["eig_block_target"] = _normal_draw(
+                seed, "eig_block_target", (n_target, cfg.eig_wide_block))
         if wide_s and not _warm_supported(cfg, n_target, n_source):
-            draws["eig_block_source"] = rng.standard_normal(
-                (n_source, cfg.eig_wide_block)
-            ).astype(np.float32)
+            draws["eig_block_source"] = _normal_draw(
+                seed, "eig_block_source", (n_source, cfg.eig_wide_block))
         p = min(min(cfg.non_rigid_n_eigens, n_reg) + 16, n_reg)
-        draws["cpd_omega"] = rng.standard_normal((n_reg, p)).astype(np.float32)
+        draws["cpd_omega"] = _normal_draw(seed, "cpd_omega", (n_reg, p))
         if ((source_block or _want_split(n_target, n_source)) and wide_s
                 and "eig_block_source" not in draws):
-            draws["eig_block_source"] = rng.standard_normal(
-                (n_source, cfg.eig_wide_block)
-            ).astype(np.float32)
+            draws["eig_block_source"] = _normal_draw(
+                seed, "eig_block_source", (n_source, cfg.eig_wide_block))
         for side, n, wide in (("target", n_target, wide_t), ("source", n_source, wide_s)):
             if not wide:
-                draws[f"eig_start_{side}"] = rng.standard_normal(
-                    (n, _start_width(cfg, n))
-                ).astype(np.float32)
+                draws[f"eig_start_{side}"] = _normal_draw(
+                    seed, f"eig_start_{side}", (n, _start_width(cfg, n)))
         return draws
+
+
+def host_draws(draws) -> dict:
+    """``draws`` as host numpy arrays, each :class:`NormalDraw` drawn on the
+    CPU: one set of values for runs on different devices to share."""
+    return {name: _tensor_to(v, "cpu").numpy() for name, v in draws.items()}
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -790,7 +838,12 @@ def draw_seed(generator: torch.Generator) -> int:
 
 
 def _tensor_to(v, device):
-    """A numpy array or tensor on ``device``: floats f32, integers int64."""
+    """A numpy array or tensor on ``device``: floats f32, integers int64.  A
+    :class:`NormalDraw` is drawn on ``device`` (counted as
+    ``deferred_draws``)."""
+    if isinstance(v, NormalDraw):
+        spans.count("deferred_draws")
+        return v.draw(device)
     t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
     dtype = torch.float32 if t.is_floating_point() else torch.int64
     return t.to(dtype=dtype, device=device)
@@ -798,9 +851,11 @@ def _tensor_to(v, device):
 
 def _host_arrays(values, device) -> int:
     """How many of ``values`` a move to ``device`` copies from the host's
-    pageable memory: those not already tensors on ``device``."""
+    pageable memory: those not already tensors on ``device``, nor drawn
+    there (:class:`NormalDraw`)."""
     device = torch.device(device)
-    return sum(1 for v in values if not (torch.is_tensor(v) and v.device == device))
+    return sum(1 for v in values if not (isinstance(v, NormalDraw) or (
+        torch.is_tensor(v) and v.device == device)))
 
 
 def _draws_to(draws, device):

@@ -56,6 +56,7 @@ by up to 6%, correspondences agree on 42%, unique fraction within 0.012).
 
 import dataclasses
 import functools
+import hashlib
 import os
 import subprocess
 import sys
@@ -551,7 +552,7 @@ def test_padded_pair_equals_the_unpadded_pair_on_real_rows(torch_pair):
     assert TP.pipeline._solver(cfg, ptg.n_points) == "wide"
     pdraws = dict(draws)
     pdraws["eig_block_target"] = np.concatenate([
-        draws["eig_block_target"],
+        draws["eig_block_target"].draw("cpu").numpy(),
         np.random.default_rng(1).standard_normal((38, cfg.eig_wide_block), np.float32)])
     plain = TP.register_pair(tg, sg, cfg, draws=draws)
     padded = TP.register_pair(ptg, psg, cfg, draws=pdraws)
@@ -587,6 +588,135 @@ def test_make_draws_shapes_and_determinism():
         assert "eig_block_target" not in d and "eig_block_source" not in d
         for k in ("icp_landmarks", "eigsort_target", "cpd_source", "cpd_target"):
             np.testing.assert_array_equal(d[k], a[k])
+        assert d["cpd_omega"] == a["cpd_omega"]
+
+
+INDEX_DRAWS = ("icp_landmarks", "eigsort_target", "eigsort_source", "cpd_source",
+               "cpd_target")
+FLOAT_DRAWS = ("eig_block_target", "eig_block_source", "cpd_omega", "eig_start_target",
+               "eig_start_source")
+
+
+def _index_digest(draws):
+    h = hashlib.sha256()
+    for k in INDEX_DRAWS:
+        if k in draws:
+            a = np.ascontiguousarray(draws[k])
+            h.update(f"{k}:{a.dtype.str}:{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+# (seed, config, n_target, n_source, n_landmarks, real_target, real_source,
+# the digest of the index draws that numpy drew for them when every draw
+# was a numpy array).
+INDEX_CASES = [
+    (0, {}, 2562, 2700, 0, None, None, "6d740439fb3ce48d"),
+    (19_001_000, dict(n_coords_spectral_ordering=10000), 10242, 10242, 0, None, None,
+     "93589594d60c3bd7"),
+    (2**62 - 7, dict(icp_reg_target_to_source=True, n_coords_spectral_ordering=3000),
+     5000, 4000, 10, None, None, "3dd760c1c6d5bb25"),
+    (123456789, dict(n_coords_spectral_ordering=2000), 2600, 2650, 0, 2562, 2600,
+     "5ffbf5c0f1c1b994"),
+    (7, dict(eig_method="lanczos", icp_register_first=False), 2562, 2700, 0, None, None,
+     "366a4b8d42274290"),
+]
+
+
+@pytest.mark.parametrize("case", INDEX_CASES, ids=lambda c: str(c[0]))
+def test_index_draws_keep_their_numpy_values(case):
+    """Every index draw is the value numpy drew for it when the float
+    starts were host arrays too (padded rows, landmarks, a moving target,
+    no ICP and the Lanczos starts included); every float draw is deferred,
+    of the shape and dtype it had."""
+    seed, kw, n_t, n_s, n_lm, real_t, real_s, digest = case
+    cfg = TP.PipelineConfig(**kw)
+    d = TP.make_draws(seed, cfg, n_t, n_s, n_lm, real_target=real_t, real_source=real_s)
+    assert _index_digest(d) == digest
+    for k in INDEX_DRAWS:
+        if k in d:
+            assert isinstance(d[k], np.ndarray) and d[k].dtype == np.int64, k
+    floats = [k for k in d if k not in INDEX_DRAWS]
+    assert floats and set(floats) <= set(FLOAT_DRAWS)
+    for k in floats:
+        v = d[k]
+        assert isinstance(v, TP.pipeline.NormalDraw) and v.dtype == np.float32, k
+        assert not hasattr(v, "__array__"), k
+    assert d["cpd_omega"].shape[0] == min(cfg.n_coords_spectral_registration, n_t, n_s)
+    for k, n in (("eig_block_target", n_t), ("eig_start_target", n_t),
+                 ("eig_block_source", n_s), ("eig_start_source", n_s)):
+        if k in d:
+            assert d[k].shape[0] == n, k  # padded row count
+
+
+def test_deferred_draws_are_fixed_by_the_seed_and_drawn_on_the_device():
+    """A float draw is the same for a seed, another for another seed or
+    another draw, independent of which other draws a call makes, and
+    becomes f32 standard normals on the device it is moved to."""
+    cfg = TP.PipelineConfig(n_coords_spectral_ordering=3000)
+    a, b = TP.make_draws(5, cfg, 2562, 2700), TP.make_draws(5, cfg, 2562, 2700)
+    other = TP.make_draws(6, cfg, 2562, 2700)
+    with_block = TP.make_draws(5, cfg, 2562, 2700, source_block=True)
+    for k in ("eig_block_target", "cpd_omega"):
+        assert a[k] == b[k] and hash(a[k]) == hash(b[k])
+        assert a[k] != other[k] and a[k].seed != other[k].seed
+        assert with_block[k] == a[k]
+    assert with_block["eig_block_source"].shape == (2700, 128)
+    seeds = {with_block[k].seed for k in ("eig_block_target", "eig_block_source", "cpd_omega")}
+    assert len(seeds) == 3
+    block = TP.pipeline._tensor_to(a["eig_block_target"], "cpu")
+    assert block.dtype == torch.float32 and block.device.type == "cpu"
+    assert tuple(block.shape) == (2562, 128)
+    assert abs(float(block.mean())) < 0.01 and abs(float(block.std()) - 1.0) < 0.01
+    assert torch.equal(block, TP.pipeline._tensor_to(b["eig_block_target"], "cpu"))
+    assert not torch.equal(block, TP.pipeline._tensor_to(other["eig_block_target"], "cpu"))
+    omega = TP.pipeline._tensor_to(a["cpd_omega"], "cpu")
+    assert not torch.equal(omega[:, :16], block[:1000, :16])
+    host = TP.pipeline.host_draws(a)
+    assert host["eig_block_target"].dtype == np.float32
+    np.testing.assert_array_equal(host["eig_block_target"], block.numpy())
+    for k in INDEX_DRAWS:
+        np.testing.assert_array_equal(host[k], a[k])
+
+
+def test_register_pair_draws_deferred_starts_on_its_device(torch_pair):
+    """``register_pair`` on ``make_draws`` output draws the two float
+    starts on the graphs' device (``deferred_draws`` 2) and copies the
+    five index arrays; on explicit arrays (the same values, drawn on the
+    host by ``host_draws``) it draws nothing, copies all seven and gives
+    the same bits."""
+    from pyfocusr_tpu_torch.utils import spans
+
+    tg, sg = torch_pair
+    cfg = TP.PipelineConfig(**dict(FAST, icp_iterations=3, non_rigid_max_iterations=5,
+                                   eig_wide_chunks=2, eig_wide_chunks_warm=1))
+    draws = TP.make_draws(11, cfg, tg.n_points, sg.n_points)
+    deferred = TP.register_pair(tg, sg, cfg, draws=draws)
+    rec = spans.RECORDS[-1]
+    assert rec.completed and rec.total("deferred_draws") == 2
+    assert rec.syncs[("inputs", "draws_copy")][0] == len(INDEX_DRAWS)
+    host = TP.pipeline.host_draws(draws)
+    given = TP.register_pair(tg, sg, cfg, draws=host)
+    rec = spans.RECORDS[-1]
+    assert rec.total("deferred_draws") == 0
+    assert rec.syncs[("inputs", "draws_copy")][0] == len(draws) == 7
+    for k in deferred:
+        assert torch.equal(deferred[k], given[k]), k
+
+
+def test_lane_generator_hashes_deferred_draws_by_identity():
+    """Cohort's ``lane_generator`` seeds from a deferred draw's seed, shape
+    and dtype: stable for a seed, another for another seed."""
+    from pyfocusr_tpu_torch.parallel import cohort as TC
+
+    cfg = TP.PipelineConfig(n_coords_spectral_ordering=3000)
+    seed = TC.lane_generator(TP.make_draws(3, cfg, 2562, 2700)).initial_seed()
+    assert TC.lane_generator(TP.make_draws(3, cfg, 2562, 2700)).initial_seed() == seed
+    assert TC.lane_generator(TP.make_draws(4, cfg, 2562, 2700)).initial_seed() != seed
+    d = TP.make_draws(3, cfg, 2562, 2700)
+    moved = dict(d, cpd_omega=TP.pipeline.NormalDraw(d["cpd_omega"].seed + 1,
+                                                      d["cpd_omega"].shape))
+    assert TC.lane_generator(moved).initial_seed() != seed
 
 
 def test_draws_from_generator_are_reproducible(torch_pair):

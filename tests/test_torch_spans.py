@@ -140,6 +140,8 @@ def test_counters_equal_what_the_loops_returned(traced):
     assert rec.syncs[("cpd", "flag_read")][0] == traced["em"]["host_reads"]
     assert traced["em"]["read_ms"] <= rec.syncs[("cpd", "flag_read")][1] / 1e6
     assert rec.counter("inputs", "target_rows") == rec.counter("inputs", "source_rows") == 2562
+    assert rec.counter("inputs", "deferred_draws") == sum(
+        isinstance(v, TP.pipeline.NormalDraw) for v in traced["draws"].values()) == 2
 
 
 def test_chunks_equal_the_solves(traced):
@@ -158,7 +160,9 @@ def test_every_host_read_counts_under_its_stage(traced):
     chunks = target["chunks"] + warm["chunks"]
     want = {
         ("inputs", "n_real_vertices"): 1,
-        ("inputs", "draws_copy"): len(traced["draws"]),
+        # The index arrays; the float starts are drawn on the device.
+        ("inputs", "draws_copy"): sum(isinstance(v, np.ndarray)
+                                      for v in traced["draws"].values()),
         ("icp", "scalar_copy"): 1,
         ("icp", "flag_read"): traced["icp"]["host_reads"],
         ("spectra", "eigh"): 2 * chunks,
@@ -311,3 +315,33 @@ def test_host_syncs_equal_the_sync_warnings_on_the_card(monkeypatch, grid):
     print("warnings by line:", dict(where), "\nrecord by site:", counted)
     assert rec.completed
     assert rec.host_syncs() == len(syncs)
+
+
+def _moved(draws, device):
+    """``draws`` moved to ``device`` as ``register_pair`` moves them, with
+    the record of that move."""
+    with spans.call() as rec:
+        rec.stage("inputs")
+        moved = TP.pipeline._draws_to(draws, device)
+    return moved, rec
+
+
+@pytest.mark.gpu
+def test_deferred_draws_become_tensors_on_the_card():
+    """Runs on a CUDA card only: at 40962 vertices the float starts are
+    drawn on the card, the move copies the five index arrays alone, and a
+    seed gives the same values twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = TP.pipeline.PipelineConfig(**KD)
+    draws = TP.pipeline.make_draws(19_001_000, cfg, 40962, 40962)
+    moved, rec = _moved(draws, "cuda")
+    block = moved["eig_block_target"]
+    assert block.is_cuda and block.dtype == torch.float32 and tuple(block.shape) == (40962, 128)
+    assert moved["cpd_omega"].is_cuda and tuple(moved["cpd_omega"].shape) == (1000, 116)
+    assert rec.counter("inputs", "deferred_draws") == 2
+    assert rec.syncs[("inputs", "draws_copy")][0] == 5
+    again, _ = _moved(TP.pipeline.make_draws(19_001_000, cfg, 40962, 40962), "cuda")
+    for k in draws:
+        assert torch.equal(moved[k], again[k]), k
+    assert abs(float(block.mean())) < 0.01 and abs(float(block.std()) - 1.0) < 0.01
