@@ -69,11 +69,11 @@ def gaussian_matvec_tiled(Y, beta, V, tile: int = 2048):
     """Z = G V with G = exp(-|y_i - y_j|^2 / 2 beta^2), in row tiles of
     ``tile`` so the [M, M] Gram never materializes.  The JAX function is an
     XLA function, not a Pallas kernel, so its port is plain torch: one
-    [tile, M] slab (matmul identity, as ``gaussian_kernel``) per step."""
-    return torch.cat([
-        gaussian_kernel(Y[s : s + tile], Y, beta) @ V
-        for s in range(0, Y.shape[0], tile)
-    ])
+    [tile, M] slab (matmul identity, as ``gaussian_kernel``) per step.  The
+    tiles count in the open stage's ``gram_tiles``."""
+    starts = range(0, Y.shape[0], tile)
+    spans.count("gram_tiles", len(starts))
+    return torch.cat([gaussian_kernel(Y[s : s + tile], Y, beta) @ V for s in starts])
 
 
 def _estep(X, TY, sigma2, w):
@@ -364,7 +364,8 @@ _TRANSFORM_TILE = 2048
 def lowrank_transform(points, Y0, Q, lam, z, beta):
     """Out-of-sample warp of the fitted field, points + G(points, Y0) @ W,
     with the balanced weights W = Q diag(1/sqrt lam) z (same gate as the
-    fit).  Evaluated in row blocks above 32M kernel entries."""
+    fit).  Evaluated in row blocks above 32M kernel entries, which count in
+    the open stage's ``transform_tiles``."""
     sqrt_lam = _sqrt_lam_gated(lam, points.dtype)
     safe = torch.clamp(sqrt_lam, min=torch.finfo(points.dtype).tiny)
     wt = torch.where(sqrt_lam[:, None] > 0, z / safe[:, None], torch.zeros_like(z))
@@ -376,9 +377,9 @@ def lowrank_transform(points, Y0, Q, lam, z, beta):
     n = points.shape[0]
     if n * Y0.shape[0] <= _TRANSFORM_MAX_ELEMS:
         return move(points)
-    return torch.cat(
-        [move(points[s : s + _TRANSFORM_TILE]) for s in range(0, n, _TRANSFORM_TILE)]
-    )
+    starts = range(0, n, _TRANSFORM_TILE)
+    spans.count("transform_tiles", len(starts))
+    return torch.cat([move(points[s : s + _TRANSFORM_TILE]) for s in starts])
 
 
 # Above this many E-step pairs the classes and the pipeline stream the E-step.

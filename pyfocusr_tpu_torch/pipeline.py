@@ -1655,6 +1655,10 @@ def _register_pair(target, source, cfg, generator, draws, stage,
         Y = tgt_coords[draws["cpd_target"]]
     # Above 3000^2 pairs the responsibilities are streamed, never formed.
     estep_impl = cpd_ops._estep_route(n_reg, n_reg, None)
+    spans.count("cpd_rows", Y.shape[0])
+    spans.count("cpd_cols", X.shape[0])
+    spans.count("cpd_dims", X.shape[1])
+    spans.count("estep_streamed", int(estep_impl == "streamed"))
     if cfg.rigid_before_non_rigid_reg:
         _, B, t_vec, _, _ = cpd_ops._affine_cpd_run(
             X, Y, cfg.rigid_reg_max_iterations, cfg.rigid_tolerance,

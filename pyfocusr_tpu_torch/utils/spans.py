@@ -11,7 +11,7 @@ through ``pipeline._run``, which opens a :class:`call`; while it is open:
   (``spectra/chunk``, ``cpd/em_loop``, ...).  Its name never starts with
   ``register_pair/``: a profiler trace's top-level ranges stay consecutive;
 * :func:`count` adds to a counter of the open stage (ICP and EM iterations,
-  JV's steps, the meshes' rows);
+  JV's steps, the meshes' rows, CPD's shape, E-step route and row tiles);
 * :class:`host_read` counts and times a place where the host blocks on the
   device (a flag read, an ``eigh``'s error check, a pageable copy) under
   the open stage and the site's name; it changes no value and no order;
