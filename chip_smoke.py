@@ -6,9 +6,9 @@ nvcc and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from ``pyfocusr_tpu_torch/csrc/`` (k-NN for
+It builds the seven CUDA kernels from ``pyfocusr_tpu_torch/csrc/`` (k-NN for
 k = 1..3 and for k = 4..128, Sinkhorn row-logsumexp, Jonker-Volgenant,
-streamed CPD E-step, the 3x3 Umeyama close; one nvcc each, started
+streamed CPD E-step, the 3x3 Umeyama close, the Chebyshev filter step; one nvcc each, started
 together), builds the host library from ``csrc/host/`` with g++ at its
 first use, and drives four paths of
 ``register_pair`` on a synthetic 10242-vertex bone pair, on CUDA tensors,
@@ -4265,6 +4265,7 @@ SHARDED_MEAN_RTOL = 1e-6
 def kernel_modules():
     """The kernel wrappers by name, each with its ``LAUNCHES`` count."""
     from pyfocusr_tpu_torch.ops import (
+        cheb_step_kernel,
         cpd_estep_kernel,
         jv_kernel,
         knn_kernel,
@@ -4274,7 +4275,8 @@ def kernel_modules():
     )
 
     return {"knn": knn_kernel, "knn_topk": knn_topk_kernel, "lse_rows": sinkhorn_kernel,
-            "jv": jv_kernel, "cpd_estep": cpd_estep_kernel, "umeyama3": umeyama_kernel}
+            "jv": jv_kernel, "cpd_estep": cpd_estep_kernel, "umeyama3": umeyama_kernel,
+            "cheb_step": cheb_step_kernel}
 
 
 def sharded_inputs(tp, subjects, pair_subjects, multires_levels, levels=5,
@@ -4600,6 +4602,19 @@ AUCTION_GAP_MAX = 0.05
 AUCTION_CPU_MAX_N = 300
 # Warm 'kd' pairs with the patch plan on and off (alternated, one process).
 PATCH_WARM_REPS = 5
+# The fused Chebyshev filter step (ops/cheb_step_kernel.py): its gate against
+# the plain ELL step, of the ELL result's largest entry (the patch-dense
+# operator's gate above); the bones it is timed on (10242 and 40962
+# vertices, block width 128); the narrow block width and the UV sphere whose
+# poles overflow the ELL width of 24, for the cases of other shapes; the
+# steps a graph times; the warm 'kd' pairs with the fused chunk and the
+# step-by-step ELL chunk alternated.
+CHEB_STEP_TOL_OF_SCALE = 2e-6
+CHEB_STEP_LEVELS = (5, 6)
+CHEB_NARROW_WIDTH = 14
+CHEB_HUB = (40, 60)
+CHEB_TIMED_STEPS = 20
+CHEB_WARM_REPS = 3
 
 
 def uv_sphere(tp, n_theta: int, n_phi: int, warp: float = 0.0):
@@ -4785,6 +4800,247 @@ def patch_dense_case(torch, tp, kernels, levels, device, warm_reps):
     }
 
 
+def cheb_operands(torch, tp, g, b, seed=0):
+    """The operands of one Chebyshev filter step on graph ``g`` at block
+    width ``b``, at a cold solve's first cut (``chebyshev_eigpairs_wide``):
+    the ELL factory's ``op`` (on CUDA tensors with its fused
+    ``op.chebyshev``), the kernel's table (int32 neighbours, ``w_hat``,
+    ``a_diag``), the overflow edges and their ``ov_coef`` (None without),
+    the factory's pieces and two random blocks ``t``, ``tprev`` [N, b]."""
+    sw, ov_sw, sd, mask, bound = filter_pieces(torch, tp, g)
+    dev = g.device
+    lam_max = torch.tensor(bound * 1.005, dtype=torch.float32, device=dev)
+    a = lam_max * 1e-3
+    c, e = (lam_max + a) / 2.0, (lam_max - a) / 2.0
+    alpha = 2.0 / e
+    rng = np.random.default_rng(seed)
+    t, tprev = (torch.from_numpy(rng.standard_normal((g.n_points, b)).astype(np.float32))
+                .to(dev) for _ in range(2))
+    return {
+        "op": tp.pipeline.ell_filter_factory(g.neighbors, g.overflow, sw, ov_sw, sd,
+                                             mask)(c, e),
+        "neighbors": g.neighbors.to(torch.int32), "w_hat": alpha * sw,
+        "a_diag": alpha * (sd - c * mask), "overflow": g.overflow,
+        "ov_coef": None if ov_sw is None else -(alpha * ov_sw)[:, None],
+        "pieces": (sw, ov_sw, sd, mask), "c": c, "e": e, "t": t, "tprev": tprev}
+
+
+def cheb_reference(op, X, deg):
+    """t_deg of the filter recurrence run step by step through ``op``, as
+    ``chebyshev_eigpairs_wide`` runs it without a fused chunk."""
+    t_prev, t_cur = X, 0.5 * op(X)
+    for _ in range(deg - 1):
+        t_prev, t_cur = t_cur, op(t_cur) - t_prev
+    return t_cur
+
+
+def cheb_errors(torch, CK, ops, degrees=(1, 2, 3)):
+    """The fused chunk (``chebyshev_ell`` on the operands' device) against
+    the step-by-step ELL recurrence after each of ``degrees`` steps (one
+    step, one in fresh buffers, one written over the block two back), and
+    the single step ``cheb_step_plain`` / ``cheb_step_cuda`` against
+    ``op(t) - tprev`` and ``0.5 op(t)`` where the graph has no overflow
+    edges: each the largest difference over the reference's largest entry."""
+    out = {}
+    for deg in degrees:
+        ref = cheb_reference(ops["op"], ops["t"], deg)
+        got = CK.chebyshev_ell(ops["t"], deg, ops["neighbors"], ops["w_hat"], ops["a_diag"],
+                               ops["overflow"], ops["ov_coef"])
+        out[f"chunk_{deg}"] = float((got - ref).abs().max() / ref.abs().max())
+    if ops["ov_coef"] is None:
+        step = CK.cheb_step_plain if ops["t"].device.type == "cpu" else (
+            lambda t, tp_, nb, w, a, first: CK.cheb_step_cuda(
+                t, tp_, torch.empty_like(t), nb, w, a, first))
+        for first in (True, False):
+            ref = 0.5 * ops["op"](ops["t"]) if first else ops["op"](ops["t"]) - ops["tprev"]
+            got = step(ops["t"], ops["tprev"], ops["neighbors"], ops["w_hat"], ops["a_diag"],
+                       first)
+            out["step_first" if first else "step"] = float(
+                (got - ref).abs().max() / ref.abs().max())
+    return out
+
+
+@contextlib.contextmanager
+def stepwise_filter(tp):
+    """``pipeline._spectrum`` with the ELL filter run one op at a time (the
+    factory's ops stripped of their fused chunk), as before the kernel."""
+    real = tp.pipeline.ell_filter_factory
+
+    def stepwise(*args):
+        factory = real(*args)
+
+        def strip(c, e):
+            op = factory(c, e)
+            return lambda T: op(T)
+
+        return strip
+
+    tp.pipeline.ell_filter_factory = stepwise
+    try:
+        yield
+    finally:
+        tp.pipeline.ell_filter_factory = real
+
+
+def cheb_capture(torch, ops, deg):
+    """One chunk of ``deg`` fused steps captured in a CUDA graph and
+    replayed: (replay equal to the eager chunk bit for bit, launches the
+    capture recorded)."""
+    from pyfocusr_tpu_torch.ops import cheb_step_kernel as CK
+
+    eager = ops["op"].chebyshev(ops["t"], deg)
+    torch.cuda.synchronize()
+    before = CK.LAUNCHES
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops["op"].chebyshev(ops["t"], deg)
+    launches = CK.LAUNCHES - before
+    graph.replay()
+    torch.cuda.synchronize()
+    return bool(torch.equal(captured, eager)), launches
+
+
+def cheb_step_times(torch, tp, CK, g, ops, device):
+    """Device ms of one filter step at the operands' shape, each from a
+    CUDA graph of ``CHEB_TIMED_STEPS`` steps (``graph_ms``): the kernel as
+    a chunk runs it (two blocks in turn, each step reading both and writing
+    over the older), the plain ELL step and the patch-dense step, each
+    ``op(t) - tprev`` on fixed blocks (the recurrence before the kernel);
+    the graph nodes of one step; and the bytes bound, 3 N b 4 + N D 8 bytes
+    over ``HBM_BYTES_PER_S``."""
+    from pyfocusr_tpu_torch.ops import patch_dense
+
+    n, b = ops["t"].shape
+    d = g.neighbors.shape[1]
+    blocks = [ops["tprev"].clone(), ops["t"].clone()]
+    turn = [0]
+
+    def fused():  # t = the newer block, written over the older
+        older = blocks[turn[0]]
+        newer = blocks[1 - turn[0]]
+        CK.cheb_step_cuda(newer, older, older, ops["neighbors"], ops["w_hat"], ops["a_diag"],
+                          False)
+        turn[0] = 1 - turn[0]
+
+    steps = {"kernel": fused,
+             "ell": lambda: ops["op"](ops["t"]) - ops["tprev"]}
+    if g.patch_plan is not None:
+        pd_op = patch_dense.patch_filter_factory(g.patch_plan, *ops["pieces"])(
+            ops["c"], ops["e"])
+        steps["patch_dense"] = lambda: pd_op(ops["t"]) - ops["tprev"]
+    out = {"n": n, "b": b, "d": d, "plan": CK.plan(n, b)}
+    for name, fn in steps.items():
+        out[f"{name}_ms"] = graph_ms(torch, fn, calls=CHEB_TIMED_STEPS)
+        out[f"{name}_device_work_per_step"] = device_work_per_call(torch, fn, device)
+    out["bound_ms"] = (3 * n * b * 4 + n * d * 8) / HBM_BYTES_PER_S * 1e3
+    out["bound_by"] = "bytes"
+    out["kernel_share_of_bound"] = out["bound_ms"] / out["kernel_ms"]
+    # The blocks fit the 50 MB L2 at 10242 (15.7 MB); the bound counts
+    # device memory all the same.
+    out["blocks_mb"] = 3 * n * b * 4 / 1e6
+    return out
+
+
+def phase_cheb_step(torch, tp, kernels, smi, device="cuda", levels=CHEB_STEP_LEVELS,
+                    warm_reps=CHEB_WARM_REPS):
+    """The fused Chebyshev filter step on the card: at each of ``levels``
+    (bones at 10242 and 40962 vertices, block width 128, the bones' ELL
+    width) its error against the plain ELL step and chunk, its time beside
+    the plain ELL step's, the patch-dense step's and the bytes bound, a
+    chunk captured in a CUDA graph, and the spectrum through it against the
+    step-by-step ELL chunk; a narrow block (``CHEB_NARROW_WIDTH`` columns)
+    and a hub graph with overflow edges (``CHEB_HUB``); then warm 'kd'
+    pairs at 10242 fused and step by step alternated, each fused pair's
+    launches and its record's ``cheb_steps_fused`` against 33 steps a
+    chunk.  Returns the kernel's figures for the ``kernels`` line."""
+    from pyfocusr_tpu_torch.ops import cheb_step_kernel as CK
+    from pyfocusr_tpu_torch.utils import spans
+    from pyfocusr_tpu_torch.utils.precision import full_f32
+
+    cfg = tp.PipelineConfig(**BENCH_CFG)
+    sizes = []
+    with full_f32():
+        for lv in levels:
+            g = tp.mesh_to_graph_arrays(synthetic_bone(tp, 2, lv), device=device)
+            ops = cheb_operands(torch, tp, g, cfg.eig_wide_block)
+            errs = cheb_errors(torch, CK, ops, degrees=(1, 2, 3, cfg.eig_wide_degree))
+            chunk_err = errs.pop(f"chunk_{cfg.eig_wide_degree}")
+            check(max(errs.values()) <= CHEB_STEP_TOL_OF_SCALE,
+                  f"fused step against the ELL step at {g.n_points}: {errs}")
+            equal, cap_launches = cheb_capture(torch, ops, cfg.eig_wide_degree)
+            check(equal and cap_launches == cfg.eig_wide_degree,
+                  f"a captured chunk at {g.n_points}: equal {equal}, {cap_launches} launches")
+            times = cheb_step_times(torch, tp, CK, g, ops, device)
+            start = torch.from_numpy(np.random.default_rng(1).standard_normal(
+                (g.n_points, cfg.eig_wide_block)).astype(np.float32)).to(device)
+            spectra = {}
+            for name, ctx in (("fused", contextlib.nullcontext()),
+                              ("stepwise", stepwise_filter(tp))):
+                with ctx:
+                    sync(torch, device)
+                    t0 = time.perf_counter()
+                    lams, vecs, _ = tp.pipeline._spectrum(g, cfg.n_total, cfg, start)
+                    sync(torch, device)
+                    spectra[name] = (time.perf_counter() - t0, _cpu(lams), _cpu(vecs))
+            rel, cos = eig_agreement(spectra["fused"][1], spectra["fused"][2],
+                                     spectra["stepwise"][1], spectra["stepwise"][2])
+            check(rel <= EIGVAL_RTOL and cos >= COS_MIN,
+                  f"fused spectrum against the stepwise one: rel {rel}, |cos| {cos}")
+            sizes.append({"errors_of_scale": errs, "chunk_error_of_scale": chunk_err,
+                          "capture_equal": equal, **times,
+                          "spectrum_s": {k: v[0] for k, v in spectra.items()},
+                          "spectrum_eigval_max_rel_diff": rel,
+                          "spectrum_eigvec_min_abs_cos": cos})
+            emit({"phase": "cheb_step_kernel_vs_plain", "nvidia_smi": smi, **sizes[-1]})
+        # Other shapes: a narrow block, and a hub graph with overflow edges.
+        g5 = tp.mesh_to_graph_arrays(synthetic_bone(tp, 2, levels[0]), device=device)
+        narrow = cheb_errors(torch, CK, cheb_operands(torch, tp, g5, CHEB_NARROW_WIDTH))
+        hub_g = tp.mesh_to_graph_arrays(uv_sphere(tp, *CHEB_HUB), device=device)
+        check(hub_g.overflow.shape[0] > 0, "the hub sphere has no overflow edges")
+        hub = cheb_errors(torch, CK, cheb_operands(torch, tp, hub_g, cfg.eig_wide_block))
+        check(max(narrow.values()) <= CHEB_STEP_TOL_OF_SCALE
+              and max(hub.values()) <= CHEB_STEP_TOL_OF_SCALE,
+              f"fused step, narrow block {narrow}, hub graph {hub}")
+    emit({"phase": "cheb_step_shapes", "nvidia_smi": smi,
+          "narrow": {"b": CHEB_NARROW_WIDTH, "plan": CK.plan(g5.n_points, CHEB_NARROW_WIDTH),
+                     "errors_of_scale": narrow},
+          "hub": {"n": hub_g.n_points, "overflow_edges": int(hub_g.overflow.shape[0]),
+                  "errors_of_scale": hub}})
+
+    # Warm 'kd' pairs, fused and step by step in turn.
+    tg, sg = (tp.mesh_to_graph_arrays(synthetic_bone(tp, seed, levels[0]), device=device)
+              for seed in (2, 1))
+    draws = tp.make_draws(0, cfg, tg.n_points, sg.n_points)
+    warm = {"fused": [], "stepwise": []}
+    counts = []
+    for name in warm:  # one first call each
+        with (stepwise_filter(tp) if name == "stepwise" else contextlib.nullcontext()):
+            tp.register_pair(tg, sg, cfg, draws=draws)
+    for _ in range(warm_reps):
+        for name in warm:
+            with (stepwise_filter(tp) if name == "stepwise" else contextlib.nullcontext()):
+                CK.LAUNCHES = 0
+                sync(torch, device)
+                t0 = time.perf_counter()
+                tp.register_pair(tg, sg, cfg, draws=draws)
+                sync(torch, device)
+                warm[name].append(time.perf_counter() - t0)
+                rec = spans.RECORDS[-1]
+                counts.append({"path": name, "launches": CK.LAUNCHES,
+                               "cheb_steps_fused": rec.total("cheb_steps_fused"),
+                               "chunks": sum(s["chunks"] for s in rec.solves)})
+    for c in counts:
+        want = cfg.eig_wide_degree * c["chunks"] if c["path"] == "fused" else 0
+        check(c["launches"] == want and c["cheb_steps_fused"] == want,
+              f"fused steps of a 'kd' pair: {c}, want {want}")
+    pairs = {"kd_warm_s": {k: {"median": statistics.median(v), "all": v}
+                           for k, v in warm.items()},
+             "counts": counts}
+    emit({"phase": "cheb_step_register_pair", "nvidia_smi": smi, **pairs})
+    return {"sizes": sizes, "narrow": narrow, "hub": hub,
+            "launches_per_pair": counts[0]["launches"], "main": sizes[-1]}
+
+
 def phase_completion(torch, tp, kernels, smi, device="cuda", levels=(5, 6),
                      hub=(HUB_N, HUB_N), split_n=None, union_levels=5,
                      auction_sizes=AUCTION_SIZES, cpu_auction_max_n=AUCTION_CPU_MAX_N,
@@ -4931,7 +5187,7 @@ def main():
 
     kernels = kernel_modules()
     knn_kernel, knn_topk_kernel, sinkhorn_kernel, jv_kernel, cpd_estep_kernel, \
-        umeyama_kernel = kernels.values()
+        umeyama_kernel, _ = kernels.values()
     smi = nvidia_smi_line()
     cap = torch.cuda.get_device_capability(0)
     emit({
@@ -5185,6 +5441,7 @@ def main():
     co_launches = phase_cohort(torch, tp, kernels, smi, deterministic)
     torch.cuda.empty_cache()
     completion_launches = phase_completion(torch, tp, kernels, smi)
+    cheb = phase_cheb_step(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
     gw_launches = phase_groupwise(torch, tp, kernels, smi)
     torch.cuda.empty_cache()
@@ -5422,6 +5679,27 @@ def main():
                 for r in icp_results},
             "shape": "the step at the 'kd' pair's first ICP iteration, 2000 x 10242; "
                      "the close alone on its moments (close_*)",
+        },
+        {
+            "name": "cheb_step",
+            "route": "cuda",
+            "source": "pyfocusr_tpu_torch/csrc/cheb_step.cu",
+            # No Pallas kernel: the JAX package's filter step is XLA products.
+            "replaces": "pyfocusr_tpu/ops/eigen.py (chebyshev_eigpairs_wide's filter)",
+            "launches": kd_launches["cheb_step"],
+            "launches_per_pair_counted": cheb["launches_per_pair"],
+            "max_err_of_scale": max(max(r["errors_of_scale"].values()) for r in cheb["sizes"]),
+            "ms": cheb["main"]["kernel_ms"],
+            "plain_ms": cheb["main"]["ell_ms"],
+            "patch_dense_ms": cheb["main"].get("patch_dense_ms"),
+            "bound_ms": cheb["main"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,  # no single PyTorch call computes the step
+            "by_size": {r["n"]: {k: r.get(k) for k in (
+                "kernel_ms", "ell_ms", "patch_dense_ms", "bound_ms", "kernel_share_of_bound")}
+                for r in cheb["sizes"]},
+            "shape": f"N={cheb['main']['n']} b={cheb['main']['b']} D={cheb['main']['d']}, "
+                     "a step of a chunk's recurrence",
         },
     ]
     for entry in kernel_entries:  # every CLI invocation of the cli phase

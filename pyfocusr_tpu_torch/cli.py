@@ -29,7 +29,7 @@ What differs:
   artifacts: ``.ptexec`` selects the compiled format (the built libraries
   travel in the file: a fresh process builds nothing), any other extension
   the portable one.
-* ``warmup`` builds every library a pair on the device loads (the six CUDA
+* ``warmup`` builds every library a pair on the device loads (the seven CUDA
   kernels on a card, one ``nvcc`` each started together, and the host
   library), then runs one pair; ``compile_plus_first_run_s`` counts both.
 """

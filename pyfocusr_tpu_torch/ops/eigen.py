@@ -16,11 +16,16 @@ indicator per connected component, scaled by 1/s) deflated exactly;
 ``matvec`` applies A to an [N, C] block.  The wide solver's chunk applies a
 degree-``chunk_degree`` Chebyshev filter to a 128-wide block,
 re-orthonormalizes it by SVQB (eigh of the [b, b] Gram with a rank floor)
-and runs Rayleigh-Ritz; the narrow one filters a [N, k + 8] block, takes
-Householder QR, and polishes with one block shift-invert step (batched CG);
-Lanczos runs ~4k + 8 steps on (A + sigma I)^-1, each a fixed-count CG
-solve.  The small dense products, QR and ``eigh`` go to ``torch.matmul`` /
-``torch.linalg``.  The loops of the JAX ``fori_loop`` / ``while_loop`` are
+and runs Rayleigh-Ritz.  Its filter's step is the caller's
+(``filter_op_factory``): on CUDA tensors ``pipeline._spectrum`` gives the
+ELL operator with a fused chunk (``ops/cheb_step_kernel.py``, one kernel
+launch a step: the sparse product and the three-term recurrence); on CPU
+tensors the ELL or patch-dense operator runs step by step.  The narrow
+solver filters a [N, k + 8] block, takes Householder QR, and polishes
+with one block shift-invert step (batched CG); Lanczos runs ~4k + 8 steps
+on (A + sigma I)^-1, each a fixed-count CG solve.  The small dense
+products, QR and ``eigh`` go to ``torch.matmul`` / ``torch.linalg``.  The
+loops of the JAX ``fori_loop`` / ``while_loop`` are
 Python loops over device tensors that read nothing back: CG freezes a
 converged column by ``torch.where``, as JAX's ``live`` mask does.
 
@@ -219,7 +224,10 @@ def chebyshev_eigpairs_wide(
 
     ``lam_max_bound``: an upper bound of A's spectrum (the pipeline's
     Gershgorin bound).  ``filter_op_factory(c, e)`` returns the fused
-    filter step T -> (2/e)(A T - c T); ``quad_form(V) -> [k]`` gives the
+    filter step T -> (2/e)(A T - c T); where that op has a
+    ``chebyshev(X, deg)`` method (the ELL factory's on CUDA tensors), a
+    chunk's whole recurrence runs through it, else through the op one step
+    at a time; ``quad_form(V) -> [k]`` gives the
     cancellation-free final Rayleigh quotients.  (The JAX version's
     power-iteration bound and its filter built from ``matvec`` when no
     factory is given have no caller of the wide solver, in either package,
@@ -248,6 +256,9 @@ def chebyshev_eigpairs_wide(
         c = (lam_max + a) / 2.0
         e = (lam_max - a) / 2.0
         op = filter_op_factory(c, e)
+        fused = getattr(op, "chebyshev", None)
+        if fused is not None:
+            return fused(X, deg)
         t_prev = X
         t_cur = 0.5 * op(X)
         for _ in range(deg - 1):

@@ -17,13 +17,20 @@ the boundary rows only, [Nb, Dr] column and weight tables, applied as one
 [Nb * Dr] row gather and one batched product, and added back through the
 ``exp_idx`` row gather.  The plan is built on the host once per mesh and
 carried as ``GraphArrays.patch_plan``; ``pipeline._spectrum`` takes it for
-the wide Chebyshev filter when the graph carries one.  The plan is gated to
+the wide Chebyshev filter when the graph carries one and lies on the CPU.
+On a CUDA device every wide solve takes the ELL operator's fused step
+instead (``ops/cheb_step_kernel.py``, one launch a step that moves only the
+three blocks): the dense blocks, built for the TPU's matrix unit, hold ~6
+nonzeros a row of 128, and on the H100 in f32 their product alone costs as
+long as that step's whole memory traffic.  The plan is gated to
 2 * 128 <= N <= ``PATCH_DENSE_MAX_N`` and a residual width of at most
 ``DR_MAX``, the JAX package's gates.
 
-A step is seven launches on a CUDA device: the permutation gather, the
-block product, the residual gather, the residual product, the ``exp_idx``
-gather, its subtraction and the inverse-permutation gather.  The diagonal
+A step is seven launches on a CUDA device (eight with the recurrence's
+subtraction): the permutation gather, the block product, the residual
+gather, the residual product, the ``exp_idx`` gather, its subtraction and
+the inverse-permutation gather; ``chip_smoke.py`` still times it there
+beside the fused step.  The diagonal
 and the 2/e scale are folded into the blocks and the residual weights once
 per ``factory(c, e)`` call (once per chunk of the wide solver), so the
 step does no elementwise pass of its own; this regroups f32 sums only.

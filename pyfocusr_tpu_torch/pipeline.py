@@ -84,6 +84,7 @@ from .mesh import TriMesh, build_topology
 from .ops import cpd as cpd_ops
 from .ops import graph_ops
 from .ops.assignment import sinkhorn_jv_lap
+from .ops.cheb_step_kernel import chebyshev_ell, ell_product
 from .ops.eigen import chebyshev_eigpairs_wide, narrow_or_lanczos
 from .ops.icp import apply_rigid
 from .ops.icp import icp as icp_fit
@@ -462,9 +463,14 @@ def _start_width(cfg: PipelineConfig, n_points: int) -> int:
 def ell_filter_factory(neighbors, overflow, sw, ov_sw, sd, mask):
     """The wide solver's filter-op factory over the ELL table
     (``pyfocusr_tpu/pipeline.py:590-605``): ``factory(c, e) -> op`` with
-    ``op(T) = (2/e) (A - c I) T``, ``A x = sd x - W_sym x``; a step is one
-    gather-einsum, one elementwise op and, with overflow edges (``ov_sw``
-    not None), their ``index_add_``."""
+    ``op(T) = (2/e) (A - c I) T``, ``A x = sd x - W_sym x``; ``op`` is
+    ``ops/cheb_step_kernel.ell_product`` (one gather-einsum, one elementwise
+    op and, with overflow edges, ``ov_sw`` not None, their ``index_add_``).
+    On CUDA tensors ``op.chebyshev(X,
+    deg)`` runs a chunk's recurrence on the same operator through
+    ``ops/cheb_step_kernel.chebyshev_ell``, one kernel launch a step; CPU
+    tensors keep the recurrence over ``op``."""
+    nbrs32 = neighbors.to(torch.int32) if neighbors.is_cuda else None
 
     def factory(c, e):
         alpha = 2.0 / e
@@ -473,11 +479,11 @@ def ell_filter_factory(neighbors, overflow, sw, ov_sw, sd, mask):
         ov_coef = None if ov_sw is None else -(alpha * ov_sw)[:, None]
 
         def op(T):
-            y = a_diag[:, None] * T - torch.einsum("nd,ndc->nc", w_hat, T[neighbors])
-            if ov_coef is not None:
-                y.index_add_(0, overflow[:, 0], ov_coef * T[overflow[:, 1]])
-            return y
+            return ell_product(T, neighbors, w_hat, a_diag, overflow, ov_coef)
 
+        if nbrs32 is not None:
+            op.chebyshev = lambda X, deg: chebyshev_ell(X, deg, nbrs32, w_hat, a_diag,
+                                                        overflow, ov_coef)
         return op
 
     return factory
@@ -488,9 +494,10 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
               extra_chunks: int = 0, degree: int = None, generator=None):
     """k smallest nonzero Laplacian eigenpairs of one mesh, eigvecs min-max
     normalized to [-0.5, 0.5], by the solver :func:`_solver` picks: the wide
-    Chebyshev solver with the fused ELL filter step (the patch-dense one,
-    ``ops/patch_dense.py``, when the graph carries a ``patch_plan``), the
-    narrow one, or shift-invert Lanczos.  ``init_block``: the solve's
+    Chebyshev solver with the fused ELL filter step (on CUDA tensors one
+    kernel launch a step, ``ops/cheb_step_kernel.py``; on CPU tensors the
+    patch-dense operator, ``ops/patch_dense.py``, when the graph carries a
+    ``patch_plan``), the narrow one, or shift-invert Lanczos.  ``init_block``: the solve's
     random start, [N, :func:`_start_width`] (for Lanczos the
     power-iteration vector, then the start vector).  ``x0``, ``return_block``, ``chunks`` and ``degree``
     exist on the wide path only, as in the JAX package.
@@ -558,9 +565,11 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
             sw = s[:, None] * w * s[nbrs]
             sd = s * s * d * mask
             ov_sw = ov_w * s[ov[:, 0]] * s[ov[:, 1]] if ov.shape[0] > 0 else None
-            factory = (ell_filter_factory(nbrs, ov, sw, ov_sw, sd, mask)
-                       if graph.patch_plan is None else
-                       patch_filter_factory(graph.patch_plan, sw, ov_sw, sd, mask))
+            # On the card every wide solve takes the ELL operator's fused
+            # step; the patch-dense operator is the CPU route.
+            factory = (patch_filter_factory(graph.patch_plan, sw, ov_sw, sd, mask)
+                       if graph.patch_plan is not None and not sw.is_cuda else
+                       ell_filter_factory(nbrs, ov, sw, ov_sw, sd, mask))
     if solver in ("narrow", "lanczos"):
         solver_kw = (dict(cg_iters=cfg.eig_cg_iters, lanczos_iters=cfg.eig_lanczos_iters)
                      if solver == "lanczos" else

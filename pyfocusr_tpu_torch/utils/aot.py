@@ -26,7 +26,7 @@ pinned:
   (``nvcc`` for the CUDA kernels, ``g++`` for the host library): the
   counterpart of JAX's StableHLO format, which re-compiles on every load.
 * **The compiled format** (``.ptexec``): the file also carries the built
-  shared libraries that a pair on the export device loads: the six CUDA
+  shared libraries that a pair on the export device loads: the seven CUDA
   libraries on a card, and the ``g++`` host library of ``native.py``.  It is
   a ``zipfile`` behind a magic header that is checked before anything is
   opened; each library's sha256 is recorded and checked, and the libraries
@@ -232,6 +232,7 @@ def _validate(path: str, sources: str, **inputs) -> None:
 
 def _kernel_modules():
     from ..ops import (
+        cheb_step_kernel,
         cpd_estep_kernel,
         jv_kernel,
         knn_kernel,
@@ -241,12 +242,12 @@ def _kernel_modules():
     )
 
     return (knn_kernel, knn_topk_kernel, sinkhorn_kernel, jv_kernel, cpd_estep_kernel,
-            umeyama_kernel)
+            umeyama_kernel, cheb_step_kernel)
 
 
 def build_libraries(device) -> dict:
     """Build (where missing) and load every library a pair on ``device``
-    loads: on a card the six CUDA libraries, one ``nvcc`` each started
+    loads: on a card the seven CUDA libraries, one ``nvcc`` each started
     together, and the host library everywhere.  Returns the seconds each
     spent in its compiler (0.0: found built)."""
     seconds = {}

@@ -3,7 +3,7 @@
 paths around them: a quick check of a kernel after a change.
 
     python3 tools/chip_phases.py [topk] [estep_wide] [sharded] [icp] [completion]
-        [--sweep] [--topk-variant SPEC]...
+        [cheb_step] [--sweep] [--topk-variant SPEC]...
 
 ``topk`` runs ``phase_knn_topk`` (the k = 4..128 kernel against
 ``knn_plain``, bit for bit, and its times), ``estep_wide`` runs
@@ -24,7 +24,11 @@ size (1-16 CTAs) at 256 to 163842 source rows, so the planner's
 ``ONE_CTA_MAX_ROWS`` can be read beside the others.  ``completion`` runs
 ``phase_completion`` (the patch-dense filter against the ELL one, the
 split-spectra schedule on the 122k hub pair, the union and batched
-spectra, the auction) after building every library.  ``--sweep`` also
+spectra, the auction) after building every library.  ``cheb_step`` runs
+``phase_cheb_step`` (the fused Chebyshev filter step against the plain ELL
+step, timed beside it, the patch-dense step and its bytes bound at 10242
+and 40962 vertices; a narrow block and a hub graph; a captured chunk; warm
+'kd' pairs fused and step by step).  ``--sweep`` also
 times both grids of the top-k kernel (1 and 4
 queries a warp; 4 only up to k = 32) and every split of the E-step's other
 cloud (both passes alike) at the timed shapes, each as one call from a CUDA
@@ -170,7 +174,12 @@ def main():
     from pyfocusr_tpu_torch.ops import cpd as cpd_ops
     from pyfocusr_tpu_torch.ops import cpd_estep_kernel as EK
     from pyfocusr_tpu_torch.ops import icp as icp_ops
-    from pyfocusr_tpu_torch.ops import knn_kernel, knn_topk_kernel, umeyama_kernel
+    from pyfocusr_tpu_torch.ops import (
+        cheb_step_kernel,
+        knn_kernel,
+        knn_topk_kernel,
+        umeyama_kernel,
+    )
 
     argv = sys.argv[1:]
     specs = [argv[i + 1] for i, a in enumerate(argv) if a == "--topk-variant"]
@@ -178,7 +187,7 @@ def main():
             if not a.startswith("--") and (i == 0 or argv[i - 1] != "--topk-variant")]
     phases = args or ["topk", "estep_wide"]
     smi = cs.nvidia_smi_line()
-    for mod in (knn_kernel, knn_topk_kernel, EK, umeyama_kernel):
+    for mod in (knn_kernel, knn_topk_kernel, EK, umeyama_kernel, cheb_step_kernel):
         mod.load_library()
         cs.emit({"phase": "build", "library": mod.__name__, "nvcc_seconds": mod.BUILD_SECONDS,
                  "ptxas": [ln.strip() for ln in mod.BUILD_LOG.splitlines()
@@ -233,6 +242,8 @@ def main():
 
         aot.build_libraries("cuda")
         cs.phase_completion(torch, tp, cs.kernel_modules(), smi)
+    if "cheb_step" in phases:
+        cs.phase_cheb_step(torch, tp, cs.kernel_modules(), smi)
     print(json.dumps({"nvidia_smi": smi}), flush=True)
     return 0
 
