@@ -109,14 +109,11 @@ after:
   where two plain calls agree, the refines at ``tests/test_bigmesh.py``'s
   gates; each rank's launches in the kernels line (``launches_sharded``);
 * the JAX package's schedules the port took last (``completion``, run
-  after ``cohort``): the
-  patch-dense filter step against the ELL one at 10242 and 40962 vertices
-  (the plan, device ms and device work a step, the spectrum both ways,
-  five warm 'kd' pairs each way alternated), the split-spectra schedule
-  against the fused one on the bench's ``direct_122k_hub`` pair (two 350 x
-  350 UV spheres, 122152 vertices), the union and batched spectra against
-  two separate solves at 10242, and the auction at 300 and 2562 rows
-  against ``lap_host``'s optimum (and its own CPU run at 300).
+  after ``cohort``): the split-spectra schedule against the fused one on
+  the bench's ``direct_122k_hub`` pair (two 350 x 350 UV spheres, 122152
+  vertices), the union and batched spectra against two separate solves at
+  10242, and the auction at 300 and 2562 rows against ``lap_host``'s
+  optimum (and its own CPU run at 300).
 
 Every CPD EM loop and every ICP on the card runs as one captured iteration
 replayed as a CUDA graph, the host reading the stop flag every 8
@@ -4574,7 +4571,7 @@ def phase_sharded(torch, tp, kernels, smi, deterministic, refine_args=None, devi
 
 
 # --- The completion phase: the JAX package's schedules the port took last
-# (patch-dense filter, split spectra, union and batched spectra, auction).
+# (split spectra, union and batched spectra, auction).
 
 # The bench's direct_122k_hub pair (bench.py:796-870): two 350 x 350 UV
 # spheres (122152 vertices; each pole touches a ring of 350), the source
@@ -4587,10 +4584,8 @@ HUB_CFG = dict(
     n_coords_spectral_registration=1000, graph_smoothing_iterations=600,
     projection_smooth_iterations=1,
 )
-# The filter-step agreement of the two operators, of the output's scale
-# (tests/test_patch_dense.py:79), and the union / batched solves' gates
-# against separate solves (tests/test_pipeline.py:166-175).
-PATCH_OP_TOL_OF_SCALE = 2e-6
+# The union / batched solves' gates against separate solves
+# (tests/test_pipeline.py:166-175).
 UNION_EIG_RTOL = 1e-3
 UNION_COS_MIN = 0.999
 # The auction's sizes and its gap gate against the optimum
@@ -4600,15 +4595,13 @@ UNION_COS_MIN = 0.999
 AUCTION_SIZES = (300, 2562)
 AUCTION_GAP_MAX = 0.05
 AUCTION_CPU_MAX_N = 300
-# Warm 'kd' pairs with the patch plan on and off (alternated, one process).
-PATCH_WARM_REPS = 5
 # The fused Chebyshev filter step (ops/cheb_step_kernel.py): its gate against
-# the plain ELL step, of the ELL result's largest entry (the patch-dense
-# operator's gate above); the bones it is timed on (10242 and 40962
-# vertices, block width 128); the narrow block width and the UV sphere whose
-# poles overflow the ELL width of 24, for the cases of other shapes; the
-# steps a graph times; the warm 'kd' pairs with the fused chunk and the
-# step-by-step ELL chunk alternated.
+# the plain ELL step, of the ELL result's largest entry (the JAX package's
+# gate between its two filter operators, tests/test_patch_dense.py:79); the
+# bones it is timed on (10242 and 40962 vertices, block width 128); the
+# narrow block width and the UV sphere whose poles overflow the ELL width of
+# 24, for the cases of other shapes; the steps a graph times; the warm 'kd'
+# pairs with the fused chunk and the step-by-step ELL chunk alternated.
 CHEB_STEP_TOL_OF_SCALE = 2e-6
 CHEB_STEP_LEVELS = (5, 6)
 CHEB_NARROW_WIDTH = 14
@@ -4689,18 +4682,6 @@ def device_work_per_call(torch, fn, device):
     return int(count.value)
 
 
-def step_ms(torch, fn, device):
-    """Device ms of one call (a CUDA graph of 20 calls) on the card; host ms
-    of one call (mean of 5) on the CPU."""
-    if device == "cuda":
-        return graph_ms(torch, fn)
-    fn()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        fn()
-    return (time.perf_counter() - t0) * 200.0
-
-
 def eig_agreement(lg, vg, lw, vw):
     """Largest relative eigenvalue difference and smallest |cos| of the
     mean-centred eigenvector columns."""
@@ -4713,121 +4694,50 @@ def eig_agreement(lg, vg, lw, vw):
     return rel, float(cos.min())
 
 
-def patch_dense_case(torch, tp, kernels, levels, device, warm_reps):
-    """(a) at one size: the plan, one filter step through each operator,
-    the spectrum through each, and warm 'kd' pairs with the plan on and off
-    alternated in this process."""
-    from pyfocusr_tpu_torch.ops import patch_dense
-    from pyfocusr_tpu_torch.utils.precision import full_f32
+def ell_step(neighbors, overflow, sw, ov_sw, sd, mask, c, e):
+    """The plain filter step ``T -> (2/e) (A - c I) T`` over the ELL table
+    (``cheb_step_kernel.ell_product``), with the table ``w_hat``,
+    ``a_diag`` and ``ov_coef`` (None without overflow edges) it runs on."""
+    from pyfocusr_tpu_torch.ops.cheb_step_kernel import ell_product
 
-    t_mesh, s_mesh = synthetic_bone(tp, 2, levels), synthetic_bone(tp, 1, levels)
-    t0 = time.perf_counter()
-    tg = tp.mesh_to_graph_arrays(t_mesh, device=device)
-    build_s = time.perf_counter() - t0
-    sg = tp.mesh_to_graph_arrays(s_mesh, device=device)
-    plan = tg.patch_plan
-    check(plan is not None, f"no patch plan at {t_mesh.n_points} vertices")
-    t0 = time.perf_counter()
-    tg_ell = tp.mesh_to_graph_arrays(t_mesh, device=device, patch_blocks=False)
-    ell_build_s = time.perf_counter() - t0
-    sg_ell = tp.mesh_to_graph_arrays(s_mesh, device=device, patch_blocks=False)
-    n = tg.n_points
-    nb, dr = plan["res_cols"].shape
-    sw, ov_sw, sd, mask, bound = filter_pieces(torch, tp, tg)
-    lam_max = torch.tensor(bound * 1.005, device=device)
-    a = lam_max * 1e-3
-    c, e = (lam_max + a) / 2.0, (lam_max - a) / 2.0
-    T = torch.from_numpy(np.random.default_rng(0).standard_normal((n, 128)).astype(
-        np.float32)).to(device)
-    with full_f32():
-        ops = {"patch_dense": patch_dense.patch_filter_factory(plan, sw, ov_sw, sd, mask)(c, e),
-               "ell": tp.pipeline.ell_filter_factory(tg.neighbors, tg.overflow, sw, ov_sw,
-                                                     sd, mask)(c, e)}
-        outs = {name: op(T) for name, op in ops.items()}
-        scale = float(outs["ell"].abs().max())
-        op_err = float((outs["patch_dense"] - outs["ell"]).abs().max())
-        steps = {name: {"ms": step_ms(torch, lambda op=op: op(T), device),
-                        "device_work_per_step": device_work_per_call(
-                            torch, lambda op=op: op(T), device)}
-                 for name, op in ops.items()}
-    check(op_err <= PATCH_OP_TOL_OF_SCALE * scale,
-          f"patch-dense step differs from the ELL step by {op_err} (scale {scale})")
-    cfg = tp.PipelineConfig(**BENCH_CFG)
-    start = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (n, cfg.eig_wide_block)).astype(np.float32)).to(device)
-    spectra = {}
-    for name, g in (("patch_dense", tg), ("ell", tg_ell)):
-        sync(torch, device)
-        t0 = time.perf_counter()
-        lams, vecs, _ = tp.pipeline._spectrum(g, cfg.n_total, cfg, start)
-        sync(torch, device)
-        spectra[name] = (time.perf_counter() - t0, _cpu(lams), _cpu(vecs))
-    rel, cos = eig_agreement(spectra["patch_dense"][1], spectra["patch_dense"][2],
-                             spectra["ell"][1], spectra["ell"][2])
-    check(rel <= EIGVAL_RTOL and cos >= COS_MIN,
-          f"patch-dense spectrum against the ELL one: rel {rel}, |cos| {cos}")
-    draws = tp.make_draws(0, cfg, n, sg.n_points)
-    pairs = {"patch_dense": (tg, sg), "ell": (tg_ell, sg_ell)}
-    warm = {name: [] for name in pairs}
-    launches, results = {}, {}
-    for name, (a_g, b_g) in pairs.items():  # one first call each
-        tp.register_pair(a_g, b_g, cfg, draws=draws)
-    for _ in range(warm_reps):
-        for name, (a_g, b_g) in pairs.items():
-            for mod in kernels.values():
-                mod.LAUNCHES = 0
-            sync(torch, device)
-            t0 = time.perf_counter()
-            results[name] = tp.register_pair(a_g, b_g, cfg, draws=draws)
-            sync(torch, device)
-            warm[name].append(time.perf_counter() - t0)
-            launches[name] = {k: mod.LAUNCHES for k, mod in kernels.items()}
-    if device == "cuda":
-        check(launches["patch_dense"]["knn"] > 0 and launches["patch_dense"]["umeyama3"] > 0,
-              f"the patch-dense 'kd' pair launched no k-NN or ICP step: {launches}")
-    agree = float((_cpu(results["patch_dense"]["correspondences"])
-                   == _cpu(results["ell"]["correspondences"])).float().mean())
-    return {
-        "n": n, "plan": {"P": int(plan["perm"].shape[0]) // patch_dense.BLOCK, "Nb": int(nb),
-                         "Dr": int(dr), "intra_edges": int(plan["intra_dst"].shape[0])},
-        "graph_build_s": {"with_plan": build_s, "without": ell_build_s},
-        "step": steps, "step_max_err": op_err, "step_scale": scale,
-        "spectrum_s": {k: v[0] for k, v in spectra.items()},
-        "spectrum_eigval_max_rel_diff": rel, "spectrum_eigvec_min_abs_cos": cos,
-        "kd_warm_s": {k: {"median": statistics.median(v), "spread": max(v) - min(v),
-                          "all": v} for k, v in warm.items()},
-        "kd_correspondence_agreement": agree, "kd_launches": launches,
-    }
+    alpha = 2.0 / e
+    w_hat, a_diag = alpha * sw, alpha * (sd - c * mask)
+    ov_coef = None if ov_sw is None else -(alpha * ov_sw)[:, None]
+
+    def op(T):
+        return ell_product(T, neighbors, w_hat, a_diag, overflow, ov_coef)
+
+    return op, w_hat, a_diag, ov_coef
 
 
 def cheb_operands(torch, tp, g, b, seed=0):
     """The operands of one Chebyshev filter step on graph ``g`` at block
     width ``b``, at a cold solve's first cut (``chebyshev_eigpairs_wide``):
-    the ELL factory's ``op`` (on CUDA tensors with its fused
-    ``op.chebyshev``), the kernel's table (int32 neighbours, ``w_hat``,
-    ``a_diag``), the overflow edges and their ``ov_coef`` (None without),
-    the factory's pieces and two random blocks ``t``, ``tprev`` [N, b]."""
+    the plain step ``op`` (:func:`ell_step`), the ELL factory's ``chunk``
+    (``pipeline.ell_filter_factory``), the kernel's table (int32
+    neighbours, ``w_hat``, ``a_diag``), the overflow edges and their
+    ``ov_coef`` (None without) and two random blocks ``t``, ``tprev``
+    [N, b]."""
     sw, ov_sw, sd, mask, bound = filter_pieces(torch, tp, g)
     dev = g.device
     lam_max = torch.tensor(bound * 1.005, dtype=torch.float32, device=dev)
     a = lam_max * 1e-3
     c, e = (lam_max + a) / 2.0, (lam_max - a) / 2.0
-    alpha = 2.0 / e
+    op, w_hat, a_diag, ov_coef = ell_step(g.neighbors, g.overflow, sw, ov_sw, sd, mask, c, e)
     rng = np.random.default_rng(seed)
     t, tprev = (torch.from_numpy(rng.standard_normal((g.n_points, b)).astype(np.float32))
                 .to(dev) for _ in range(2))
     return {
-        "op": tp.pipeline.ell_filter_factory(g.neighbors, g.overflow, sw, ov_sw, sd,
-                                             mask)(c, e),
-        "neighbors": g.neighbors.to(torch.int32), "w_hat": alpha * sw,
-        "a_diag": alpha * (sd - c * mask), "overflow": g.overflow,
-        "ov_coef": None if ov_sw is None else -(alpha * ov_sw)[:, None],
-        "pieces": (sw, ov_sw, sd, mask), "c": c, "e": e, "t": t, "tprev": tprev}
+        "op": op,
+        "chunk": tp.pipeline.ell_filter_factory(g.neighbors, g.overflow, sw, ov_sw, sd,
+                                                mask)(c, e),
+        "neighbors": g.neighbors.to(torch.int32), "w_hat": w_hat, "a_diag": a_diag,
+        "overflow": g.overflow, "ov_coef": ov_coef, "t": t, "tprev": tprev}
 
 
 def cheb_reference(op, X, deg):
     """t_deg of the filter recurrence run step by step through ``op``, as
-    ``chebyshev_eigpairs_wide`` runs it without a fused chunk."""
+    the JAX package's ``chebyshev_eigpairs_wide`` runs it."""
     t_prev, t_cur = X, 0.5 * op(X)
     for _ in range(deg - 1):
         t_prev, t_cur = t_cur, op(t_cur) - t_prev
@@ -4862,18 +4772,17 @@ def cheb_errors(torch, CK, ops, degrees=(1, 2, 3)):
 
 @contextlib.contextmanager
 def stepwise_filter(tp):
-    """``pipeline._spectrum`` with the ELL filter run one op at a time (the
-    factory's ops stripped of their fused chunk), as before the kernel."""
+    """``pipeline._spectrum`` with each chunk's recurrence run one plain
+    ELL step at a time (:func:`cheb_reference` over :func:`ell_step`), as
+    before the kernel."""
     real = tp.pipeline.ell_filter_factory
 
-    def stepwise(*args):
-        factory = real(*args)
+    def stepwise(neighbors, overflow, sw, ov_sw, sd, mask):
+        def factory(c, e):
+            op = ell_step(neighbors, overflow, sw, ov_sw, sd, mask, c, e)[0]
+            return lambda X, deg: cheb_reference(op, X, deg)
 
-        def strip(c, e):
-            op = factory(c, e)
-            return lambda T: op(T)
-
-        return strip
+        return factory
 
     tp.pipeline.ell_filter_factory = stepwise
     try:
@@ -4888,12 +4797,12 @@ def cheb_capture(torch, ops, deg):
     capture recorded)."""
     from pyfocusr_tpu_torch.ops import cheb_step_kernel as CK
 
-    eager = ops["op"].chebyshev(ops["t"], deg)
+    eager = ops["chunk"](ops["t"], deg)
     torch.cuda.synchronize()
     before = CK.LAUNCHES
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = ops["op"].chebyshev(ops["t"], deg)
+        captured = ops["chunk"](ops["t"], deg)
     launches = CK.LAUNCHES - before
     graph.replay()
     torch.cuda.synchronize()
@@ -4904,12 +4813,9 @@ def cheb_step_times(torch, tp, CK, g, ops, device):
     """Device ms of one filter step at the operands' shape, each from a
     CUDA graph of ``CHEB_TIMED_STEPS`` steps (``graph_ms``): the kernel as
     a chunk runs it (two blocks in turn, each step reading both and writing
-    over the older), the plain ELL step and the patch-dense step, each
-    ``op(t) - tprev`` on fixed blocks (the recurrence before the kernel);
-    the graph nodes of one step; and the bytes bound, 3 N b 4 + N D 8 bytes
-    over ``HBM_BYTES_PER_S``."""
-    from pyfocusr_tpu_torch.ops import patch_dense
-
+    over the older) and the plain ELL step, ``op(t) - tprev`` on fixed
+    blocks (the recurrence before the kernel); the graph nodes of one step;
+    and the bytes bound, 3 N b 4 + N D 8 bytes over ``HBM_BYTES_PER_S``."""
     n, b = ops["t"].shape
     d = g.neighbors.shape[1]
     blocks = [ops["tprev"].clone(), ops["t"].clone()]
@@ -4924,10 +4830,6 @@ def cheb_step_times(torch, tp, CK, g, ops, device):
 
     steps = {"kernel": fused,
              "ell": lambda: ops["op"](ops["t"]) - ops["tprev"]}
-    if g.patch_plan is not None:
-        pd_op = patch_dense.patch_filter_factory(g.patch_plan, *ops["pieces"])(
-            ops["c"], ops["e"])
-        steps["patch_dense"] = lambda: pd_op(ops["t"]) - ops["tprev"]
     out = {"n": n, "b": b, "d": d, "plan": CK.plan(n, b)}
     for name, fn in steps.items():
         out[f"{name}_ms"] = graph_ms(torch, fn, calls=CHEB_TIMED_STEPS)
@@ -4946,7 +4848,7 @@ def phase_cheb_step(torch, tp, kernels, smi, device="cuda", levels=CHEB_STEP_LEV
     """The fused Chebyshev filter step on the card: at each of ``levels``
     (bones at 10242 and 40962 vertices, block width 128, the bones' ELL
     width) its error against the plain ELL step and chunk, its time beside
-    the plain ELL step's, the patch-dense step's and the bytes bound, a
+    the plain ELL step's and the bytes bound, a
     chunk captured in a CUDA graph, and the spectrum through it against the
     step-by-step ELL chunk; a narrow block (``CHEB_NARROW_WIDTH`` columns)
     and a hub graph with overflow edges (``CHEB_HUB``); then warm 'kd'
@@ -5041,36 +4943,27 @@ def phase_cheb_step(torch, tp, kernels, smi, device="cuda", levels=CHEB_STEP_LEV
             "launches_per_pair": counts[0]["launches"], "main": sizes[-1]}
 
 
-def phase_completion(torch, tp, kernels, smi, device="cuda", levels=(5, 6),
+def phase_completion(torch, tp, kernels, smi, device="cuda",
                      hub=(HUB_N, HUB_N), split_n=None, union_levels=5,
-                     auction_sizes=AUCTION_SIZES, cpu_auction_max_n=AUCTION_CPU_MAX_N,
-                     warm_reps=PATCH_WARM_REPS):
+                     auction_sizes=AUCTION_SIZES, cpu_auction_max_n=AUCTION_CPU_MAX_N):
     """The JAX package's schedules the port took last, on the card: (a) the
-    patch-dense filter against the ELL one at 10242 and 40962 vertices
-    (``levels``); (b) the split-spectra schedule against the fused one on
-    the ``direct_122k_hub`` pair (``hub`` = (n_theta, n_phi); ``split_n``
-    the threshold to run it at, the package's when None); (c) the union and
-    batched spectra against two separate solves; (d) the auction against
-    ``lap_host``'s optimum, and its CPU run up to ``cpu_auction_max_n``
-    rows.  Returns the kernels' launches
-    on the patch-dense 'kd' pair and the split 122k pair."""
+    split-spectra schedule against the fused one on the ``direct_122k_hub``
+    pair (``hub`` = (n_theta, n_phi); ``split_n`` the threshold to run it
+    at, the package's when None); (b) the union and batched spectra against
+    two separate solves; (c) the auction against ``lap_host``'s optimum, and
+    its CPU run up to ``cpu_auction_max_n`` rows.  Returns the kernels'
+    launches on the split 122k pair."""
     from pyfocusr_tpu_torch import experiments
     from pyfocusr_tpu_torch.ops import assignment as TA
     from pyfocusr_tpu_torch.ops import eigen as TE
 
     t_phase = time.perf_counter()
-    cases = []
-    for lv in levels:
-        cases.append(patch_dense_case(torch, tp, kernels, lv, device, warm_reps))
-        emit({"phase": "completion_patch_dense", "nvidia_smi": smi, **cases[-1]})
-    launches = {"patch_dense_kd": cases[0]["kd_launches"]["patch_dense"]}
+    launches = {}
 
-    # (b) split spectra on the hub pair.
+    # (a) split spectra on the hub pair.
     th, sh = uv_sphere(tp, *hub), uv_sphere(tp, *hub, warp=HUB_WARP)
     tgh = tp.mesh_to_graph_arrays(th, device=device)
     sgh = tp.mesh_to_graph_arrays(sh, device=device)
-    check(tgh.patch_plan is None and sgh.patch_plan is None,
-          "the hub pair carries a patch plan (its residual is wider than DR_MAX)")
     hcfg = tp.PipelineConfig(**HUB_CFG)
     saved = tp.pipeline._SPLIT_SPECTRA_N
     split_at = saved if split_n is None else split_n
@@ -5109,7 +5002,7 @@ def phase_completion(torch, tp, kernels, smi, device="cuda", levels=(5, 6),
           "overflow_edges": int(tgh.overflow.shape[0]), "threshold": split_at,
           "runs": hub_runs, "correspondences_shared": shared})
 
-    # (c) union and batched spectra against two separate solves.
+    # (b) union and batched spectra against two separate solves.
     ut, us = synthetic_bone(tp, 2, union_levels), synthetic_bone(tp, 1, union_levels)
     utg = tp.mesh_to_graph_arrays(ut, device=device)
     usg = tp.mesh_to_graph_arrays(us, device=device)
@@ -5145,7 +5038,7 @@ def phase_completion(torch, tp, kernels, smi, device="cuda", levels=(5, 6),
     emit({"phase": "completion_union_batched", "nvidia_smi": smi,
           "n": [utg.n_points, usg.n_points], **union})
 
-    # (d) the auction.
+    # (c) the auction.
     auctions = []
     for n in auction_sizes:
         cost = np.random.default_rng(n).uniform(0, 1, (n, n)).astype(np.float32)
@@ -5691,12 +5584,11 @@ def main():
             "max_err_of_scale": max(max(r["errors_of_scale"].values()) for r in cheb["sizes"]),
             "ms": cheb["main"]["kernel_ms"],
             "plain_ms": cheb["main"]["ell_ms"],
-            "patch_dense_ms": cheb["main"].get("patch_dense_ms"),
             "bound_ms": cheb["main"]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,  # no single PyTorch call computes the step
             "by_size": {r["n"]: {k: r.get(k) for k in (
-                "kernel_ms", "ell_ms", "patch_dense_ms", "bound_ms", "kernel_share_of_bound")}
+                "kernel_ms", "ell_ms", "bound_ms", "kernel_share_of_bound")}
                 for r in cheb["sizes"]},
             "shape": f"N={cheb['main']['n']} b={cheb['main']['b']} D={cheb['main']['d']}, "
                      "a step of a chunk's recurrence",
@@ -5708,8 +5600,7 @@ def main():
         entry["launches_sharded"] = {
             setup: None if per_rank is None else [c[entry["name"]] for c in per_rank]
             for setup, per_rank in sharded_launches.items()}
-        # The completion phase's paths: a warm 'kd' pair on the patch-dense
-        # filter at 10242 and the split 122k hub pair.
+        # The completion phase's path: the split 122k hub pair.
         entry["launches_completion"] = {
             path: counts[entry["name"]] for path, counts in completion_launches.items()}
     emit({"kernels": kernel_entries})

@@ -63,9 +63,8 @@ Entry points:
   fine refine of ``parallel/bigmesh.py`` (``register_pair_multires``), the
   cohort over ``'cohort'`` and all-pairs over ``'pairs'``, and the CLI's
   sharded commands;
-* the JAX package's remaining schedules: the patch-dense filter operator
-  (``ops/patch_dense.py``, planned by :func:`mesh_to_graph_arrays`), the
-  split-spectra schedule of the pair entry points from 65000 vertices,
+* the JAX package's remaining schedules: the split-spectra schedule of
+  the pair entry points from 65000 vertices,
   ``experiments.spectrum_union`` / ``spectrum_batched`` and
   ``ops.assignment.auction_lap`` (not exported here, as in the JAX
   package); ``pyfocusr_torch`` is the reference-name alias over this

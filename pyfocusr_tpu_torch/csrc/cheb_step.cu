@@ -2,12 +2,11 @@
 // the ELL sparse product with the three-term recurrence folded in.
 //
 // No TPU kernel stands behind it: the JAX package computes the step as XLA
-// products (an ELL gather-einsum, or the patch-dense blocks of
-// pyfocusr_tpu/ops/patch_dense.py) inside the filter loop of
-// `chebyshev_eigpairs_wide` (pyfocusr_tpu/ops/eigen.py).  The port ran the
-// same operators from PyTorch: the patch-dense step was eight launches on a
-// CUDA device (the permutation, the block product, the residual gather and
-// product, the expansion, two subtractions, the inverse permutation).
+// products (an ELL gather-einsum, or on a TPU dense 128 x 128 patch blocks)
+// inside the filter loop of `chebyshev_eigpairs_wide`
+// (pyfocusr_tpu/ops/eigen.py).  As PyTorch operators over the ELL table the
+// step is four or more launches on a CUDA device (the gather-einsum, the
+// diagonal term, the subtractions), each reading and writing whole blocks.
 //
 // Contract (`cheb_step_plain` in ops/cheb_step_kernel.py): for the ELL table
 // nbr int32 [n, d] (a padding slot has weight 0; its index must still lie in

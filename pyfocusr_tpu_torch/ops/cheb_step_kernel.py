@@ -4,15 +4,16 @@ three-term recurrence over them.
 
 No TPU kernel stands behind it: the JAX package computes the step as XLA
 products inside the filter loop of ``chebyshev_eigpairs_wide``
-(``pyfocusr_tpu/ops/eigen.py``), over the ELL table or the patch-dense
-blocks (``pyfocusr_tpu/ops/patch_dense.py``).  On the card the port used the
-same operators from PyTorch, four to eight launches a step; here a step is
-one launch of ``csrc/cheb_step.cu`` (built at first use by
+(``pyfocusr_tpu/ops/eigen.py``), over the ELL table or, for a TPU's matrix
+unit, dense 128 x 128 patch blocks (not ported).
+Here a step is one launch of ``csrc/cheb_step.cu`` (built at first use by
 ``ops/_cuda_build.py``), which reads the current and the previous block once
 and writes one.  What bounds it and what its design does about that is
-written at the top of the source.
+written at the top of the source.  Every wide solve's chunks, on every
+device, run through :func:`chebyshev_ell`, the one place where the CPU and
+CUDA routes part.
 
-A step, over the ELL table of ``pipeline.ell_filter_factory`` (``w_hat`` =
+A step, over the ELL table (``pipeline.ell_filter_factory``: ``w_hat`` =
 alpha s_i w_ij s_j, ``a_diag`` = alpha (sd - c mask), alpha = 2 / e):
 
     y_i   = a_diag_i t_i - sum_k w_hat_{i,k} t_{nbr(i,k)}  (+ overflow edges)
@@ -101,8 +102,8 @@ def plan(n: int, b: int, aligned: bool = True) -> dict:
 
 
 def ell_product(t, neighbors, w_hat, a_diag, overflow=None, ov_coef=None):
-    """y = a_diag t - W_hat t over the ELL table, the op of
-    ``pipeline.ell_filter_factory``: one gather-einsum, one elementwise op
+    """y = a_diag t - W_hat t over the ELL table, the filter step of
+    ``pipeline.ell_filter_factory``'s chunks: one gather-einsum, one elementwise op
     and, where ``ov_coef`` [E, 1] (= -alpha ov_sw) is given, the overflow
     edges ``overflow`` int [E, 2] by ``index_add_``.  Returns a new tensor."""
     y = a_diag[:, None] * t - torch.einsum("nd,ndc->nc", w_hat, t[neighbors.long()])

@@ -16,11 +16,11 @@ indicator per connected component, scaled by 1/s) deflated exactly;
 ``matvec`` applies A to an [N, C] block.  The wide solver's chunk applies a
 degree-``chunk_degree`` Chebyshev filter to a 128-wide block,
 re-orthonormalizes it by SVQB (eigh of the [b, b] Gram with a rank floor)
-and runs Rayleigh-Ritz.  Its filter's step is the caller's
-(``filter_op_factory``): on CUDA tensors ``pipeline._spectrum`` gives the
-ELL operator with a fused chunk (``ops/cheb_step_kernel.py``, one kernel
-launch a step: the sparse product and the three-term recurrence); on CPU
-tensors the ELL or patch-dense operator runs step by step.  The narrow
+and runs Rayleigh-Ritz.  Its filter is the caller's (``filter_op_factory``),
+which gives a chunk's whole recurrence where JAX's gives a step op:
+``pipeline._spectrum`` passes the ELL factory, whose chunk runs
+``ops/cheb_step_kernel.chebyshev_ell`` (on CUDA tensors one kernel launch a
+step: the sparse product and the three-term recurrence).  The narrow
 solver filters a [N, k + 8] block, takes Householder QR, and polishes
 with one block shift-invert step (batched CG); Lanczos runs ~4k + 8 steps
 on (A + sigma I)^-1, each a fixed-count CG solve.  The small dense
@@ -223,11 +223,12 @@ def chebyshev_eigpairs_wide(
     ``matvec`` ([N, C] -> [N, C]).
 
     ``lam_max_bound``: an upper bound of A's spectrum (the pipeline's
-    Gershgorin bound).  ``filter_op_factory(c, e)`` returns the fused
-    filter step T -> (2/e)(A T - c T); where that op has a
-    ``chebyshev(X, deg)`` method (the ELL factory's on CUDA tensors), a
-    chunk's whole recurrence runs through it, else through the op one step
-    at a time; ``quad_form(V) -> [k]`` gives the
+    Gershgorin bound).  ``filter_op_factory(c, e)`` returns a chunk
+    ``(X, deg) -> t_deg``, the degree-``deg`` Chebyshev recurrence from X on
+    the filter step T -> (2/e)(A T - c T), t_1 = 0.5 step(X) (JAX's factory
+    returns the step, and its solver runs the recurrence; here the factory
+    runs it, so that a chunk can be one fused kernel a step, as
+    ``pipeline.ell_filter_factory``'s is); ``quad_form(V) -> [k]`` gives the
     cancellation-free final Rayleigh quotients.  (The JAX version's
     power-iteration bound and its filter built from ``matvec`` when no
     factory is given have no caller of the wide solver, in either package,
@@ -255,15 +256,7 @@ def chebyshev_eigpairs_wide(
     def cheb_filter(X, a, deg):
         c = (lam_max + a) / 2.0
         e = (lam_max - a) / 2.0
-        op = filter_op_factory(c, e)
-        fused = getattr(op, "chebyshev", None)
-        if fused is not None:
-            return fused(X, deg)
-        t_prev = X
-        t_cur = 0.5 * op(X)
-        for _ in range(deg - 1):
-            t_prev, t_cur = t_cur, op(t_cur) - t_prev
-        return t_cur
+        return filter_op_factory(c, e)(X, deg)
 
     def svqb_rr(Y):
         """Rank-robust orthonormalization + Rayleigh-Ritz -> (X, theta).

@@ -60,11 +60,8 @@ def pad_rows_for_sharding(graph: GraphArrays, n_shards: int):
     """Pad the vertex axis to a multiple of ``n_shards`` with dead rows:
     zero points, masks (so zero edge weights), features and indicators,
     neighbours pointing at row 0.  A padding row has degree 0, so the
-    smoothing maps it to itself and nothing reads it.  The patch-dense
-    plan is dropped, as the JAX package strips it before sharding
-    (``pyfocusr_tpu/parallel/bigmesh.py:81-88``): its arrays are not
-    vertex rows, and the sharded refine runs no eigensolve.  Returns
-    (padded GraphArrays, original row count)."""
+    smoothing maps it to itself and nothing reads it.  Returns (padded
+    GraphArrays, original row count)."""
     n = graph.n_points
     n_pad = -(-n // n_shards) * n_shards
     return GraphArrays(

@@ -149,24 +149,13 @@ def pad_cohort(meshes: Sequence[TriMesh], device=None) -> List[GraphArrays]:
 
 
 def stack_graph_arrays(graphs: Sequence[GraphArrays]) -> GraphArrays:
-    """Stack equal-shape graphs along a new leading cohort axis.  Patch
-    plans are stacked too when every graph carries one and their shapes
-    agree (one mesh jittered N ways), and dropped otherwise: a plan's
-    shapes follow the topology (``pyfocusr_tpu/parallel/cohort.py:86-105``)."""
-    plans = [g.patch_plan for g in graphs]
-    plan = None
-    if all(p is not None for p in plans) and len(
-            {tuple(sorted((k, tuple(v.shape)) for k, v in p.items())) for p in plans}) == 1:
-        plan = {k: torch.stack([p[k] for p in plans]) for k in plans[0]}
-    return GraphArrays(**{
-        name: torch.stack([getattr(g, name) for g in graphs])
-        for name in TENSOR_FIELDS}, patch_plan=plan)
+    """Stack equal-shape graphs along a new leading cohort axis."""
+    return GraphArrays(**{name: torch.stack([getattr(g, name) for g in graphs])
+                          for name in TENSOR_FIELDS})
 
 
 def _lane(targets: GraphArrays, i: int) -> GraphArrays:
-    plan = targets.patch_plan
-    return GraphArrays(**{name: getattr(targets, name)[i] for name in TENSOR_FIELDS},
-                       patch_plan=None if plan is None else {k: v[i] for k, v in plan.items()})
+    return GraphArrays(**{name: getattr(targets, name)[i] for name in TENSOR_FIELDS})
 
 
 def check_cohort_config(meshes_min_points: int, cfg: PipelineConfig,

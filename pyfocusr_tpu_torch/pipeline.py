@@ -2,13 +2,12 @@
 template serving.
 
 Counterpart of ``pyfocusr_tpu/pipeline.py``: ``PipelineConfig`` (:74),
-``GraphArrays`` (:292, with its ``patch_plan``), ``mesh_to_graph_arrays``
-(:349, with its padding, ``degree_cap`` and the patch-dense plan of
-:454-470), ``_masked_minmax_norm`` (:483), ``_spectrum`` (:495: the wide
-Chebyshev path with the patch-dense filter operator of :580-588 when the
-graph carries a plan and the ELL one of :590-605 when it does not, the
-narrow Chebyshev and shift-invert Lanczos paths of :623-650, and the
-feature branches of :511-541), ``_pad_graph_arrays`` (:657), ``_normed``
+``GraphArrays`` (:292), ``mesh_to_graph_arrays`` (:349, with its padding
+and ``degree_cap``; JAX's patch-dense plan is not built, see below),
+``_masked_minmax_norm`` (:483), ``_spectrum`` (:495: the wide Chebyshev
+path over the ELL filter operator of :590-605 on every graph, the narrow
+Chebyshev and shift-invert Lanczos paths of :623-650, and the feature
+branches of :511-541), ``_pad_graph_arrays`` (:657), ``_normed``
 (:702), ``landmark_pairs_from_positions`` (:709), ``_n_real_vertices`` and
 ``_check_padding_hazards`` (:737-787), ``_warm_supported`` (:790),
 ``_warm_x0`` (:801), the split-spectra schedule (``_SPLIT_SPECTRA_N``,
@@ -38,7 +37,11 @@ sequence of tensor operations on the device the inputs lie on.  On a CUDA
 device every nearest-neighbour query goes through the CUDA k-NN kernel,
 'hungarian' correspondences through the Sinkhorn and Jonker-Volgenant CUDA
 kernels (``ops/assignment.sinkhorn_jv_lap``), and the streamed CPD E-step
-through the CUDA E-step kernel (``ops/cpd_estep_kernel``).
+through the CUDA E-step kernel (``ops/cpd_estep_kernel``).  Every wide
+eigensolve runs its Chebyshev chunks over the ELL table through
+``ops/cheb_step_kernel.chebyshev_ell``, on every device: the JAX package's
+patch-dense operator, dense 128 x 128 blocks for the TPU's matrix unit, is
+not ported, and neither is the host BFS that plans it.
 
 Randomness is an input.  ``jax.random`` cannot be reproduced in torch, so
 every random draw the JAX program makes internally is an entry of
@@ -84,7 +87,7 @@ from .mesh import TriMesh, build_topology
 from .ops import cpd as cpd_ops
 from .ops import graph_ops
 from .ops.assignment import sinkhorn_jv_lap
-from .ops.cheb_step_kernel import chebyshev_ell, ell_product
+from .ops.cheb_step_kernel import chebyshev_ell
 from .ops.eigen import chebyshev_eigpairs_wide, narrow_or_lanczos
 from .ops.icp import apply_rigid
 from .ops.icp import icp as icp_fit
@@ -95,7 +98,6 @@ from .ops.knn import (
     nn_query,
     pairwise_sq_dists,
 )
-from .ops.patch_dense import build_patch_plan, patch_filter_factory, plan_to
 from .spectral.eigsort_device import sort_eigenmaps
 from .utils import spans
 from .utils.checkpoint import load_results, save_results
@@ -253,11 +255,6 @@ _INT_FIELDS = ("neighbors", "overflow")
 _FLOAT_FIELDS = (
     "points", "nbr_mask", "valid_mask", "null_indicators", "node_features",
 )
-# The tensor fields of a GraphArrays, in declaration order (every field
-# but ``patch_plan``).
-TENSOR_FIELDS = ("points", "neighbors", "nbr_mask", "valid_mask",
-                 "null_indicators", "overflow", "node_features")
-
 
 @dataclasses.dataclass(frozen=True)
 class GraphArrays:
@@ -270,11 +267,6 @@ class GraphArrays:
     null_indicators: torch.Tensor  # f32 [N, C] per-component indicators
     overflow: torch.Tensor = None  # int64 [E_o, 2] hub-vertex spill edges
     node_features: torch.Tensor = None  # f32 [N, K]
-    # The patch-dense filter plan (ops/patch_dense.py): index tensors on the
-    # graph's device, derived from neighbors / nbr_mask / overflow.  Only
-    # the wide eigensolve reads it; left out of _graph_fingerprint, dropped
-    # by the vertex sharding (parallel/bigmesh), None on padded graphs.
-    patch_plan: dict = None
 
     def __post_init__(self):
         dev = self.points.device
@@ -297,17 +289,19 @@ class GraphArrays:
         return self.points.device
 
     def to(self, device) -> "GraphArrays":
-        return GraphArrays(
-            **{name: getattr(self, name).to(device) for name in TENSOR_FIELDS},
-            patch_plan=plan_to(self.patch_plan, device),
-        )
+        return GraphArrays(**{name: getattr(self, name).to(device)
+                              for name in TENSOR_FIELDS})
+
+
+# The fields of a GraphArrays, in declaration order.
+TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(GraphArrays))
 
 
 def graph_arrays_from_numpy(d, device=None) -> GraphArrays:
     """``GraphArrays`` from the JAX package's ``GraphArrays`` fields given as
-    numpy arrays (a mapping name -> array; ``patch_plan``, when present, a
-    mapping name -> array or None), on ``device``: the CUDA card by default
-    (see ``utils.device.resolve_device``)."""
+    numpy arrays (a mapping name -> array; other keys, such as the JAX
+    package's patch-dense plan, are ignored), on ``device``: the CUDA card by
+    default (see ``utils.device.resolve_device``)."""
     device = resolve_device(device)
     kw = {}
     for name in _FLOAT_FIELDS + _INT_FIELDS:
@@ -315,7 +309,7 @@ def graph_arrays_from_numpy(d, device=None) -> GraphArrays:
             continue
         dtype = torch.int64 if name in _INT_FIELDS else torch.float32
         kw[name] = torch.tensor(np.asarray(d[name])).to(dtype=dtype, device=device)
-    return GraphArrays(**kw, patch_plan=plan_to(d.get("patch_plan"), device))
+    return GraphArrays(**kw)
 
 
 def _widen(topo, pad_degree: int):
@@ -343,8 +337,7 @@ def _widen(topo, pad_degree: int):
 def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
                          device=None, topology=None, pad_n_points: int = None,
                          pad_degree: int = None, pad_components: int = None,
-                         pad_overflow: int = None, degree_cap: int = 24,
-                         patch_blocks: bool = None) -> GraphArrays:
+                         pad_overflow: int = None, degree_cap: int = 24) -> GraphArrays:
     """Build the pipeline tensors of one mesh on ``device``, the CUDA card
     by default (see ``utils.device.resolve_device``): ELL degree capped at
     ``degree_cap`` with hub overflow edges (passed to ``build_topology``
@@ -362,12 +355,9 @@ def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
     indicator columns and ``pad_overflow`` overflow edges (the added ones
     ``src == dst``, so their weight is 0).
 
-    ``patch_blocks``: whether to build the patch-dense filter plan
-    (``ops/patch_dense.build_patch_plan``, which itself declines meshes
-    outside its size and residual-width gates); None builds it for an
-    unpadded graph (no ``pad_*`` given) and not for a padded one, the JAX
-    package's rule (:454-470).  True builds it on the padded arrays too,
-    as the JAX package does."""
+    The JAX package's patch-dense plan (:454-470), the host BFS behind its
+    TPU filter operator, is not built: every wide solve here runs the ELL
+    operator (:func:`ell_filter_factory`)."""
     n = mesh.n_points
     if topology is not None:
         topo = _widen(topology, pad_degree)
@@ -409,10 +399,6 @@ def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
         indicators = np.concatenate([indicators, np.zeros(
             (indicators.shape[0], pad_components - indicators.shape[1]), np.float32)],
             axis=1)
-    if patch_blocks is None:
-        patch_blocks = all(x is None for x in (pad_n_points, pad_degree,
-                                               pad_components, pad_overflow))
-    plan = build_patch_plan(neighbors, nbr_mask, overflow) if patch_blocks else None
     return graph_arrays_from_numpy(
         {
             "points": points,
@@ -422,7 +408,6 @@ def mesh_to_graph_arrays(mesh: TriMesh, node_features=None,
             "null_indicators": indicators,
             "overflow": overflow,
             "node_features": feats,
-            "patch_plan": plan,
         },
         device=device,
     )
@@ -461,30 +446,22 @@ def _start_width(cfg: PipelineConfig, n_points: int) -> int:
 
 
 def ell_filter_factory(neighbors, overflow, sw, ov_sw, sd, mask):
-    """The wide solver's filter-op factory over the ELL table
-    (``pyfocusr_tpu/pipeline.py:590-605``): ``factory(c, e) -> op`` with
-    ``op(T) = (2/e) (A - c I) T``, ``A x = sd x - W_sym x``; ``op`` is
-    ``ops/cheb_step_kernel.ell_product`` (one gather-einsum, one elementwise
-    op and, with overflow edges, ``ov_sw`` not None, their ``index_add_``).
-    On CUDA tensors ``op.chebyshev(X,
-    deg)`` runs a chunk's recurrence on the same operator through
-    ``ops/cheb_step_kernel.chebyshev_ell``, one kernel launch a step; CPU
-    tensors keep the recurrence over ``op``."""
-    nbrs32 = neighbors.to(torch.int32) if neighbors.is_cuda else None
+    """The wide solver's filter factory over the ELL table
+    (``pyfocusr_tpu/pipeline.py:590-605``): ``factory(c, e) -> chunk`` with
+    ``chunk(X, deg)`` the degree-``deg`` Chebyshev recurrence from X on
+    ``op(T) = (2/e) (A - c I) T``, ``A x = sd x - W_sym x`` (with overflow
+    edges where ``ov_sw`` is not None), run by
+    ``ops/cheb_step_kernel.chebyshev_ell``: one kernel launch a step on CUDA
+    tensors, ``cheb_step_plain`` on CPU tensors.  JAX's factory gives the
+    step op instead, and its solver runs the recurrence."""
+    nbrs = neighbors.to(torch.int32) if neighbors.is_cuda else neighbors
 
     def factory(c, e):
         alpha = 2.0 / e
         w_hat = alpha * sw
         a_diag = alpha * (sd - c * mask)
         ov_coef = None if ov_sw is None else -(alpha * ov_sw)[:, None]
-
-        def op(T):
-            return ell_product(T, neighbors, w_hat, a_diag, overflow, ov_coef)
-
-        if nbrs32 is not None:
-            op.chebyshev = lambda X, deg: chebyshev_ell(X, deg, nbrs32, w_hat, a_diag,
-                                                        overflow, ov_coef)
-        return op
+        return lambda X, deg: chebyshev_ell(X, deg, nbrs, w_hat, a_diag, overflow, ov_coef)
 
     return factory
 
@@ -494,10 +471,9 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
               extra_chunks: int = 0, degree: int = None, generator=None):
     """k smallest nonzero Laplacian eigenpairs of one mesh, eigvecs min-max
     normalized to [-0.5, 0.5], by the solver :func:`_solver` picks: the wide
-    Chebyshev solver with the fused ELL filter step (on CUDA tensors one
-    kernel launch a step, ``ops/cheb_step_kernel.py``; on CPU tensors the
-    patch-dense operator, ``ops/patch_dense.py``, when the graph carries a
-    ``patch_plan``), the narrow one, or shift-invert Lanczos.  ``init_block``: the solve's
+    Chebyshev solver, its chunks through :func:`ell_filter_factory` (on CUDA
+    tensors one kernel launch a step, ``ops/cheb_step_kernel.py``), the
+    narrow one, or shift-invert Lanczos.  ``init_block``: the solve's
     random start, [N, :func:`_start_width`] (for Lanczos the
     power-iteration vector, then the start vector).  ``x0``, ``return_block``, ``chunks`` and ``degree``
     exist on the wide path only, as in the JAX package.
@@ -565,11 +541,7 @@ def _spectrum(graph: GraphArrays, k: int, cfg: PipelineConfig, init_block,
             sw = s[:, None] * w * s[nbrs]
             sd = s * s * d * mask
             ov_sw = ov_w * s[ov[:, 0]] * s[ov[:, 1]] if ov.shape[0] > 0 else None
-            # On the card every wide solve takes the ELL operator's fused
-            # step; the patch-dense operator is the CPU route.
-            factory = (patch_filter_factory(graph.patch_plan, sw, ov_sw, sd, mask)
-                       if graph.patch_plan is not None and not sw.is_cuda else
-                       ell_filter_factory(nbrs, ov, sw, ov_sw, sd, mask))
+            factory = ell_filter_factory(nbrs, ov, sw, ov_sw, sd, mask)
     if solver in ("narrow", "lanczos"):
         solver_kw = (dict(cg_iters=cfg.eig_cg_iters, lanczos_iters=cfg.eig_lanczos_iters)
                      if solver == "lanczos" else
@@ -608,7 +580,7 @@ def _pad_graph_arrays(g: GraphArrays, n_pad: int, d_pad: int, c_pad: int,
     ``pyfocusr_tpu/pipeline.py:657-682`` pads a graph inside a trace: dead
     rows are self-loops of mask 0 with ``valid_mask`` 0, the added ELL
     columns point at row 0 with mask 0, the added overflow edges are
-    (0, 0) (weight 0).  No patch plan."""
+    (0, 0) (weight 0)."""
     n, d = g.neighbors.shape
     extra_n, extra_d = n_pad - n, d_pad - d
 

@@ -6,18 +6,17 @@ edges), a UV sphere whose poles overflow the ELL width, and the bones padded
 as ``pipeline._pad_graph_arrays`` pads a graph (dead rows, extra ELL columns
 pointing at row 0, mask 0):
 
-* ``cheb_step_plain`` is the ELL factory's op, ``op(t) - tprev`` and
-  ``0.5 op(t)``, bit for bit, and ``chebyshev_ell`` (two blocks a chunk, each
-  step from the third written over the block two back) is the step-by-step
-  recurrence bit for bit after 1, 2, 3 and 33 steps, leaving its input as
-  it was; against the patch-dense factory's op it agrees within the
-  operators' gate (``chip_smoke.CHEB_STEP_TOL_OF_SCALE`` of the result's
-  scale: the two sum in different orders);
-* the wide solver's eigenpairs on the 2562 pair are unchanged on the CPU:
-  ``_spectrum`` takes the patch-dense operator where the graph carries a
-  plan and the ELL one step by step where not, and a factory whose op
-  offers the fused chunk (the plain one here) gives the same bits;
-* ``cheb_steps_fused`` stays 0 on the CPU and nothing launches;
+* ``cheb_step_plain`` is the plain ELL step (``chip_smoke.ell_step``),
+  ``op(t) - tprev`` and ``0.5 op(t)``, bit for bit, and ``chebyshev_ell``
+  (two blocks a chunk, each step from the third written over the block two
+  back) and the ELL factory's chunk are the step-by-step recurrence bit for
+  bit after 1, 2, 3 and 33 steps, leaving their input as it was;
+* the wide solver's eigenpairs are unchanged on the CPU: ``_spectrum``
+  through the factory's chunk gives the bits of the same solve whose chunk
+  is the recurrence run step by step over ``ell_product``
+  (``chip_smoke.stepwise_filter``), on the 2562 bone and the hub graph;
+* the factory gives the chunk on the CPU too; ``cheb_steps_fused`` stays 0
+  there and nothing launches;
 * the wrapper: its launch plan, its constants against the source's, its
   argument checks, and a CUDA tensor on a device without sm_90 raising
   before anything is built.
@@ -40,7 +39,6 @@ import chip_smoke
 import pyfocusr_tpu_torch as tp
 from pyfocusr_tpu_torch import pipeline as P
 from pyfocusr_tpu_torch.ops import cheb_step_kernel as CK
-from pyfocusr_tpu_torch.ops import patch_dense
 from pyfocusr_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
@@ -50,20 +48,19 @@ DEG = CFG.eig_wide_degree
 TOL = chip_smoke.CHEB_STEP_TOL_OF_SCALE
 
 
-def _bones(levels=4, device="cpu", **kw):
-    return tp.mesh_to_graph_arrays(chip_smoke.synthetic_bone(tp, 2, levels), device=device,
-                                   **kw)
+def _bones(levels=4, device="cpu"):
+    return tp.mesh_to_graph_arrays(chip_smoke.synthetic_bone(tp, 2, levels), device=device)
 
 
 def _graph(name, device="cpu"):
     if name == "bones":
-        return _bones(device=device, patch_blocks=False)
+        return _bones(device=device)
     if name == "hub":
         g = tp.mesh_to_graph_arrays(chip_smoke.uv_sphere(tp, *chip_smoke.CHEB_HUB),
                                     device=device)
         assert g.overflow.shape[0] > 0
         return g
-    g = _bones(device=device, patch_blocks=False)
+    g = _bones(device=device)
     n, d = g.neighbors.shape
     return P._pad_graph_arrays(g, n + 37, d + 2, g.null_indicators.shape[1] + 1)
 
@@ -95,85 +92,50 @@ def test_chunk_is_the_stepwise_recurrence(operands, name, deg):
     x = ops["t"].clone()
     got = CK.chebyshev_ell(x, deg, ops["neighbors"], ops["w_hat"], ops["a_diag"],
                            ops["overflow"], ops["ov_coef"])
+    want = chip_smoke.cheb_reference(ops["op"], ops["t"], deg)
     assert torch.equal(x, ops["t"])
-    assert torch.equal(got, chip_smoke.cheb_reference(ops["op"], ops["t"], deg))
+    assert torch.equal(got, want)
+    assert torch.equal(ops["chunk"](x, deg), want) and torch.equal(x, ops["t"])
     assert chip_smoke.cheb_errors(torch, CK, ops, degrees=(deg,))[f"chunk_{deg}"] == 0.0
-
-
-def test_patch_dense_factory_agrees_with_the_fused_step(operands):
-    g = _bones()
-    assert g.patch_plan is not None
-    ops = chip_smoke.cheb_operands(torch, tp, g, CFG.eig_wide_block)
-    pd_op = patch_dense.patch_filter_factory(g.patch_plan, *ops["pieces"])(ops["c"], ops["e"])
-    t, tprev = ops["t"], ops["tprev"]
-    for first in (True, False):
-        fused = CK.cheb_step_plain(t, tprev, ops["neighbors"], ops["w_hat"], ops["a_diag"],
-                                   first)
-        want = 0.5 * pd_op(t) if first else pd_op(t) - tprev
-        assert float((fused - want).abs().max()) <= TOL * float(want.abs().max())
-    chunk = CK.chebyshev_ell(t, 3, ops["neighbors"], ops["w_hat"], ops["a_diag"])
-    want = chip_smoke.cheb_reference(pd_op, t, 3)
-    assert float((chunk - want).abs().max()) <= TOL * float(want.abs().max())
-
-
-def _fused_on_cpu(monkeypatch):
-    """``pipeline.ell_filter_factory`` whose ops offer the fused chunk on the
-    CPU too (its plain version), as they do on CUDA tensors.  Returns the
-    list of the chunks' degrees run through it."""
-    real = P.ell_filter_factory
-    runs = []
-
-    def factory_with_chunk(neighbors, overflow, sw, ov_sw, sd, mask):
-        factory = real(neighbors, overflow, sw, ov_sw, sd, mask)
-
-        def make(c, e):
-            op = factory(c, e)
-            alpha = 2.0 / e
-            ov_coef = None if ov_sw is None else -(alpha * ov_sw)[:, None]
-            op.chebyshev = lambda X, deg: runs.append(deg) or CK.chebyshev_ell(
-                X, deg, neighbors, alpha * sw, alpha * (sd - c * mask), overflow, ov_coef)
-            return op
-
-        return make
-
-    monkeypatch.setattr(P, "ell_filter_factory", factory_with_chunk)
-    return runs
 
 
 def _solve(g, device="cpu"):
     start = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (g.n_points, CFG.eig_wide_block)).astype(np.float32)).to(device)
+    # SVQB refill noise, drawn where a block loses rank, from a seed.
+    gen = torch.Generator(device=device).manual_seed(0)
     with spans.call() as rec:
         rec.stage("spectra")
-        lams, vecs, _ = P._spectrum(g, CFG.n_total, CFG, start)
+        lams, vecs, _ = P._spectrum(g, CFG.n_total, CFG, start, generator=gen)
     return lams, vecs, rec
 
 
-def test_wide_solver_unchanged_on_cpu(monkeypatch):
-    """The 2562 pair's target: the ELL solve step by step, the same solve
-    through the fused chunk's plain version bit for bit, and the graph with
-    its patch plan through the patch-dense operator, as before the kernel."""
-    g = _bones(patch_blocks=False)
+@pytest.mark.parametrize("name", ["bones", "hub"])
+def test_wide_solver_unchanged_on_cpu(name):
+    """The 2562 pair's target and the hub graph: the solve through the
+    factory's chunk (``chebyshev_ell``'s plain version) equals bit for bit
+    the same solve with each chunk run step by step over ``ell_product``,
+    as before the kernel."""
+    g = _graph(name)
     lams, vecs, rec = _solve(g)
-    taken = []
-    real_pd = P.patch_filter_factory
-    monkeypatch.setattr(P, "patch_filter_factory",
-                        lambda *a: taken.append(1) or real_pd(*a))
-    _solve(_bones())
-    assert taken == [1]
+    with chip_smoke.stepwise_filter(tp):
+        lams_s, vecs_s, rec_s = _solve(g)
+    assert rec.solves == rec_s.solves
+    assert torch.equal(lams, lams_s) and torch.equal(vecs, vecs_s)
+
+
+def test_cpu_factory_gives_the_chunk_without_launches(operands):
+    """On CPU tensors the ELL factory gives the chunk as on CUDA tensors,
+    through ``cheb_step_plain``: nothing launches and ``cheb_steps_fused``
+    stays 0."""
     launches = CK.LAUNCHES
-    runs = _fused_on_cpu(monkeypatch)
-    lams_f, vecs_f, rec_f = _solve(g)
-    assert runs and set(runs) == {DEG}
-    assert torch.equal(lams, lams_f) and torch.equal(vecs, vecs_f)
-    assert rec.total("cheb_steps_fused") == 0 and rec_f.total("cheb_steps_fused") == 0
+    for ops in operands.values():
+        with spans.call() as rec:
+            rec.stage("spectra")
+            got = ops["chunk"](ops["t"], DEG)
+        assert torch.equal(got, chip_smoke.cheb_reference(ops["op"], ops["t"], DEG))
+        assert rec.total("cheb_steps_fused") == 0
     assert CK.LAUNCHES == launches
-
-
-def test_cpu_ops_offer_no_fused_chunk(operands):
-    """CPU tensors keep the recurrence over the op: the ELL factory attaches
-    the fused chunk on CUDA tensors only."""
-    assert all(not hasattr(ops["op"], "chebyshev") for ops in operands.values())
 
 
 @pytest.mark.parametrize("n,b,aligned,want", [
@@ -272,7 +234,9 @@ def test_kernel_matches_the_ell_step_on_the_card(case):
         g = _bones(levels, "cuda")
         b = chip_smoke.CHEB_NARROW_WIDTH if case == "narrow" else CFG.eig_wide_block
     ops = chip_smoke.cheb_operands(torch, tp, g, b)
-    assert hasattr(ops["op"], "chebyshev")
+    launches = CK.LAUNCHES
+    ops["chunk"](ops["t"], 3)  # the factory's chunk: one launch a step
+    assert CK.LAUNCHES == launches + 3
     errs = chip_smoke.cheb_errors(torch, CK, ops)
     assert max(errs.values()) <= TOL, errs
 

@@ -40,8 +40,7 @@ LAM_RTOL = 1e-4
 
 def _to_torch(ga):
     return TP.graph_arrays_from_numpy(
-        {k: np.asarray(v) for k, v in dataclasses.asdict(ga).items()
-         if k != "patch_plan"},
+        {k: np.asarray(v) for k, v in dataclasses.asdict(ga).items()},
         device="cpu",
     )
 

@@ -51,8 +51,7 @@ def _jax_mesh(mesh):
 
 def _to_torch(ga):
     return TP.graph_arrays_from_numpy(
-        {k: np.asarray(v) for k, v in dataclasses.asdict(ga).items()
-         if k != "patch_plan"},
+        {k: np.asarray(v) for k, v in dataclasses.asdict(ga).items()},
         device="cpu",
     )
 

@@ -7,9 +7,10 @@ attribute to 2000, so the pair takes the schedule each package takes from
 JAX runs ``register_pair``, ``register_pair_prepared`` and
 ``register_pair_prepared_source`` with ``PRNGKey(0)``; the port gets the
 draws JAX made (``test_torch_pipeline._jax_draws``, plus the source block
-from ``split(key, 8)[1]`` that the split's cold source solve reads).  The
-graphs carry JAX's patch plans, so both packages run the patch-dense
-filter.  Gates: ``test_torch_pipeline._check_slice``.  Within the port, the
+from ``split(key, 8)[1]`` that the split's cold source solve reads).  JAX's
+default graphs carry its patch-dense plans, so JAX runs that filter
+operator and the port its ELL one.  Gates:
+``test_torch_pipeline._check_slice``.  Within the port, the
 fused and the split schedules give the same target side bit for bit (the
 JAX package's contract, :853-855), and the split's source solve runs cold
 under ICP.
@@ -39,10 +40,7 @@ def _np(res):
 
 
 def _port_graph(ga):
-    fields = {k: np.asarray(v) for k, v in dataclasses.asdict(ga).items()
-              if k != "patch_plan"}
-    fields["patch_plan"] = {k: np.asarray(v) for k, v in ga.patch_plan.items()}
-    return TP.graph_arrays_from_numpy(fields, device="cpu")
+    return TP.graph_arrays_from_numpy(dataclasses.asdict(ga), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -22,11 +22,10 @@ iteration) on the 'kd' pair's ICP inputs, recorded from one
 ``register_pair``; with ``--sweep`` it also times the step at every cluster
 size (1-16 CTAs) at 256 to 163842 source rows, so the planner's
 ``ONE_CTA_MAX_ROWS`` can be read beside the others.  ``completion`` runs
-``phase_completion`` (the patch-dense filter against the ELL one, the
-split-spectra schedule on the 122k hub pair, the union and batched
-spectra, the auction) after building every library.  ``cheb_step`` runs
-``phase_cheb_step`` (the fused Chebyshev filter step against the plain ELL
-step, timed beside it, the patch-dense step and its bytes bound at 10242
+``phase_completion`` (the split-spectra schedule on the 122k hub pair,
+the union and batched spectra, the auction) after building every library.
+``cheb_step`` runs ``phase_cheb_step`` (the fused Chebyshev filter step
+against the plain ELL step, timed beside it and its bytes bound at 10242
 and 40962 vertices; a narrow block and a hub graph; a captured chunk; warm
 'kd' pairs fused and step by step).  ``--sweep`` also
 times both grids of the top-k kernel (1 and 4
